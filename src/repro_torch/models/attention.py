@@ -1,0 +1,276 @@
+"""GQA attention: causal (optionally sliding-window) attention for
+prefill, and single-token / multi-token-window decode against the paged
+KV block pool.
+
+Prefill attention is plain torch (einsum + masked softmax), as the JAX
+reference leaves it to XLA. The paged read goes through the gather path
+(``use_kernel=False``) or through ``kernels.paged_attention``
+(``use_kernel=True``): the hand-written CUDA kernel on CUDA tensors, its
+plain version on CPU tensors.
+
+Pool updates are **in place**: where the reference returns a new pool
+from a donated functional ``.at[].set``, these functions write the new
+tokens' K/V into the caller's pool tensors with ``index_put_`` and
+return the same tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.serve.blocks import SCRATCH_BLOCK
+
+_NEG = torch.finfo(torch.float32).min
+
+
+def init_attention(gen, cfg, device, dtype=None, lead: tuple = ()):
+    d, hd = cfg.d_model, cfg.hd
+    dtype = dtype or cfg.dtype
+    p = {
+        "w_q": layers.dense_init(gen, d, cfg.n_heads * hd, dtype, device,
+                                 lead),
+        "w_kv": layers.dense_init(gen, d, 2 * cfg.n_kv_heads * hd, dtype,
+                                  device, lead),
+        "w_o": layers.dense_init(gen, cfg.n_heads * hd, d, dtype, device,
+                                 lead),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=device)
+    return p
+
+
+def qkv(x, p, cfg, positions=None):
+    """Project to q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with rope + qk_norm."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, hd)
+    kv = (x @ p["w_kv"]).reshape(B, S, 2, cfg.n_kv_heads, hd)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    if cfg.qk_norm:
+        q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rope == "rope":
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope != "none":
+        raise NotImplementedError(
+            f"rope={cfg.rope!r}: mrope / learned positions are the "
+            "'frontends' slice of ROADMAP.md")
+    return q, k, v
+
+
+def _expand_kv(kv, G: int):
+    """(B,T,Hkv,hd) -> (B,T,Hq,hd) by repeating each kv head G times
+    (q head h reads kv head h // G)."""
+    if G == 1:
+        return kv
+    B, T, Hkv, hd = kv.shape
+    return kv[:, :, :, None, :].expand(B, T, Hkv, G, hd) \
+        .reshape(B, T, Hkv * G, hd)
+
+
+def _gqa_scores(q, k):
+    """q (B,S,Hq,hd), k (B,T,Hkv,hd) -> scores (B,Hq,S,T) in f32."""
+    hd = q.shape[-1]
+    kx = _expand_kv(k, q.shape[2] // k.shape[2])
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kx.float())
+    return s / math.sqrt(hd)
+
+
+def _combine(scores, v, Hq: int):
+    """scores (B,Hq,S,T) f32, v (B,T,Hkv,hd) -> out (B,S,Hq*hd); the
+    softmax weights are cast to v's dtype before the PV contraction."""
+    B, _, S, _ = scores.shape
+    vx = _expand_kv(v, Hq // v.shape[2])
+    w = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhst,bthd->bshd", w.to(v.dtype), vx)
+    return o.reshape(B, S, Hq * v.shape[-1])
+
+
+Q_CHUNK = 1024  # query-block size for the chunked path
+
+
+def _masked_attention(q, k, v, q_offset, *, sliding_window=0, causal=True):
+    """q (B,S,Hq,hd) at absolute positions q_offset + [0,S)."""
+    S, T = q.shape[1], k.shape[1]
+    scores = _gqa_scores(q, k)
+    i = torch.arange(S, device=q.device)[:, None] + q_offset
+    j = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if sliding_window:
+        mask &= j > i - sliding_window
+    scores = scores.masked_fill(~mask, _NEG)
+    return _combine(scores, v, q.shape[2])
+
+
+def causal_attention(q, k, v, *, sliding_window: int = 0, causal: bool = True):
+    """Full or sliding-window (causal) attention; q/k/v aligned in time.
+
+    Sequences that are a multiple of ``Q_CHUNK`` longer than it run in
+    query chunks, so the score tensor never materializes at (S, T)."""
+    B, S, Hq, hd = q.shape
+    T = k.shape[1]
+    if S <= Q_CHUNK or S % Q_CHUNK:
+        return _masked_attention(q, k, v, T - S, sliding_window=sliding_window,
+                                 causal=causal)
+    outs = [_masked_attention(q[:, c:c + Q_CHUNK], k, v, T - S + c,
+                              sliding_window=sliding_window, causal=causal)
+            for c in range(0, S, Q_CHUNK)]
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, n_valid, *, sliding_window: int = 0):
+    """One new token per sequence attending to the cache.
+
+    q: (B, 1, Hq, hd); k/v_cache: (B, T, Hkv, hd); n_valid: (B,) count
+    of valid cache entries (the new token's K/V already written)."""
+    scores = _gqa_scores(q, k_cache)                       # (B,Hq,1,T)
+    T = k_cache.shape[1]
+    j = torch.arange(T, device=q.device)
+    n_valid = n_valid.reshape(-1, 1)
+    valid = j[None, :] < n_valid                           # (B, T)
+    if sliding_window:
+        valid &= j[None, :] >= n_valid - sliding_window
+    scores = scores.masked_fill(~valid[:, None, None, :], _NEG)
+    return _combine(scores, v_cache, q.shape[2])
+
+
+def verify_decode_attention(q, k_cache, v_cache, base, *, sliding_window=0):
+    """Multi-token window decode against a gathered cache.
+
+    q: (B, S, Hq, hd) at absolute positions ``base[b] + [0, S)`` (their
+    K/V already written); k/v_cache: (B, T, Hkv, hd); base: (B,) tokens
+    cached per row *before* this window. Query j attends to cache
+    positions <= base[b] + j."""
+    scores = _gqa_scores(q, k_cache)                       # (B,Hq,S,T)
+    S, T = q.shape[1], k_cache.shape[1]
+    i = base.reshape(-1, 1, 1) + torch.arange(S, device=q.device)[None, :,
+                                                                  None]
+    j = torch.arange(T, device=q.device)[None, None, :]
+    valid = j <= i
+    if sliding_window:
+        valid &= j > i - sliding_window
+    scores = scores.masked_fill(~valid[:, None, :, :], _NEG)
+    return _combine(scores, v_cache, q.shape[2])
+
+
+def _gather(pool, block_table):
+    """(num_blocks, bs, Hkv, hd) pool -> (B, max_blocks*bs, Hkv, hd)."""
+    B, max_blocks = block_table.shape
+    g = pool[block_table.long()]
+    return g.reshape(B, max_blocks * pool.shape[1], *pool.shape[2:])
+
+
+def paged_verify_attention(q, pool_k, pool_v, k_new, v_new, block_table,
+                           cache_len, n_write, *, sliding_window: int = 0,
+                           use_kernel: bool = False):
+    """Multi-token window against the KV block pool: the speculative
+    verify step and the chunked-prefill step share this path.
+
+    q/k_new/v_new: (B, S, H*, hd) — S window tokens per row at positions
+    ``cache_len[b] + [0, S)``; n_write: (B,) tokens of the window row b
+    owns blocks for. Window token j of row b is written **in place** at
+    ``(block_table[b, (len+j) // bs], (len+j) % bs)`` when ``j <
+    n_write[b]`` and diverted to the scratch block otherwise (diverted
+    writes may collide there; scratch is never read into a committed
+    output). Returns (out (B, S, Hq*hd), pool_k, pool_v)."""
+    bs = pool_k.shape[1]
+    B, S = q.shape[:2]
+    max_blocks = block_table.shape[1]
+    base = cache_len.to(torch.int32).reshape(-1)            # (B,)
+    steps = torch.arange(S, device=q.device)
+    pos = base[:, None].long() + steps[None, :]             # (B,S)
+    safe = steps[None, :] < n_write.reshape(-1, 1)
+    # past the table only diverted pad positions occur; clamp the lookup
+    # as the reference's gather does
+    logical = torch.clamp(pos // bs, max=max_blocks - 1)
+    phys = torch.where(safe, block_table.long().gather(1, logical),
+                       SCRATCH_BLOCK)
+    pool_k[phys, pos % bs] = k_new.to(pool_k.dtype)
+    pool_v[phys, pos % bs] = v_new.to(pool_v.dtype)
+    if use_kernel:
+        from repro_torch.kernels.paged_attention.ops import (
+            paged_window_attention as _window_kernel)
+        out, _ = _window_kernel(q, pool_k, pool_v, block_table, base,
+                                sliding_window=sliding_window)
+        return out.reshape(B, S, -1), pool_k, pool_v
+    out = verify_decode_attention(q, _gather(pool_k, block_table),
+                                  _gather(pool_v, block_table), base,
+                                  sliding_window=sliding_window)
+    return out, pool_k, pool_v
+
+
+def paged_decode_attention(q, pool_k, pool_v, k_new, v_new, block_table,
+                           cache_len, *, sliding_window: int = 0,
+                           use_kernel: bool = False):
+    """Decode one token per sequence against the shared KV block pool.
+
+    q/k_new/v_new: (B, 1, H*, hd); pool_k/pool_v: (num_blocks, bs, Hkv,
+    hd); block_table: (B, max_blocks) int32; cache_len: (B,) tokens
+    already cached per row. The new token's K/V is written in place at
+    ``(block_table[b, len // bs], len % bs)`` first; then row b attends
+    to its ``len + 1`` tokens, through the gather (``use_kernel=False``)
+    or the paged-window kernel at S = 1. Returns (out, pool_k, pool_v)."""
+    bs = pool_k.shape[1]
+    idx = cache_len.to(torch.int32).reshape(-1)             # (B,)
+    rows = torch.arange(idx.shape[0], device=q.device)
+    phys = block_table.long()[rows, (idx // bs).long()]
+    pool_k[phys, (idx % bs).long()] = k_new[:, 0].to(pool_k.dtype)
+    pool_v[phys, (idx % bs).long()] = v_new[:, 0].to(pool_v.dtype)
+    B = block_table.shape[0]
+    if use_kernel:
+        from repro_torch.kernels.paged_attention.ops import (
+            paged_decode_attention as _paged_kernel)
+        out, _ = _paged_kernel(q[:, 0], pool_k, pool_v, block_table, idx + 1,
+                               sliding_window=sliding_window)
+        return out.reshape(B, 1, -1), pool_k, pool_v
+    out = decode_attention(q, _gather(pool_k, block_table),
+                           _gather(pool_v, block_table), idx + 1,
+                           sliding_window=sliding_window)
+    return out, pool_k, pool_v
+
+
+def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
+                    positions=None, causal=True, sliding_window=None,
+                    block_table=None, paged_kernel=False, n_write=None):
+    """Full attention sub-block incl. output proj. Returns (out, new_cache).
+
+    In prefill/train mode ``cache`` is unused and prefill returns this
+    layer's fresh ``{k, v}``. In decode mode ``cache`` is the layer's
+    paged pool dict(k=(num_blocks,bs,Hkv,hd), ...) with ``block_table``
+    set; ``x`` with more than one token per row is a multi-token window
+    (chunked prefill / verify) whose writes past ``n_write[b]`` divert
+    to scratch. The pool is updated in place and returned."""
+    win = cfg.sliding_window if sliding_window is None else sliding_window
+    if mode == "decode":
+        if block_table is None:
+            raise NotImplementedError(
+                "stripe (non-paged) decode: the 'stripe path' slice of "
+                "ROADMAP.md")
+        B, S, _ = x.shape
+        idx = cache_len.to(torch.int32).reshape(-1)
+        if S > 1:
+            pos = idx[:, None] + torch.arange(S, device=x.device)[None, :]
+            q, k, v = qkv(x, p, cfg, positions=pos)
+            nw = torch.full((B,), S, dtype=torch.int32, device=x.device) \
+                if n_write is None else n_write
+            o, k_cache, v_cache = paged_verify_attention(
+                q, cache["k"], cache["v"], k, v, block_table, idx, nw,
+                sliding_window=win, use_kernel=paged_kernel)
+        else:
+            q, k, v = qkv(x, p, cfg, positions=idx.reshape(-1, 1))
+            o, k_cache, v_cache = paged_decode_attention(
+                q, cache["k"], cache["v"], k, v, block_table, idx,
+                sliding_window=win, use_kernel=paged_kernel)
+        return o @ p["w_o"], {"k": k_cache, "v": v_cache}
+    q, k, v = qkv(x, p, cfg, positions=positions)
+    o = causal_attention(q, k, v, sliding_window=win, causal=causal)
+    new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    return o @ p["w_o"], new_cache

@@ -1,0 +1,94 @@
+"""Shared building blocks: norms, activations, rotary embeddings, inits.
+
+Params are nested dicts of tensors. Layer-stacked params carry a leading
+L axis; the backbone loops over it. Norms and rope compute in float32
+and cast back to the input dtype, at the same points as the JAX
+reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------- init utils
+def dense_init(gen, d_in: int, d_out: int, dtype, device,
+               lead: tuple = ()) -> torch.Tensor:
+    """Normal(0, 1/d_in) weight ``lead + (d_in, d_out)``, drawn in float32
+    from the explicit generator ``gen`` (None only on the meta device)."""
+    w = torch.randn(lead + (d_in, d_out), generator=gen,
+                    dtype=torch.float32, device=device)
+    return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
+
+
+# ---------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma.float()).to(dt)
+
+
+# ---------------------------------------------------------------- activations
+GATED_ACTS = ("swiglu", "geglu")
+
+
+def _relu2(x):
+    return torch.square(F.relu(x))
+
+
+def _gelu_tanh(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    if name == "swiglu" or name == "silu":
+        return F.silu
+    if name == "relu2":
+        return _relu2
+    if name in ("gelu", "geglu"):
+        return _gelu_tanh
+    raise ValueError(f"unknown activation {name}")
+
+
+def mlp(x, p, act: str):
+    """Gated (swiglu) or plain 2-matrix MLP. p: {w_in, w_out[, w_gate]}."""
+    if "w_gate" in p:
+        h = act_fn(act)(x @ p["w_gate"]) * (x @ p["w_in"])
+    else:
+        h = act_fn(act)(x @ p["w_in"])
+    return h @ p["w_out"]
+
+
+def init_mlp(gen, d_model: int, d_ff: int, act: str, dtype, device,
+             lead: tuple = ()):
+    p = {
+        "w_in": dense_init(gen, d_model, d_ff, dtype, device, lead),
+        "w_out": dense_init(gen, d_ff, d_model, dtype, device, lead),
+    }
+    if act in GATED_ACTS:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, dtype, device, lead)
+    return p
+
+
+# ---------------------------------------------------------------- rotary
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs               # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,123 @@
+"""Package hygiene of the PyTorch port: it imports neither ``jax`` nor
+anything of the JAX package, its entry points never fall back to the CPU
+on their own, its kernel wrapper refuses CPU tensors, and
+``chip_smoke.py`` fails without a GPU."""
+import ast
+import ctypes
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import kernel as pw_kernel
+from repro_torch.models.model import build_model, init_params
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print(len(names), "modules;", "leaked:", bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py",
+                                  *sorted(str(p.relative_to(ROOT)) for p in
+                                          (ROOT / "src/repro_torch")
+                                          .rglob("*.py"))])
+def test_sources_import_no_jax(path):
+    """Static check of every module: no ``import jax`` / ``repro.``."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    """No GPU here: the smoke exits non-zero and prints no result line —
+    from the repo and from a directory holding only the script."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    for script in (ROOT / "chip_smoke.py", alone):
+        r = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0, r.stdout
+        assert '"ok"' not in r.stdout
+
+
+def test_entry_points_default_to_cuda_without_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_config("qwen3-4b").reduced()
+    assert build_model(cfg).device.type == "cuda"
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_params(cfg)                       # device="cuda" by default
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q = torch.zeros((1, 1, 4, 32))
+    pool = torch.zeros((2, 8, 2, 32))
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    base = torch.zeros(1, dtype=torch.int32)
+    before = pw_kernel.paged_window_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        pw_kernel.paged_window_attention(q, pool, pool, table, base)
+    assert pw_kernel.paged_window_attention.launches == before
+
+
+def test_build_path_follows_source_hash(tmp_path):
+    """A library is named by its source's hash: an edit builds anew."""
+    src = tmp_path / "k.cu"
+    src.write_text("// one")
+    one = _build.library_path(src)
+    assert one == _build.library_path(src)
+    assert one.parent == _build.BUILD_DIR and one.name.startswith("k-")
+    src.write_text("// two")
+    assert _build.library_path(src) != one
+    assert [p.name for p in _build.sources()] == ["paged_window.cu"]
+
+
+def test_binding_matches_the_c_signature():
+    """The ctypes argtypes mirror the CUDA source's extern "C" entry:
+    pointers as c_void_p, ints as c_int, in order."""
+    src = pw_kernel.SOURCE.read_text()
+    sig = re.search(r'extern "C" int paged_window_attention\((.*?)\)\s*\{',
+                    src, re.S).group(1)
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert pw_kernel.ARGTYPES == want, params
