@@ -12,7 +12,15 @@ Phases (any failure exits non-zero; no result line is printed then):
    the full qwen3-4b head shape (Hq 32, Hkv 8, hd 128, bs 16, B 8) for
    S in {1, 4, 64}, ragged base lengths, one sliding window, f32
    (atol = rtol = 1e-4) and bf16 (3e-2); poisoning scratch block 0
-   changes no output bit.
+   changes no output bit. Then the two scan kernels, f32, random inputs
+   (non-zero bonus u, decays w in (0.45, 0.95), varied dt, A and D, a
+   random initial state; k and the WKV state scaled by 1/sqrt(hd) and C
+   by 1/sqrt(N) so outputs are of order 1): ``wkv_scan`` at the
+   rwkv6-1.6b decode shape (B 8, T 1, H 32, hd 64), a full-width prefill
+   (T 300) and a reduced shape (hd 32); ``ssm_scan`` at the hymba-1.5b
+   decode shape (B 8, T 1, di 3200, N 16), T 300 and di 512. Max abs
+   error of out and final state within 1e-5 at T = 1, 1e-4 at T >= 256;
+   two halves with the state threaded through equal the whole scan.
 4. Serve at full width: qwen3-4b (36 layers, bf16, random weights from a
    seeded generator) behind ``ServingEngine(batch_size=8, max_seq=1024,
    use_kernel=True)``, 8 greedy requests. The kernel must launch once per
@@ -21,12 +29,26 @@ Phases (any failure exits non-zero; no result line is printed then):
    idle share and the top kernels.
 5. Kernel path vs plain path at full width in f32 (4 layers): identical
    token streams, logprobs within 1e-3.
+6. Serve full-width rwkv6-1.6b (24 layers) and hymba-1.5b (32 layers),
+   bf16, random weights from seed 0, ``ServingEngine(batch_size=8,
+   max_seq=1024)`` on the stripe layout, 10 greedy requests of 16 new
+   tokens (two prompts of one length co-batch, slots are reused). Each
+   model's scan kernel must launch once per layer per prefill call and
+   decode step; every request completes and no slot stays active. Each
+   serve runs again under ``torch.profiler``.
+7. Recurrent kernel path vs plain path, full width, f32, 2 layers (f32
+   leaves perturbed from their constant init): 4 requests through the
+   port on the card (the scan kernels) and on the CPU (their plain
+   versions), same weights: identical token streams, logprobs within
+   1e-3.
 
-Then the kernel's times (CUDA events, L2 flushed between launches,
-median of 30) at the decode shape of phase 4 beside its plain version,
-``scaled_dot_product_attention`` on the gathered KV (a yardstick only;
-the port never calls it) and the bound from bytes and flops. TF32 is off
-for every f32 comparison.
+Then every kernel's times (CUDA events, L2 flushed between launches,
+median of 30) at the decode shape of its serve beside its plain version
+and its bound from bytes and flops (and for the scans, at a 300-token
+prefill, the latency floor of 300 dependent steps);
+``scaled_dot_product_attention`` on the gathered KV is the attention
+kernel's yardstick (the port never calls it); no single PyTorch call
+computes either recurrence. TF32 is off for every f32 comparison.
 """
 from __future__ import annotations
 
@@ -46,9 +68,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SM_CLOCK_HZ = 1.98e9            # H100 SXM boost clock
+FMA_CYCLES = 4                  # latency of one dependent f32 FMA
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 HQ, HKV, HD, BS, B, MAX_BLOCKS = 32, 8, 128, 16, 8, 64
 SEED = 0
+PREFILL_T = 300                 # scan prefill shape: the longest prompt
 
 
 def phase(name):
@@ -117,6 +142,72 @@ def check_kernel_vs_plain(window_attn):
     return worst
 
 
+# ------------------------------------------------------- scan kernel cases
+def wkv_case(Bq, T, H, hd, *, seed=0):
+    """r, k, v, w, u, state on the card: k and the state scaled by
+    1/sqrt(hd), decays in (0.45, 0.95), a non-zero bonus u."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((Bq, T, H, hd), generator=g) for _ in range(3))
+    w = 0.45 + 0.5 * torch.sigmoid(torch.randn((Bq, T, H, hd), generator=g))
+    u = 0.5 * torch.randn((H, hd), generator=g)
+    s0 = torch.randn((Bq, H, hd, hd), generator=g)
+    return [t.cuda() for t in (r, k / math.sqrt(hd), v, w, u,
+                               s0 / math.sqrt(hd))]
+
+
+def ssm_case(Bq, T, di, N, *, seed=0):
+    """u, dt, Bm, Cm, A, D, state on the card: dt = softplus(z - 1),
+    A = -exp(z / 2), D = 1 + 0.3 z, C scaled by 1/sqrt(N)."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn((Bq, T, di), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((Bq, T, di), generator=g)
+                                      - 1.0)
+    Bm, Cm = (torch.randn((Bq, T, N), generator=g) for _ in range(2))
+    A = -torch.exp(0.5 * torch.randn((di, N), generator=g))
+    D = 1.0 + 0.3 * torch.randn(di, generator=g)
+    s0 = torch.randn((Bq, di, N), generator=g)
+    return [t.cuda() for t in (u, dt, Bm, Cm / math.sqrt(N), A, D, s0)]
+
+
+def scan_tol(T):
+    """One step: 1e-5; longer scans carry a state that accumulates
+    rounding: 1e-4."""
+    return 1e-5 if T == 1 else 1e-4
+
+
+def check_scan_vs_plain(name, op, case, shapes):
+    """op on the card against op(force_ref=True) at each (shape, T); then
+    two halves with the state threaded through against the whole."""
+    worst = 0.0
+    for shape in shapes:
+        T = shape[1]
+        args = case(*shape, seed=T)
+        out, st = op(*args)
+        ro, rs = op(*args, force_ref=True)
+        torch.cuda.synchronize()
+        err = max((out - ro).abs().max().item(), (st - rs).abs().max().item())
+        tol = scan_tol(T)
+        print(f"{name} {shape}: max |kernel - plain| {err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"{name} {shape}: error {err} > {tol}")
+        worst = max(worst, err)
+    args = case(*shapes[1], seed=99)
+    T, h = shapes[1][1], shapes[1][1] // 3
+    seq, rest = args[:4], args[4:-1]      # 4 time-major inputs, then the
+    #                                       per-channel ones, then state
+    out, st = op(*args)
+    o1, s1 = op(*(t[:, :h].contiguous() for t in seq), *rest, args[-1])
+    o2, s2 = op(*(t[:, h:].contiguous() for t in seq), *rest, s1)
+    torch.cuda.synchronize()
+    err = max((torch.cat([o1, o2], 1) - out).abs().max().item(),
+              (s2 - st).abs().max().item())
+    print(f"{name}: halves {h} + {T - h} with the state threaded vs the "
+          f"whole: max |diff| {err:.3e} (tol {scan_tol(T)})")
+    if not err <= scan_tol(T):
+        raise AssertionError(f"{name}: state carry differs by {err}")
+    return worst
+
+
 # ---------------------------------------------------------------- serving
 def make_requests(Request, vocab):
     """8 greedy requests: mixed lengths, one ~300-token prompt (chunk
@@ -135,15 +226,34 @@ def make_requests(Request, vocab):
             for i, p in enumerate(prompts)]
 
 
+def make_recurrent_requests(Request, vocab, lens=(300, 74, 64, 64, 5, 17,
+                                                   33, 120, 250, 40),
+                            max_new=16):
+    """Greedy requests for the stripe serves: 10 prompts by default, two
+    of one length (they co-batch), more than the 8 slots (slots are
+    reused)."""
+    g = torch.Generator().manual_seed(SEED + 2)
+    return [Request(rid=i, prompt=torch.randint(2, vocab, (n,), generator=g)
+                    .tolist(), max_new_tokens=max_new)
+            for i, n in enumerate(lens)]
+
+
+def run_engine(eng, reqs):
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(list(reqs))
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
 def serve(cfg, params, model, ServingEngine, Request, use_kernel):
     eng = ServingEngine(model, params, batch_size=8, max_seq=1024,
                         use_kernel=use_kernel)
     reqs = make_requests(Request, cfg.vocab_size)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run(list(reqs))
-    torch.cuda.synchronize()
-    return eng, reqs, done, time.perf_counter() - t0
+    done, wall = run_engine(eng, reqs)
+    return eng, reqs, done, wall
 
 
 def check_outputs(reqs, done, vocab):
@@ -160,16 +270,104 @@ def check_outputs(reqs, done, vocab):
                                  f"{r.out_logprobs}")
 
 
-def profile_serve(cfg, params, model, ServingEngine, Request):
-    """Where the time of the phase-4 serve goes: the same requests again
-    under torch.profiler (its overhead included), device time summed
-    over kernels against the wall time, and the top kernels."""
+def serve_recurrent(arch, fn, get_config, build_model, ServingEngine,
+                    Request):
+    """Phase 6 for one model: full width, bf16, seed-0 weights, the stripe
+    engine, 10 requests; ``fn`` is the model's scan kernel wrapper, whose
+    launches are counted from 0 over the serve. Returns the launches."""
+    cfg = get_config(arch)
+    model = build_model(cfg, device="cuda")
+    params = model.init(SEED)
+
+    def run():
+        eng = ServingEngine(model, params, batch_size=8, max_seq=1024)
+        reqs = make_recurrent_requests(Request, cfg.vocab_size)
+        done, wall = run_engine(eng, reqs)
+        return eng, reqs, done, wall
+
+    fn.launches = 0
+    eng, reqs, done, wall = run()
+    launches = fn.launches
+    check_outputs(reqs, done, cfg.vocab_size)
+    m, stats = eng.metrics, eng.pool_stats()
+    print("metrics:", json.dumps(m))
+    print("pool:", json.dumps(stats))
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    lat = sorted(r.latency_s for r in reqs)
+    print(f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s; "
+          f"latency p50 {statistics.median(lat):.3f} s, max {lat[-1]:.3f} s")
+    expect = cfg.n_layers * (m["prefill_batches"] + m["decode_steps"])
+    print(f"{fn.__name__} launches {launches}; {cfg.n_layers} layers x "
+          f"({m['prefill_batches']} prefill calls + {m['decode_steps']} "
+          f"decode steps) = {expect}")
+    if launches <= 0 or launches != expect:
+        raise AssertionError(f"{fn.__name__} launches {launches} != {expect}")
+    if stats["paged"] or stats["active"]:
+        raise AssertionError(f"stripe engine did not drain: {stats}")
+    if m["prefill_batches"] >= m["prefills"] or m["slot_reuses"] == 0:
+        raise AssertionError("co-batched admission and slot reuse must "
+                             "both have run")
+    profile_serve(lambda: run()[::3])          # (engine, wall)
+    return launches
+
+
+def perturb_f32_leaves(params, seed):
+    """Seeded noise on the f32 leaves that init to constants (bonus_u,
+    decay_base; dt_bias, D, A_log), in place."""
+    blocks = params["blocks"]
+    g = torch.Generator(device=blocks["ln1"].device).manual_seed(seed)
+    if "tmix" in blocks:
+        blocks["tmix"]["bonus_u"].normal_(0.0, 0.5, generator=g)
+        blocks["tmix"]["decay_base"].uniform_(-3.0, 1.0, generator=g)
+    if "ssm" in blocks:
+        p = blocks["ssm"]
+        p["dt_bias"].normal_(0.0, 0.5, generator=g)
+        p["D"].normal_(1.0, 0.3, generator=g)
+        p["A_log"].add_(0.3 * torch.randn(p["A_log"].shape, generator=g,
+                                          device=p["A_log"].device))
+
+
+def recurrent_card_vs_cpu(arch, get_config, build_model, ServingEngine,
+                          Request):
+    """Phase 7 for one model: 2 full-width layers in f32, the same
+    weights on the card (scan kernels) and on the CPU (plain scans)."""
+    cfg = replace(get_config(arch), n_layers=2, dtype=torch.float32)
+    params = build_model(cfg, device="cuda").init(SEED)
+    perturb_f32_leaves(params, SEED + 3)
+    streams, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        p = params if device == "cuda" else _to(params, "cpu")
+        eng = ServingEngine(build_model(cfg, device=device), p, batch_size=4,
+                            max_seq=128, device=device)
+        reqs = make_recurrent_requests(Request, cfg.vocab_size,
+                                       lens=(96, 40, 40, 7), max_new=8)
+        done, walls[device] = run_engine(eng, reqs)
+        check_outputs(reqs, done, cfg.vocab_size)
+        streams[device] = reqs
+    lp_err = 0.0
+    for a, b in zip(streams["cuda"], streams["cpu"]):
+        if a.out_tokens != b.out_tokens:
+            raise AssertionError(f"{arch} request {a.rid}: card "
+                                 f"{a.out_tokens} != cpu {b.out_tokens}")
+        lp_err = max(lp_err, max(abs(x - y) for x, y in
+                                 zip(a.out_logprobs, b.out_logprobs)))
+    print(f"{arch}: token streams identical; max |logprob diff| "
+          f"{lp_err:.3e} (tol 1e-3); card {walls['cuda']:.3f} s, cpu "
+          f"{walls['cpu']:.3f} s")
+    if lp_err > 1e-3:
+        raise AssertionError(f"{arch}: logprobs differ by {lp_err}")
+
+
+def profile_serve(run):
+    """Where the time of a serve goes: ``run()`` (returning the engine
+    and its wall time) again under torch.profiler (its overhead
+    included), device time summed over kernels against the wall time,
+    and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng, _, _, wall = serve(cfg, params, model, ServingEngine, Request,
-                                use_kernel=True)
+        eng, wall = run()
     # device-side events only (kernels, copies): the CPU ops that launch
     # them carry the same time again
     rows = sorted(((e.self_device_time_total, e) for e in prof.key_averages()
@@ -240,6 +438,39 @@ def bound(q, base, S, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _f32_bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wkv_bound(Bq, T, H, hd):
+    """r, k, v, w and u read once, out written once, the state read and
+    written once, f32; 7 flops per state entry per step (k v product,
+    bonus, r dot, decay FMA)."""
+    nbytes = 4 * (5 * Bq * T * H * hd + H * hd + 2 * Bq * H * hd * hd)
+    return _f32_bound(nbytes, 7 * Bq * T * H * hd * hd)
+
+
+def ssm_bound(Bq, T, di, N):
+    """u, dt, B, C, A and D read once, y written once, the state read and
+    written once, f32; 7 operations per state entry per step (dt A, exp,
+    decay, input FMA, C dot) and 2 per channel (dt u, D u)."""
+    nbytes = 4 * (3 * Bq * T * di + 2 * Bq * T * N + di * N + di
+                  + 2 * Bq * di * N)
+    return _f32_bound(nbytes, 7 * Bq * T * di * N + 2 * Bq * T * di)
+
+
+def step_floor_ms(T):
+    """Latency floor of T dependent steps: one f32 FMA each."""
+    return T * FMA_CYCLES / SM_CLOCK_HZ * 1e3
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -258,6 +489,10 @@ def main() -> int:
     from repro_torch.kernels.paged_attention.ops import paged_window_attention
     from repro_torch.kernels.paged_attention.ref import (
         paged_window_attention_ref)
+    from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv_scan.ops import wkv
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import Request, ServingEngine
 
@@ -273,8 +508,12 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip())
 
-    phase("3. kernel vs plain version on the card (TF32 off)")
+    phase("3. kernels vs plain versions on the card (TF32 off)")
     max_err = check_kernel_vs_plain(paged_window_attention)
+    wkv_err = check_scan_vs_plain("wkv_scan", wkv, wkv_case, [
+        (8, 1, 32, 64), (1, PREFILL_T, 32, 64), (4, 64, 4, 32)])
+    ssm_err = check_scan_vs_plain("ssm_scan", selective_scan, ssm_case, [
+        (8, 1, 3200, 16), (1, PREFILL_T, 3200, 16), (4, 64, 512, 16)])
 
     phase("4. serve full-width qwen3-4b, bf16, use_kernel=True")
     cfg = get_config("qwen3-4b")
@@ -312,7 +551,8 @@ def main() -> int:
             or stats["logical_blocks"]:
         raise AssertionError(f"pool did not drain: {stats}")
     decode_bases = [len(r.prompt) + len(r.out_tokens) - 1 for r in reqs]
-    profile_serve(cfg, params, model, ServingEngine, Request)
+    profile_serve(lambda: serve(cfg, params, model, ServingEngine, Request,
+                                use_kernel=True)[::3])
     del eng, params, model
     torch.cuda.empty_cache()
 
@@ -340,7 +580,23 @@ def main() -> int:
     del params32, model32
     torch.cuda.empty_cache()
 
-    phase("timing at the decode shape of phase 4 (bf16, S = 1)")
+    phase("6. serve full-width rwkv6-1.6b and hymba-1.5b, bf16, stripes")
+    scan_launches = {}
+    for arch, fn in (("rwkv6-1.6b", wkv_kernel.wkv_scan),
+                     ("hymba-1.5b", ssm_kernel.ssm_scan)):
+        print(f"--- {arch}")
+        scan_launches[fn.__name__] = serve_recurrent(
+            arch, fn, get_config, build_model, ServingEngine, Request)
+        torch.cuda.empty_cache()
+
+    phase("7. recurrent kernel path vs plain path, full width, f32, "
+          "2 layers, card vs CPU")
+    for arch in ("rwkv6-1.6b", "hymba-1.5b"):
+        recurrent_card_vs_cpu(arch, get_config, build_model, ServingEngine,
+                              Request)
+        torch.cuda.empty_cache()
+
+    phase("timing at the decode shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
     timings = {}
@@ -355,15 +611,43 @@ def main() -> int:
         print(f"S={S:2d} bases {bases}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, sdpa on gathered KV {l_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by})")
+    scans = {}
+    for name, op, case, bound_fn, dims in (
+            ("wkv_scan", wkv, wkv_case, wkv_bound, (32, 64)),
+            ("ssm_scan", selective_scan, ssm_case, ssm_bound, (3200, 16))):
+        for shape in ((B, 1, *dims), (1, PREFILL_T, *dims)):
+            args = case(*shape, seed=11)
+            k_ms = time_ms(lambda: op(*args), flush)
+            p_ms = time_ms(lambda: op(*args, force_ref=True), flush)
+            b_ms, b_by = bound_fn(*shape)
+            scans.setdefault(name, (k_ms, p_ms, b_ms, b_by))
+            print(f"{name} {shape}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), latency "
+                  f"floor of {shape[1]} dependent steps "
+                  f"{step_floor_ms(shape[1]):.5f} ms")
     k_ms, p_ms, l_ms, b_ms, b_by = timings[1]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "paged_window_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
                   "paged_window.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:148",
         "launches": launches, "max_abs_err": max_err, "max_err": max_err,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": l_ms}]}))
+        "bound_by": b_by, "library_ms": l_ms}]
+    for name, source, replaces, err in (
+            ("wkv_scan", "rwkv_scan/csrc/wkv.cu", "rwkv_scan/kernel.py:29",
+             wkv_err),
+            ("ssm_scan", "ssm_scan/csrc/ssm_scan.cu", "ssm_scan/kernel.py:36",
+             ssm_err)):
+        k_ms, p_ms, b_ms, b_by = scans[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": scan_launches[name], "max_abs_err": err,
+            "max_err": err, "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

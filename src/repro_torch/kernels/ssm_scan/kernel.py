@@ -1,0 +1,83 @@
+"""Binding of the CUDA selective-scan kernel (``csrc/ssm_scan.cu``,
+built by ``kernels._build``, loaded with ``ctypes``).
+
+The wrapper checks device, dtype, shape and contiguity, allocates ``y``
+/ the final state with ``torch.empty``, and launches on the current CUDA
+stream without synchronising; a launch CUDA refuses raises.
+``ssm_scan.launches`` counts successful launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
+MAX_STATE = 64                 # h[N] of a channel lives in registers
+# the C signature: u, dt, Bm, Cm, A, D, state, y, state_out; B, T, di,
+# N; stream
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load(SOURCE).ssm_scan
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(u, dt, Bm, Cm, A, D, state):
+    named = (("u", u), ("dt", dt), ("Bm", Bm), ("Cm", Cm), ("A", A),
+             ("D", D), ("state", state))
+    if u.device.type != "cuda":
+        raise ValueError(f"ssm_scan kernel needs CUDA tensors, got u on "
+                         f"{u.device}")
+    for name, t in named:
+        if t.device != u.device:
+            raise ValueError(f"{name} on {t.device}, u on {u.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} dtype {t.dtype}: float32 only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if u.dim() != 3 or dt.shape != u.shape or Bm.dim() != 3 \
+            or Cm.shape != Bm.shape or Bm.shape[:2] != u.shape[:2]:
+        raise ValueError(f"u/dt {tuple(u.shape)}, {tuple(dt.shape)} must be "
+                         f"(B, T, di); Bm/Cm {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)} (B, T, N)")
+    B, _, di = u.shape
+    N = Bm.shape[-1]
+    if tuple(A.shape) != (di, N) or tuple(D.shape) != (di,) \
+            or tuple(state.shape) != (B, di, N):
+        raise ValueError(f"A {tuple(A.shape)} / D {tuple(D.shape)} / state "
+                         f"{tuple(state.shape)} for di={di}, N={N}")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"state size {N}: the kernel takes 1..{MAX_STATE}")
+
+
+def ssm_scan(u, dt, Bm, Cm, A, D, state):
+    """The CUDA kernel. u/dt (B,T,di), Bm/Cm (B,T,N), A (di,N), D (di,),
+    state (B,di,N): contiguous float32 on one CUDA device. Returns
+    (y (B,T,di), final state (B,di,N)), both float32."""
+    _check(u, dt, Bm, Cm, A, D, state)
+    B, T, di = u.shape
+    y = torch.empty_like(u)
+    if B == 0 or T == 0 or di == 0:
+        return y, state.clone()
+    state_out = torch.empty_like(state)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = _launcher()(u.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+                      Cm.data_ptr(), A.data_ptr(), D.data_ptr(),
+                      state.data_ptr(), y.data_ptr(), state_out.data_ptr(),
+                      B, T, di, Bm.shape[-1], stream)
+    if err:
+        raise RuntimeError(f"ssm_scan launch failed: cudaError_t {err}")
+    ssm_scan.launches += 1
+    return y, state_out
+
+
+ssm_scan.launches = 0

@@ -1,6 +1,6 @@
 """GQA attention: causal (optionally sliding-window) attention for
 prefill, and single-token / multi-token-window decode against the paged
-KV block pool.
+KV block pool or the fixed per-slot stripe cache.
 
 Prefill attention is plain torch (einsum + masked softmax), as the JAX
 reference leaves it to XLA. The paged read goes through the gather path
@@ -8,10 +8,12 @@ reference leaves it to XLA. The paged read goes through the gather path
 (``use_kernel=True``): the hand-written CUDA kernel on CUDA tensors, its
 plain version on CPU tensors.
 
-Pool updates are **in place**: where the reference returns a new pool
-from a donated functional ``.at[].set``, these functions write the new
-tokens' K/V into the caller's pool tensors with ``index_put_`` and
-return the same tensors.
+Cache updates are **in place**: where the reference returns a new pool
+or stripe from a donated functional ``.at[].set``, these functions write
+the new tokens' K/V into the caller's tensors with ``index_put_`` and
+return the same tensors. A stripe write past the stripe's end is
+dropped, as JAX drops an out-of-bounds scatter update
+(:func:`_stripe_write`).
 """
 from __future__ import annotations
 
@@ -237,6 +239,58 @@ def paged_decode_attention(q, pool_k, pool_v, k_new, v_new, block_table,
     return out, pool_k, pool_v
 
 
+def _stripe_write(cache, new, pos):
+    """Write ``new`` (B,S,Hkv,hd) into the stripe ``cache`` (B,T,Hkv,hd)
+    in place at positions ``pos`` (B,S); a position >= T is dropped.
+
+    No host sync and no real position changes: a dropped write is sent
+    to a site that receives the same value anyway — the row's first
+    window position (written with ``new[:, 0]``) when that one is in
+    range, else position T - 1 rewritten with its own old value."""
+    B, T = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    new = new.to(cache.dtype)
+    ok = pos < T
+    head_ok = ok[:, :1]
+    anchor = torch.where(head_ok, pos[:, :1], T - 1)          # (B,1)
+    keep = torch.where(head_ok[..., None, None], new[:, :1],
+                       cache[rows, anchor])
+    cache[rows, torch.where(ok, pos, anchor)] = torch.where(
+        ok[..., None, None], new, keep)
+    return cache
+
+
+def stripe_verify_attention(q, k_cache, v_cache, k_new, v_new, cache_len, *,
+                            sliding_window: int = 0):
+    """Multi-token window against the stripe cache: window token j of
+    row b writes its K/V at ``cache_len[b] + j`` (dropped past the
+    stripe) and attends to cache positions <= ``cache_len[b] + j``.
+    Returns (out (B,S,Hq*hd), k_cache, v_cache)."""
+    S = q.shape[1]
+    base = cache_len.reshape(-1)
+    pos = base[:, None].long() + torch.arange(S, device=q.device)[None, :]
+    _stripe_write(k_cache, k_new, pos)
+    _stripe_write(v_cache, v_new, pos)
+    out = verify_decode_attention(q, k_cache, v_cache, base,
+                                  sliding_window=sliding_window)
+    return out, k_cache, v_cache
+
+
+def stripe_decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len, *,
+                            sliding_window: int = 0):
+    """One token per row against the stripe cache: cache_len (B,) tokens
+    already cached per row (a scalar applies to every row). The new K/V
+    goes to ``cache_len[b]`` (dropped at capacity), then row b attends
+    to its ``cache_len[b] + 1`` tokens. Returns (out, k_cache, v_cache)."""
+    B = q.shape[0]
+    idx = cache_len.reshape(-1).expand(B)
+    _stripe_write(k_cache, k_new, idx[:, None].long())
+    _stripe_write(v_cache, v_new, idx[:, None].long())
+    out = decode_attention(q, k_cache, v_cache, idx + 1,
+                           sliding_window=sliding_window)
+    return out, k_cache, v_cache
+
+
 def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
                     positions=None, causal=True, sliding_window=None,
                     block_table=None, paged_kernel=False, n_write=None):
@@ -245,30 +299,39 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
     In prefill/train mode ``cache`` is unused and prefill returns this
     layer's fresh ``{k, v}``. In decode mode ``cache`` is the layer's
     paged pool dict(k=(num_blocks,bs,Hkv,hd), ...) with ``block_table``
-    set; ``x`` with more than one token per row is a multi-token window
-    (chunked prefill / verify) whose writes past ``n_write[b]`` divert
-    to scratch. The pool is updated in place and returned."""
+    set, or its stripes dict(k=(B,T,Hkv,hd), ...) without; ``x`` with
+    more than one token per row is a multi-token window (chunked prefill
+    / verify) whose paged writes past ``n_write[b]`` divert to scratch.
+    The cache is updated in place and returned."""
     win = cfg.sliding_window if sliding_window is None else sliding_window
     if mode == "decode":
-        if block_table is None:
-            raise NotImplementedError(
-                "stripe (non-paged) decode: the 'stripe path' slice of "
-                "ROADMAP.md")
         B, S, _ = x.shape
-        idx = cache_len.to(torch.int32).reshape(-1)
+        idx = cache_len.to(torch.int32)
         if S > 1:
+            idx = idx.reshape(-1)
             pos = idx[:, None] + torch.arange(S, device=x.device)[None, :]
             q, k, v = qkv(x, p, cfg, positions=pos)
-            nw = torch.full((B,), S, dtype=torch.int32, device=x.device) \
-                if n_write is None else n_write
-            o, k_cache, v_cache = paged_verify_attention(
-                q, cache["k"], cache["v"], k, v, block_table, idx, nw,
-                sliding_window=win, use_kernel=paged_kernel)
+            if block_table is None:
+                o, k_cache, v_cache = stripe_verify_attention(
+                    q, cache["k"], cache["v"], k, v, idx, sliding_window=win)
+            else:
+                nw = torch.full((B,), S, dtype=torch.int32,
+                                device=x.device) \
+                    if n_write is None else n_write
+                o, k_cache, v_cache = paged_verify_attention(
+                    q, cache["k"], cache["v"], k, v, block_table, idx, nw,
+                    sliding_window=win, use_kernel=paged_kernel)
         else:
-            q, k, v = qkv(x, p, cfg, positions=idx.reshape(-1, 1))
-            o, k_cache, v_cache = paged_decode_attention(
-                q, cache["k"], cache["v"], k, v, block_table, idx,
-                sliding_window=win, use_kernel=paged_kernel)
+            pos = idx if positions is None else positions
+            q, k, v = qkv(x, p, cfg, positions=pos.reshape(-1, 1))
+            if block_table is None:
+                o, k_cache, v_cache = stripe_decode_attention(
+                    q, cache["k"], cache["v"], k, v, idx, sliding_window=win)
+            else:
+                o, k_cache, v_cache = paged_decode_attention(
+                    q, cache["k"], cache["v"], k, v, block_table,
+                    idx.reshape(-1), sliding_window=win,
+                    use_kernel=paged_kernel)
         return o @ p["w_o"], {"k": k_cache, "v": v_cache}
     q, k, v = qkv(x, p, cfg, positions=positions)
     o = causal_attention(q, k, v, sliding_window=win, causal=causal)

@@ -1,17 +1,19 @@
-"""Model factory for the dense decoder families.
+"""Model factory for the dense, rwkv and hybrid decoder families.
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods take the
 params tree explicitly, as in the JAX reference:
     init(seed)                                          -> params
-    prefill(params, batch, last_idx=...)                -> (logits_last, kv)
-    prefill(params, batch, cache=pool, cache_len=...)   -> chunk window
-    decode_step(params, token, pool, cache_len, block_table=...)
-    verify_step(params, tokens, pool, cache_len, block_table=...)
+    prefill(params, batch, last_idx=...)                -> (logits_last, cache)
+    prefill(params, batch, cache=..., cache_len=...)    -> chunk window
+    decode_step(params, token, cache, cache_len[, block_table=...])
+    verify_step(params, tokens, cache, cache_len[, block_table=...])
+    init_cache(batch_size, capacity)                    -> zeroed stripes
     init_paged_cache(num_blocks, block_size)            -> zeroed pool
 
 Batch dicts: prefill ``{"tokens": (B, S) int}``; decode ``token (B, 1)``.
-Every tensor argument lies on the model's device. The pool is updated
-in place.
+Every tensor argument lies on the model's device. Caches (the paged
+pool, or the per-slot stripes and recurrent state) are updated in
+place.
 """
 from __future__ import annotations
 
@@ -92,7 +94,9 @@ class Model:
         """last_idx: optional (B,) — per-row index of the last *real*
         token when rows are right-padded to a shared bucket length; None
         gives the logits at the final position. Returns (logits (B, 1,
-        V), kv) with kv = dict(k=(L,B,S,Hkv,hd), v=...).
+        V), cache) with the fresh cache leaves stacked over L: k / v
+        (L,B,S,Hkv,hd) [+ ssm_state (L,B,di,N)], or state (L,B,H,hd,hd) /
+        last_x_t / last_x_c (L,B,d) for rwkv.
 
         **Chunked mode** (``cache`` is the paged pool): ``batch["tokens"]``
         (B, S) is a chunk window of each row's prompt at offset
@@ -120,12 +124,15 @@ class Model:
     # ---------------- decode ----------------
     def decode_step(self, params, token, cache, cache_len, block_table=None,
                     paged_kernel: bool = False):
-        """token (B,1); cache_len (B,) tokens already cached per row; the
-        new token is written at index cache_len[b] of row b. Paged mode:
-        ``cache`` is the pool (L, num_blocks, block_size, Hkv, hd) per
-        leaf and row b's position j resolves to (block_table[b, j //
-        block_size], j % block_size). ``paged_kernel`` reads the pool
-        through ``kernels.paged_attention`` instead of the gather."""
+        """token (B,1); cache_len (B,) tokens already cached per row (a
+        scalar: every row at one length); the new token is written at
+        index cache_len[b] of row b. Stripe mode (no ``block_table``):
+        ``cache`` is :meth:`init_cache`'s dict, every leaf updated in
+        place. Paged mode: ``cache`` is the pool (L, num_blocks,
+        block_size, Hkv, hd) per leaf and row b's position j resolves to
+        (block_table[b, j // block_size], j % block_size).
+        ``paged_kernel`` reads the pool through ``kernels.paged_attention``
+        instead of the gather."""
         cfg = self.cfg
         x = _embed_tokens(params, cfg, token)
         extras = {"cache_len": cache_len, "block_table": block_table,
@@ -169,6 +176,34 @@ class Model:
         return x, new_cache
 
     # ---------------- cache ----------------
+    def init_cache(self, batch_size: int, capacity: int):
+        """Zeroed per-slot cache with room for ``capacity`` tokens: K/V
+        stripes ``(L, B, capacity, Hkv, hd)`` in ``cfg.dtype``, the hybrid
+        SSM state ``(L, B, di, N)`` in f32, or the rwkv state ``(L, B, H,
+        hd, hd)`` in f32 with the token-shift carries ``(L, B, d)``."""
+        cfg = self.cfg
+        L, B = cfg.n_layers, batch_size
+        Hkv, hd, d = cfg.n_kv_heads, cfg.hd, cfg.d_model
+        kind = transformer.block_kind(cfg)
+
+        def zeros(shape, dtype=cfg.dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if kind == "decoder_x":
+            transformer._unported(kind)
+        if kind == "rwkv":
+            return {"state": zeros((L, B, cfg.n_heads, hd, hd),
+                                   torch.float32),
+                    "last_x_t": zeros((L, B, d)),
+                    "last_x_c": zeros((L, B, d))}
+        cache = {"k": zeros((L, B, capacity, Hkv, hd)),
+                 "v": zeros((L, B, capacity, Hkv, hd))}
+        if kind == "hybrid":
+            cache["ssm_state"] = zeros((L, B, cfg.dinner,
+                                        max(cfg.ssm_state, 1)),
+                                       torch.float32)
+        return cache
+
     def init_paged_cache(self, num_blocks: int, block_size: int):
         """Zeroed block-pool KV: ``(L, num_blocks, block_size, Hkv, hd)``
         per leaf, shared by every slot through a per-slot block table

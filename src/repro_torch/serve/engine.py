@@ -1,15 +1,27 @@
-"""Slot-native serving engine on a paged block-pool KV cache (PyTorch
-port of the reference ``serve/engine.py``, paged path).
+"""Slot-native serving engine (PyTorch port of the reference
+``serve/engine.py``): a paged block-pool KV cache for pure-attention
+families, fixed per-slot stripes for the recurrent ones.
 
 The engine slots requests into a fixed-capacity batch (one slot per
-sequence). KV memory is a shared :class:`~repro_torch.serve.blocks.BlockPool`
-of ``num_blocks x block_size`` tokens per layer; a slot holds only the
-blocks its sequence needs, mapped through a per-slot block table.
-Admission is gated on blocks. Decode grows a slot's table lazily as it
-crosses block boundaries; on exhaustion the slot **parks** (skips token
-emission, state intact) until another request frees blocks, and if
-every active slot is parked the newest admission is **preempted**
-(blocks freed, request re-queued for recompute re-admission).
+sequence). Two cache layouts:
+
+* **Stripes** (``paged=False``; the only layout for rwkv / hybrid,
+  whose recurrent state is O(1) in sequence length): every slot owns a
+  ``max_seq``-token K/V stripe and / or its recurrent state. Admission
+  is gated on free slots alone; a group's batched prefill is copied into
+  its slots on device. Recurrent prompts co-batch by exact length only
+  (their state cannot absorb pad tokens) and never chunk.
+* **Paged** (the default for pure-attention families): KV memory is a
+  shared :class:`~repro_torch.serve.blocks.BlockPool` of ``num_blocks x
+  block_size`` tokens per layer; a slot holds only the blocks its
+  sequence needs, mapped through a per-slot block table. Admission is
+  gated on blocks. Decode grows a slot's table lazily as it crosses
+  block boundaries; on exhaustion the slot **parks** (skips token
+  emission, state intact) until another request frees blocks, and if
+  every active slot is parked the newest admission is **preempted**
+  (blocks freed, request re-queued for recompute re-admission).
+
+On the paged layout:
 
 * **Prefix sharing + copy-on-write** (``prefix_sharing=True``):
   admission walks the prompt through the pool's prefix index and
@@ -24,17 +36,16 @@ every active slot is parked the newest admission is **preempted**
   through chunk windows (multi-token steps) in which decode slots ride
   with their single next token.
 
-Prompts are right-padded to power-of-two buckets; pad positions are
-never attended and pad tail blocks are never allocated.
+Pure-attention prompts are right-padded to power-of-two buckets; pad
+positions are never attended and pad tail blocks are never allocated.
 
 Device work is launched by :meth:`ServingEngine.dispatch_step` on the
 current CUDA stream (PyTorch returns before the device finishes); the
 returned tick's ``commit()`` is the host sync (``.cpu()``) followed by
-the per-slot bookkeeping. The pool is updated in place.
+the per-slot bookkeeping. Caches are updated in place.
 
-Not in this slice (raise, naming the ROADMAP.md slice): the fixed-stripe
-layout (``paged=False``), speculative decode, sampled (temperature > 0)
-rows, and non-dense families (MoE, recurrent, frontends).
+Not ported yet (raise, naming the ROADMAP.md slice): speculative decode,
+sampled (temperature > 0) rows, MoE and the cross-attention frontends.
 """
 from __future__ import annotations
 
@@ -131,14 +142,13 @@ class ServingEngine:
             raise ValueError(f"engine device {self.device} != model device "
                              f"{model.device}")
         kind = block_kind(model.cfg)
-        if kind != "dense" or getattr(model.cfg, "n_experts", 0):
-            raise NotImplementedError(
-                f"{model.cfg.name}: only dense decoders are served in this "
-                "slice (see the 'MoE', 'recurrent families' and "
-                "'frontends' slices of ROADMAP.md)")
-        if paged is False:
-            raise NotImplementedError("fixed-stripe layout (paged=False): "
-                                      "the 'stripe path' slice of ROADMAP.md")
+        if kind == "moe" or getattr(model.cfg, "n_experts", 0):
+            raise NotImplementedError(f"{model.cfg.name}: MoE serving is the "
+                                      "'MoE' slice of ROADMAP.md")
+        if kind == "decoder_x":
+            raise NotImplementedError(f"{model.cfg.name}: cross-attention "
+                                      "serving is the 'frontends' slice of "
+                                      "ROADMAP.md")
         if speculation or draft_model is not None or draft_params is not None:
             raise NotImplementedError("speculative decode: the 'speculative "
                                       "decode' slice of ROADMAP.md")
@@ -149,7 +159,17 @@ class ServingEngine:
         self.clock = clock
         # span/event recorder; every emission site guards on .enabled
         self.tracer = NOOP if tracer is None else tracer
-        self.prefix_sharing = bool(prefix_sharing)
+        leaves = sorted(model.init_cache(1, _MIN_BUCKET))
+        pure_attn = set(leaves) <= {"k", "v"}
+        # pure-attention caches tolerate right-padded prompts (pad KV is
+        # masked, then overwritten); recurrent state does not
+        self._paddable = pure_attn
+        # recurrent state is O(1) in sequence length: paging buys nothing
+        self.paged = pure_attn if paged is None else bool(paged)
+        if self.paged and not pure_attn:
+            raise ValueError("paged KV requires a pure-attention {k, v} "
+                             f"cache; got leaves {leaves}")
+        self.prefix_sharing = bool(prefix_sharing) and self.paged
         self.use_kernel = bool(use_kernel)
         if prefill_chunk is not None and prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
@@ -157,8 +177,16 @@ class ServingEngine:
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError(f"prefill_budget must be >= 1, got "
                              f"{prefill_budget}")
-        self.prefill_chunk = DEFAULT_PREFILL_CHUNK \
-            if prefill_chunk is None else int(prefill_chunk)
+        # chunk windows need the multi-token {k, v} window: recurrent
+        # state steps token at a time
+        if self._paddable:
+            self.prefill_chunk = DEFAULT_PREFILL_CHUNK \
+                if prefill_chunk is None else int(prefill_chunk)
+        elif prefill_chunk:
+            raise ValueError("chunked prefill requires a paddable "
+                             "pure-attention non-MoE cache")
+        else:
+            self.prefill_chunk = 0
         # per-step cap on pending prompt tokens fed across slots
         self.prefill_budget = prefill_budget
         self.slot_len = np.zeros(batch_size, np.int32)   # tokens in cache
@@ -178,17 +206,22 @@ class ServingEngine:
         self._admit_order = np.zeros(batch_size, np.int64)
         self._admit_seq = 0
 
-        self.block_size = block_size
-        self.blocks_per_slot = -(-max_seq // block_size)
-        if num_blocks is None:
-            # same token capacity as B fixed stripes, + scratch block 0
-            num_blocks = batch_size * self.blocks_per_slot + 1
-        self.pool = BlockPool(num_blocks, block_size, tracer=self.tracer)
-        self.reserve_blocks = min(reserve_blocks, max(self.pool.total - 1, 0))
-        self.caches = model.init_paged_cache(num_blocks, block_size)
-        self.block_table = np.zeros((batch_size, self.blocks_per_slot),
-                                    np.int32)
-        self.slot_blocks: list = [[] for _ in range(batch_size)]
+        if self.paged:
+            self.block_size = block_size
+            self.blocks_per_slot = -(-max_seq // block_size)
+            if num_blocks is None:
+                # same token capacity as B fixed stripes, + scratch block 0
+                num_blocks = batch_size * self.blocks_per_slot + 1
+            self.pool = BlockPool(num_blocks, block_size, tracer=self.tracer)
+            self.reserve_blocks = min(reserve_blocks,
+                                      max(self.pool.total - 1, 0))
+            self.caches = model.init_paged_cache(num_blocks, block_size)
+            self.block_table = np.zeros((batch_size, self.blocks_per_slot),
+                                        np.int32)
+            self.slot_blocks: list = [[] for _ in range(batch_size)]
+        else:
+            self.pool = None
+            self.caches = model.init_cache(batch_size, max_seq)
         self.metrics = {"prefills": 0, "prefill_batches": 0,
                         "decode_steps": 0, "completed": 0,
                         "stop_token_exits": 0, "slot_reuses": 0,
@@ -227,6 +260,20 @@ class ServingEngine:
                     for key, v in pref.items()}
         nxt, logp = sampling.sample(logits[:, -1, :], *samp)
         return nxt, logp, pref
+
+    def _admit(self, tokens, last_idx, slots, samp):
+        """Batched prefill + stripe insertion: row j of the prefill cache
+        goes to slot ``slots[j]`` (K/V at positions [0, S) of its
+        stripe), in place, on device. Returns the first token per row and
+        its logprob."""
+        logits, pref = self.model.prefill(self.params,
+                                          {"tokens": self._dev(tokens)},
+                                          last_idx=self._dev(last_idx))
+        for j, slot in enumerate(slots):
+            for key, cache in self.caches.items():
+                row = pref[key][:, j]
+                cache[:, slot][tuple(slice(0, n) for n in row.shape)] = row
+        return sampling.sample(logits[:, -1, :], *samp)
 
     def _write_block(self, pref, row: int, start: int, phys: int) -> None:
         """Copy one logical block of row ``row`` of the prefill KV (token
@@ -321,8 +368,11 @@ class ServingEngine:
     def _chunk_for(self, req: Request) -> int:
         """Chunk width for ``req`` (0 = monolithic admission + serial
         catch-up): the request's override when set, else the engine
-        default; negative overrides clamp to 0 here (add_requests rejects
-        them)."""
+        default; always 0 for families that cannot run multi-token
+        windows (recurrent); negative overrides clamp to 0 here
+        (add_requests rejects them)."""
+        if not self._paddable:
+            return 0
         if req.prefill_chunk is None:
             return self.prefill_chunk
         return max(int(req.prefill_chunk), 0)
@@ -333,7 +383,17 @@ class ServingEngine:
             return True
         return self.active == 0 and planned == 0 and need <= avail
 
+    def memory_pressure(self) -> float:
+        """Fraction of KV memory in use: pool occupancy when paged, slot
+        occupancy otherwise."""
+        if self.paged:
+            return self.pool.occupancy
+        return self.active / self.B if self.B else 1.0
+
     def pool_stats(self) -> dict:
+        if not self.paged:
+            return {"paged": False, "slots": self.B, "active": self.active,
+                    "occupancy": self.memory_pressure()}
         return {"paged": True, "waiting": len(self._waiting),
                 # logical view: table entries across slots (a shared
                 # block counts once in ``used``, once per table here)
@@ -415,7 +475,8 @@ class ServingEngine:
             if r.prefill_chunk is not None and r.prefill_chunk < 0:
                 raise ValueError(f"request {r.rid}: prefill_chunk "
                                  f"{r.prefill_chunk} < 0")
-            if self.pool.blocks_for(len(r.prompt)) > self.pool.total:
+            if self.paged and \
+                    self.pool.blocks_for(len(r.prompt)) > self.pool.total:
                 raise ValueError(f"request {r.rid}: prompt needs "
                                  f"{self.pool.blocks_for(len(r.prompt))} "
                                  f"blocks > pool total {self.pool.total}")
@@ -445,43 +506,47 @@ class ServingEngine:
             slot = slots_avail[len(take)]
             acquired = None
             matched = 0
-            need = self.pool.blocks_for(P)
-            if self.prefix_sharing:
-                blocks, m, cost = self._match_cost(eff, self._chunk_for(r))
-                if m >= self.block_size:
-                    acquired, matched, need = list(blocks), m, cost
-                else:
-                    m_sim = self._sim_match(eff, P - 1, sim)
-                    if m_sim >= self.block_size \
-                            and (self._chunk_for(r)
-                                 or P - m_sim <= max(self.block_size,
-                                                     m_sim)):
-                        # an earlier member of this batch prefills the
-                        # prefix: plan at the post-sharing cost and
-                        # resolve the real blocks at insertion time
-                        acquired = []
-                        need -= self.pool.blocks_for(m_sim)
-                        if m_sim % self.block_size:
-                            need += 1          # its CoW, like above
-            if not self._admit_ok(need, planned):
-                break            # in-order admission: head waits
-            planned += need
-            if acquired:
-                for b in acquired:
-                    # commit the match now: holding a reference keeps the
-                    # blocks resident (and indexed); a revived cached
-                    # block leaves ``planned`` as it leaves the free list
-                    if self.pool.refcount(b) == 0:
-                        planned -= 1
-                    self.pool.acquire(b, owner=slot)
-            if acquired is None and self.prefix_sharing:
-                # promise only what this admission registers in this call
-                C = self._chunk_for(r)
-                n0 = min(P, C) if C else P
-                reg = eff if n0 >= P \
-                    else eff[:n0 - n0 % self.block_size]
-                if reg:
-                    self._sim_chains(reg, sim)
+            if self.paged:
+                need = self.pool.blocks_for(P)
+                if self.prefix_sharing:
+                    blocks, m, cost = self._match_cost(eff,
+                                                       self._chunk_for(r))
+                    if m >= self.block_size:
+                        acquired, matched, need = list(blocks), m, cost
+                    else:
+                        m_sim = self._sim_match(eff, P - 1, sim)
+                        if m_sim >= self.block_size \
+                                and (self._chunk_for(r)
+                                     or P - m_sim <= max(self.block_size,
+                                                         m_sim)):
+                            # an earlier member of this batch prefills the
+                            # prefix: plan at the post-sharing cost and
+                            # resolve the real blocks at insertion time
+                            acquired = []
+                            need -= self.pool.blocks_for(m_sim)
+                            if m_sim % self.block_size:
+                                need += 1          # its CoW, like above
+                if not self._admit_ok(need, planned):
+                    break            # in-order admission: head waits
+                planned += need
+                if acquired:
+                    for b in acquired:
+                        # commit the match now: holding a reference keeps
+                        # the blocks resident (and indexed); a revived
+                        # cached block leaves ``planned`` as it leaves the
+                        # free list
+                        if self.pool.refcount(b) == 0:
+                            planned -= 1
+                        self.pool.acquire(b, owner=slot)
+                if acquired is None and self.prefix_sharing:
+                    # promise only what this admission registers in this
+                    # call
+                    C = self._chunk_for(r)
+                    n0 = min(P, C) if C else P
+                    reg = eff if n0 >= P \
+                        else eff[:n0 - n0 % self.block_size]
+                    if reg:
+                        self._sim_chains(reg, sim)
             take.append((r, slot, acquired, matched))
         n_from_waiting = 0
         for r, _, _, _ in take:
@@ -490,30 +555,35 @@ class ServingEngine:
                 n_from_waiting += 1
         if not take:
             return 0
-        # ---- plain admissions first: batched prefill per bucket group.
-        # A chunked admission contributes only its FIRST chunk (n0 tokens);
-        # the remainder becomes the slot's pending queue.
+        # ---- plain admissions first: batched prefill per shape group
+        # (a power-of-two bucket for paddable caches, the exact length for
+        # recurrent state). A chunked admission contributes only its FIRST
+        # chunk (n0 tokens); the remainder becomes the slot's pending queue.
         plain = [(r, s) for r, s, acq, _ in take if acq is None]
         groups: dict = {}
         for req, slot in plain:
             P = len(self._eff_prompt(req))
             C = self._chunk_for(req)
             n0 = min(P, C) if C else P           # first-chunk token count
-            groups.setdefault(_bucket(n0, self.max_seq), []).append(
-                (req, slot, n0))
+            width = _bucket(n0, self.max_seq) if self._paddable else n0
+            groups.setdefault(width, []).append((req, slot, n0))
         for width, members in groups.items():
             toks = np.zeros((len(members), width), np.int32)
             last = np.zeros(len(members), np.int32)
             for j, (req, slot, n0) in enumerate(members):
                 toks[j, :n0] = self._eff_prompt(req)[:n0]
                 last[j] = n0 - 1
-            nxt, logp, pref = self._prefill_paged(
-                toks, last, self._sampling_rows([req for req, _, _ in
-                                                 members]))
-            for j, (req, slot, n0) in enumerate(members):
-                eff = self._eff_prompt(req)
-                self._insert_paged(pref, j, slot, eff[:n0],
-                                   more=n0 < len(eff))
+            samp = self._sampling_rows([req for req, _, _ in members])
+            if self.paged:
+                nxt, logp, pref = self._prefill_paged(toks, last, samp)
+                for j, (req, slot, n0) in enumerate(members):
+                    eff = self._eff_prompt(req)
+                    self._insert_paged(pref, j, slot, eff[:n0],
+                                       more=n0 < len(eff))
+            else:
+                nxt, logp = self._admit(toks, last,
+                                        [slot for _, slot, _ in members],
+                                        samp)
             nxt, logp = _host(nxt), _host(logp)
             for j, (req, slot, n0) in enumerate(members):
                 eff = self._eff_prompt(req)
@@ -715,7 +785,7 @@ class ServingEngine:
                 or req.finished_by_stop)
 
     def _release_blocks(self, slot: int) -> None:
-        if self.slot_blocks[slot]:
+        if self.paged and self.slot_blocks[slot]:
             self.pool.free(self.slot_blocks[slot], owner=slot)
             self.slot_blocks[slot] = []
             self.block_table[slot, :] = 0
@@ -891,13 +961,16 @@ class ServingEngine:
             n_write[i] = c
             last[i] = c - 1
         samp = self._sampling_slots()
-        if self.use_kernel:
+        if self.paged and self.use_kernel:
             self.metrics["kernel_windows"] += 1
             self.metrics["kernel_positions"] += sum(n_fed.values())
+        # a stripe window has no n_write: pad positions past a row's count
+        # land in its own stripe (never attended, overwritten later) or
+        # drop past max_seq
+        table = self._dev(self.block_table) if self.paged else None
         logits, _ = self.model.prefill(
             self.params, {"tokens": self._dev(toks)}, cache=self.caches,
-            cache_len=self._dev(self.slot_len),
-            block_table=self._dev(self.block_table),
+            cache_len=self._dev(self.slot_len), block_table=table,
             paged_kernel=self.use_kernel, n_write=self._dev(n_write),
             last_idx=self._dev(last))
         nxt, logp = sampling.sample(logits[:, 0, :], *samp)
@@ -915,8 +988,9 @@ class ServingEngine:
             if self.slot_pending[i]:
                 del self.slot_pending[i][:c]
                 self.metrics["chunk_prefill_tokens"] += c
-                self._register_chunk_progress(
-                    i, final=not self.slot_pending[i])
+                if self.paged:
+                    self._register_chunk_progress(
+                        i, final=not self.slot_pending[i])
                 if self.slot_pending[i]:
                     continue
             r.out_tokens.append(int(nxt[i]))
@@ -965,16 +1039,18 @@ class ServingEngine:
                 c = max(1, min(c, budget))
                 budget -= c
             chunk_want[i] = c
-        want = {i: chunk_want.get(i, 1) for i in active} \
-            if any(c > 1 for c in chunk_want.values()) else None
-        secured = self._grow_or_park(active, want)
-        for i in active:
-            # a degraded chunk just feeds fewer tokens this step
-            if i in chunk_want:
-                chunk_want[i] = min(chunk_want[i], secured[i])
-        chunking = any(chunk_want.get(i, 0) > 1 for i in active)
-        finished.extend(self._finished_at_admit)
-        self._finished_at_admit = []
+        chunking = any(c > 1 for c in chunk_want.values())
+        if self.paged:
+            want = {i: chunk_want.get(i, 1) for i in active} \
+                if chunking else None
+            secured = self._grow_or_park(active, want)
+            for i in active:
+                # a degraded chunk just feeds fewer tokens this step
+                if i in chunk_want:
+                    chunk_want[i] = min(chunk_want[i], secured[i])
+            chunking = any(chunk_want.get(i, 0) > 1 for i in active)
+            finished.extend(self._finished_at_admit)
+            self._finished_at_admit = []
         if not active:
             return _Tick(lambda: finished)
         if chunking:
@@ -988,11 +1064,12 @@ class ServingEngine:
             else:
                 tok[i, 0] = r.out_tokens[-1]
         samp = self._sampling_slots()
-        if self.use_kernel:
+        if self.paged and self.use_kernel:
             self.metrics["kernel_positions"] += len(active)
+        table = self._dev(self.block_table) if self.paged else None
         logits, _ = self.model.decode_step(
             self.params, self._dev(tok), self.caches,
-            self._dev(self.slot_len), block_table=self._dev(self.block_table),
+            self._dev(self.slot_len), block_table=table,
             paged_kernel=self.use_kernel)
         nxt, logp = sampling.sample(logits[:, -1, :], *samp)
         self.metrics["decode_steps"] += 1
@@ -1009,8 +1086,9 @@ class ServingEngine:
                 # a prompt token; its sample only counts once the suffix
                 # is exhausted
                 self.slot_pending[i].pop(0)
-                self._register_chunk_progress(
-                    i, final=not self.slot_pending[i])
+                if self.paged:
+                    self._register_chunk_progress(
+                        i, final=not self.slot_pending[i])
                 if self.slot_pending[i]:
                     continue
             r.out_tokens.append(int(nxt[i]))

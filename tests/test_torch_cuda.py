@@ -1,11 +1,13 @@
-"""Card-only tests of the port's CUDA kernel (marker ``cuda``; they skip
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``; they skip
 where no CUDA device is present). Run them on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The CUDA paged-window kernel is held against its plain PyTorch version
-on the same inputs (f32: atol = rtol = 1e-4, the sum order differs;
-bf16: 3e-2, the reference grid's bf16 tolerance), with TF32 off.
+Each kernel is held against its plain PyTorch version on the same
+inputs, with TF32 off. Paged-window attention: f32 atol = rtol = 1e-4
+(the sum order differs), bf16 3e-2 (the reference grid's bf16
+tolerance). WKV and selective scans (f32 only): 1e-5 for one step, 1e-4
+over long scans, where the carried state accumulates rounding.
 """
 import dataclasses
 
@@ -16,6 +18,10 @@ from repro_torch.configs.base import get_config
 from repro_torch.kernels.paged_attention import kernel as pw_kernel
 from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
                                                      paged_window_attention)
+from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
+from repro_torch.kernels.rwkv_scan.ops import wkv
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+from repro_torch.kernels.ssm_scan.ops import selective_scan
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServingEngine
 
@@ -150,3 +156,148 @@ def test_engine_kernel_vs_gather_on_card(cuda):
         torch.testing.assert_close(torch.tensor(a.out_logprobs),
                                    torch.tensor(b.out_logprobs),
                                    atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------ scan kernels
+def _scan_tol(T):
+    return 1e-5 if T == 1 else 1e-4
+
+
+def _wkv_case(B, T, H, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, hd), generator=g) for _ in range(3))
+    w = 0.45 + 0.5 * torch.sigmoid(torch.randn((B, T, H, hd), generator=g))
+    u = 0.5 * torch.randn((H, hd), generator=g)
+    s0 = torch.randn((B, H, hd, hd), generator=g)
+    return [t.cuda() for t in (r, k, v, w, u, s0)]
+
+
+def _ssm_case(B, T, di, N, seed):
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn((B, T, di), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, T, di), generator=g)
+                                      - 1.0)
+    Bm, Cm = (torch.randn((B, T, N), generator=g) for _ in range(2))
+    A = -torch.exp(0.5 * torch.randn((di, N), generator=g))
+    D = 1.0 + 0.3 * torch.randn(di, generator=g)
+    s0 = torch.randn((B, di, N), generator=g)
+    return [t.cuda() for t in (u, dt, Bm, Cm, A, D, s0)]
+
+
+@pytest.mark.parametrize("B,T,H,hd", [
+    (8, 1, 32, 64),       # rwkv6-1.6b decode
+    (1, 300, 32, 64),     # one full-width prefill
+    (2, 17, 4, 32),       # reduced, ragged T
+    (2, 5, 3, 48),        # head dim below its 64-thread template
+    (1, 9, 2, 128),
+])
+def test_wkv_kernel_matches_plain_version(cuda, B, T, H, hd):
+    args = _wkv_case(B, T, H, hd, seed=T + hd)
+    before = wkv_kernel.wkv_scan.launches
+    out, sT = wkv(*args)
+    assert wkv_kernel.wkv_scan.launches == before + 1
+    ro, rs = wkv(*args, force_ref=True)
+    torch.cuda.synchronize()
+    tol = _scan_tol(T)
+    torch.testing.assert_close(out, ro, atol=tol, rtol=tol)
+    torch.testing.assert_close(sT, rs, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,T,di,N", [
+    (8, 1, 3200, 16),     # hymba-1.5b decode
+    (1, 300, 3200, 16),   # one full-width prefill
+    (2, 33, 512, 16),     # reduced
+    (2, 7, 200, 5),       # ragged channel tile, small state
+    (1, 40, 130, 64),
+])
+def test_ssm_kernel_matches_plain_version(cuda, B, T, di, N):
+    args = _ssm_case(B, T, di, N, seed=T + di)
+    before = ssm_kernel.ssm_scan.launches
+    y, sT = selective_scan(*args)
+    assert ssm_kernel.ssm_scan.launches == before + 1
+    ry, rs = selective_scan(*args, force_ref=True)
+    torch.cuda.synchronize()
+    tol = _scan_tol(T)
+    torch.testing.assert_close(y, ry, atol=tol, rtol=tol)
+    torch.testing.assert_close(sT, rs, atol=tol, rtol=tol)
+
+
+def test_scan_kernels_carry_state(cuda):
+    """Two halves with the state threaded through equal the whole."""
+    r, k, v, w, u, s0 = _wkv_case(1, 256, 4, 64, seed=1)
+    of, sf = wkv(r, k, v, w, u, s0)
+    o1, s1 = wkv(*(t[:, :100].contiguous() for t in (r, k, v, w)), u, s0)
+    o2, s2 = wkv(*(t[:, 100:].contiguous() for t in (r, k, v, w)), u, s1)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), of, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(s2, sf, atol=1e-4, rtol=1e-4)
+    u_, dt, Bm, Cm, A, D, h0 = _ssm_case(1, 256, 512, 16, seed=2)
+    yf, hf = selective_scan(u_, dt, Bm, Cm, A, D, h0)
+    y1, h1 = selective_scan(*(t[:, :100].contiguous()
+                              for t in (u_, dt, Bm, Cm)), A, D, h0)
+    y2, h2 = selective_scan(*(t[:, 100:].contiguous()
+                              for t in (u_, dt, Bm, Cm)), A, D, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), yf, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(h2, hf, atol=1e-4, rtol=1e-4)
+
+
+def test_scan_kernels_reject_what_they_cannot_run(cuda):
+    r, k, v, w, u, s0 = _wkv_case(1, 4, 2, 32, seed=3)
+    with pytest.raises(ValueError, match="float32"):
+        wkv_kernel.wkv_scan(r.double(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_kernel.wkv_scan(r.transpose(1, 2), k, v, w, u, s0)
+    big = torch.zeros((1, 2, 1, 160), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        wkv_kernel.wkv_scan(big, big, big, big, torch.zeros((1, 160),
+                                                            device="cuda"),
+                            torch.zeros((1, 1, 160, 160), device="cuda"))
+    u_, dt, Bm, Cm, A, D, h0 = _ssm_case(1, 4, 64, 16, seed=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_kernel.ssm_scan(u_, dt, Bm.transpose(1, 2).contiguous()
+                            .transpose(1, 2), Cm, A, D, h0)
+    wide = torch.zeros((1, 4, 65), device="cuda")
+    with pytest.raises(ValueError, match="state size"):
+        ssm_kernel.ssm_scan(u_, dt, wide, wide,
+                            torch.zeros((64, 65), device="cuda"), D,
+                            torch.zeros((1, 64, 65), device="cuda"))
+
+
+@pytest.mark.parametrize("name,kw", [("rwkv6-1.6b", {}),
+                                     ("hymba-1.5b", {"n_kv_heads": 2})])
+def test_recurrent_engine_on_card(cuda, name, kw):
+    """Reduced recurrent models on the card: every prefill call and
+    decode step launches the scan kernel once per layer, and the streams
+    equal the CPU engine's (plain scans) on the same weights."""
+    cfg = dataclasses.replace(get_config(name).reduced(), **kw)
+    fn = wkv_kernel.wkv_scan if name.startswith("rwkv") \
+        else ssm_kernel.ssm_scan
+    params = build_model(cfg, device="cuda").init(0)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (40, 7, 7, 70, 12)]
+    streams = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        p = params if device == "cuda" else _to(params, "cpu")
+        before = fn.launches
+        eng = ServingEngine(model, p, batch_size=3, max_seq=96,
+                            device=device)
+        reqs = [Request(rid=i, prompt=list(q), max_new_tokens=6)
+                for i, q in enumerate(prompts)]
+        assert len(eng.run(list(reqs))) == len(prompts)
+        m = eng.metrics
+        expect = cfg.n_layers * (m["prefill_batches"] + m["decode_steps"])
+        assert fn.launches - before == (expect if device == "cuda" else 0)
+        streams[device] = reqs
+    for a, b in zip(streams["cuda"], streams["cpu"]):
+        assert a.out_tokens == b.out_tokens, a.rid
+        torch.testing.assert_close(torch.tensor(a.out_logprobs),
+                                   torch.tensor(b.out_logprobs),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

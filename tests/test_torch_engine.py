@@ -90,8 +90,19 @@ def _tight_shared():
                 prompts=_prompts([2, 2, 2], seed=5, prefix=10), max_new=10)
 
 
+def _stripe():
+    # fixed-stripe layout: the 40-token prompt feeds 1 token per tick
+    # while the 56-token one chunks under the budget, then chunks while
+    # the first decodes as a rider near max_seq, whose pad positions
+    # reach past the stripe's end (dropped)
+    return dict(engine=dict(batch_size=2, max_seq=64, paged=False,
+                            prefill_chunk=8, prefill_budget=8),
+                prompts=_prompts([56, 40], seed=6), max_new=6)
+
+
 SCENARIOS = {"mixed": _mixed, "chunked": _chunked, "shared": _shared,
-             "tight": _tight, "tight_shared": _tight_shared}
+             "tight": _tight, "tight_shared": _tight_shared,
+             "stripe": _stripe}
 
 
 def _serve(engine_cls, request_cls, model, params, sc, **kw):
@@ -126,8 +137,9 @@ def test_engine_matches_jax(stack, name):
                                    atol=2e-5, rtol=2e-5)
     assert eng.pool_stats() == jeng.pool_stats()
     assert eng.metrics == jeng.metrics
-    eng.pool.check()
-    assert eng.pool.available == eng.pool.total
+    if eng.paged:
+        eng.pool.check()
+        assert eng.pool.available == eng.pool.total
     m = eng.metrics
     if name == "chunked":
         assert m["chunk_steps"] > 0 and m["kernel_windows"] > 0
@@ -135,6 +147,29 @@ def test_engine_matches_jax(stack, name):
         assert m["shared_admissions"] >= 3 and m["cow_copies"] >= 1
     if name.startswith("tight"):
         assert m["parked_slot_steps"] > 0 or m["preemptions"] > 0
+    if name == "stripe":
+        assert not eng.paged and m["chunk_steps"] > 0
+        assert m["kernel_windows"] == m["kernel_positions"] == 0
+
+
+def test_stripe_matches_paged_streams(stack):
+    """The fixed-stripe layout emits exactly the block pool's token
+    streams, chunk windows included (a 40-token prompt in chunks of 8)."""
+    _, _, model, params = stack
+    lens = [5, 40, 9, 17]
+    streams = {}
+    for paged in (True, False):
+        eng = ServingEngine(model, params, batch_size=4, max_seq=64,
+                            block_size=8, prefill_chunk=8, paged=paged,
+                            device="cpu")
+        reqs = _reqs(lens, max_new=6, seed=9)
+        assert len(eng.run(list(reqs))) == 4
+        assert eng.paged == paged and eng.metrics["chunk_steps"] > 0
+        streams[paged] = reqs
+    for a, b in zip(streams[True], streams[False]):
+        assert a.out_tokens == b.out_tokens, a.rid
+        np.testing.assert_allclose(a.out_logprobs, b.out_logprobs,
+                                   atol=1e-6, rtol=1e-6)
 
 
 # ------------------------------------------------- port-only behaviour
@@ -189,8 +224,6 @@ def test_dispatch_then_commit_is_step(stack):
 def test_later_slices_raise(stack):
     _, _, model, params = stack
     kw = dict(batch_size=1, max_seq=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="stripe path"):
-        ServingEngine(model, params, paged=False, **kw)
     with pytest.raises(NotImplementedError, match="speculative decode"):
         ServingEngine(model, params, speculation=2, draft_model=model,
                       draft_params=params, **kw)
@@ -204,6 +237,9 @@ def test_later_slices_raise(stack):
     mcfg = get_config("grok-1-314b").reduced()
     with pytest.raises(NotImplementedError, match="MoE"):
         ServingEngine(build_model(mcfg, device="cpu"), params, **kw)
+    wcfg = get_config("whisper-tiny").reduced()
+    with pytest.raises(NotImplementedError, match="frontends"):
+        ServingEngine(build_model(wcfg, device="cpu"), params, **kw)
     with pytest.raises(ValueError, match="prefill_chunk"):
         ServingEngine(model, params, prefill_chunk=-1, **kw)
     with pytest.raises(ValueError, match="max_seq"):

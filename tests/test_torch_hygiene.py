@@ -1,6 +1,6 @@
 """Package hygiene of the PyTorch port: it imports neither ``jax`` nor
 anything of the JAX package, its entry points never fall back to the CPU
-on their own, its kernel wrapper refuses CPU tensors, and
+on their own, its kernel wrappers refuse CPU tensors, and
 ``chip_smoke.py`` fails without a GPU."""
 import ast
 import ctypes
@@ -16,6 +16,8 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import kernel as pw_kernel
+from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.models.model import build_model, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -89,15 +91,41 @@ def test_entry_points_default_to_cuda_without_fallback():
         init_params(cfg)                       # device="cuda" by default
 
 
-def test_kernel_wrapper_refuses_cpu_tensors():
+def _paged_args():
     q = torch.zeros((1, 1, 4, 32))
     pool = torch.zeros((2, 8, 2, 32))
-    table = torch.zeros((1, 2), dtype=torch.int32)
-    base = torch.zeros(1, dtype=torch.int32)
-    before = pw_kernel.paged_window_attention.launches
+    return (q, pool, pool, torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
+
+
+def _wkv_args():
+    x = torch.zeros((1, 3, 2, 32))
+    return x, x, x, x, torch.zeros((2, 32)), torch.zeros((1, 2, 32, 32))
+
+
+def _ssm_args():
+    u = torch.zeros((1, 3, 40))
+    bc = torch.zeros((1, 3, 16))
+    return (u, u, bc, bc, torch.zeros((40, 16)), torch.zeros(40),
+            torch.zeros((1, 40, 16)))
+
+
+# (binding module, wrapper / C entry name, CPU arguments it must refuse)
+KERNELS = {
+    "paged_window": (pw_kernel, "paged_window_attention", _paged_args),
+    "wkv": (wkv_kernel, "wkv_scan", _wkv_args),
+    "ssm_scan": (ssm_kernel, "ssm_scan", _ssm_args),
+}
+
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_kernel_wrapper_refuses_cpu_tensors(kernel):
+    module, name, args = KERNELS[kernel]
+    fn = getattr(module, name)
+    before = fn.launches
     with pytest.raises(ValueError, match="CUDA"):
-        pw_kernel.paged_window_attention(q, pool, pool, table, base)
-    assert pw_kernel.paged_window_attention.launches == before
+        fn(*args())
+    assert fn.launches == before
 
 
 def test_build_path_follows_source_hash(tmp_path):
@@ -109,15 +137,18 @@ def test_build_path_follows_source_hash(tmp_path):
     assert one.parent == _build.BUILD_DIR and one.name.startswith("k-")
     src.write_text("// two")
     assert _build.library_path(src) != one
-    assert [p.name for p in _build.sources()] == ["paged_window.cu"]
+    assert sorted(p.name for p in _build.sources()) == \
+        sorted(m.SOURCE.name for m, _, _ in KERNELS.values())
 
 
-def test_binding_matches_the_c_signature():
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_binding_matches_the_c_signature(kernel):
     """The ctypes argtypes mirror the CUDA source's extern "C" entry:
     pointers as c_void_p, ints as c_int, in order."""
-    src = pw_kernel.SOURCE.read_text()
-    sig = re.search(r'extern "C" int paged_window_attention\((.*?)\)\s*\{',
-                    src, re.S).group(1)
+    module, name, _ = KERNELS[kernel]
+    src = module.SOURCE.read_text()
+    sig = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,
+                    re.S).group(1)
     params = [" ".join(p.split()) for p in sig.split(",")]
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-    assert pw_kernel.ARGTYPES == want, params
+    assert module.ARGTYPES == want, params

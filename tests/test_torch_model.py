@@ -177,6 +177,44 @@ def test_chunked_prefill_matches_jax(stack, use_kernel):
         _close(tpool[key][:, 1:], np.asarray(jpool[key])[:, 1:])
 
 
+@pytest.mark.parametrize("W", [8, 1])
+def test_stripe_window_past_the_end_matches_jax(stack, W):
+    """Stripe caches (no block table): a chunk window (W = 8) or decode
+    step (W = 1) whose positions run past the stripe's end. JAX drops
+    those writes; the port masks them. Row 1 spills over the end, row 2
+    is full; logits and the whole cache agree, and no position outside a
+    row's written range changes."""
+    jmodel, jparams, model, params, _ = stack
+    cfg, T = model.cfg, 16
+    rng = np.random.default_rng(10 + W)
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd)
+    cache = {k: rng.standard_normal(shape, np.float32) for k in ("k", "v")}
+    lens = np.asarray([4, 11 if W > 1 else T - 1, T], np.int32)
+    toks = rng.integers(2, cfg.vocab_size, (B, W)).astype(np.int32)
+    last = np.asarray([W - 1, W // 2, 0], np.int32)
+    tcache = _tpool(cache)
+    jc = {k: jnp.asarray(v) for k, v in cache.items()}
+    if W > 1:
+        jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                cache=jc, cache_len=jnp.asarray(lens),
+                                last_idx=jnp.asarray(last))
+        tl, _ = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                              cache=tcache, cache_len=torch.from_numpy(lens),
+                              last_idx=torch.from_numpy(last))
+    else:
+        jl, jc = jmodel.decode_step(jparams, jnp.asarray(toks), jc,
+                                    jnp.asarray(lens))
+        tl, _ = model.decode_step(params, torch.from_numpy(toks), tcache,
+                                  torch.from_numpy(lens))
+    _close(tl, jl)
+    for key in ("k", "v"):
+        _close(tcache[key], jc[key])
+        for b, n in enumerate(lens):
+            kept = np.r_[0:n, min(n + W, T):T]
+            np.testing.assert_array_equal(tcache[key][:, b, kept].numpy(),
+                                          cache[key][:, b, kept])
+
+
 # ------------------------------------------------------------- weights
 def test_params_from_numpy_is_leafwise_and_strict():
     jcfg = jax_config("qwen3-4b").reduced()
@@ -199,6 +237,37 @@ def test_params_from_numpy_is_leafwise_and_strict():
     bad["final_norm"] = np.ones(7, np.float32)
     with pytest.raises(ValueError, match="final_norm"):
         params_from_numpy(bad, cfg, "cpu")
+
+
+def _specs(tree):
+    """{path: (shape, dtype name)} of a numpy / jax / torch tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{p}": s for p, s in _specs(v).items()})
+        else:
+            out[k] = (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+    return out
+
+
+@pytest.mark.parametrize("name", ["qwen3-4b", "rwkv6-1.6b", "hymba-1.5b"])
+def test_param_dtypes_and_shapes_match_the_reference(name):
+    """Every leaf keeps the reference's shape and dtype: bf16 leaves
+    follow cfg.dtype, the f32 ones (decay_base, bonus_u, A_log, D,
+    dt_bias) stay f32 — through the weight bridge at reduced width, and
+    from the port's own init at full width (on the meta device)."""
+    jcfg = dataclasses.replace(jax_config(name).reduced(),
+                               dtype=jnp.bfloat16)
+    cfg = dataclasses.replace(get_config(name).reduced(),
+                              dtype=torch.bfloat16)
+    tree = jax.tree.map(np.asarray, jax_build(jcfg).init(jax.random.key(3)))
+    assert _specs(params_from_numpy(tree, cfg, "cpu")) == _specs(tree)
+    full = jax.eval_shape(jax_build(jax_config(name)).init,
+                          jax.random.key(0))
+    assert _specs(init_params(get_config(name), device="meta")) == \
+        _specs(full)
+    assert "float32" in {d for _, d in _specs(full).values()} \
+        or name == "qwen3-4b"
 
 
 def test_params_from_numpy_keeps_bf16_bits():
