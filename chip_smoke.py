@@ -21,34 +21,52 @@ Phases (any failure exits non-zero; no result line is printed then):
    decode shape (B 8, T 1, di 3200, N 16), T 300 and di 512. Max abs
    error of out and final state within 1e-5 at T = 1, 1e-4 at T >= 256;
    two halves with the state threaded through equal the whole scan.
+   Then ``flash_attention`` and ``decode_attention`` at both served head
+   shapes (qwen3-4b: Hq 32, Hkv 8, hd 128; hymba-1.5b: Hq 25, Hkv 5, hd
+   64), f32 (1e-4) and bf16 (3e-2): flash at S = T = 300, S = 64 < T =
+   364 (q offset), ragged S = 37 and a 128 sliding window, and on the
+   model's strided (B,S,H,hd) views (bitwise equal to contiguous ones);
+   decode at B 8 over a 1024 stripe with ragged per-row lengths (1 and T
+   among them) and one window, out and lse, the stripe read through
+   strides bitwise equal to the contiguous layout, a scalar length equal
+   to the same length per row; the sharded op over 4 shards of the
+   stripe, one of them empty, within 1e-4 of the unsharded kernel (f32).
 4. Serve at full width: qwen3-4b (36 layers, bf16, random weights from a
    seeded generator) behind ``ServingEngine(batch_size=8, max_seq=1024,
-   use_kernel=True)``, 8 greedy requests. The kernel must launch once per
-   layer per decode / chunk step, and the pool must drain clean. The
-   same serve then runs again under ``torch.profiler``: device busy time,
-   idle share and the top kernels.
+   use_kernel=True)``, 8 greedy requests. The paged kernel must launch
+   once per layer per decode / chunk step and the flash kernel once per
+   layer per prefill call, and the pool must drain clean. The same serve
+   then runs again under ``torch.profiler``: device busy time, idle
+   share and the top kernels.
 5. Kernel path vs plain path at full width in f32 (4 layers): identical
    token streams, logprobs within 1e-3.
-6. Serve full-width rwkv6-1.6b (24 layers) and hymba-1.5b (32 layers),
-   bf16, random weights from seed 0, ``ServingEngine(batch_size=8,
-   max_seq=1024)`` on the stripe layout, 10 greedy requests of 16 new
-   tokens (two prompts of one length co-batch, slots are reused). Each
-   model's scan kernel must launch once per layer per prefill call and
-   decode step; every request completes and no slot stays active. Each
+6. Serve on the stripe layout, bf16, random weights from seed 0,
+   ``ServingEngine(batch_size=8, max_seq=1024, paged=False)``: full-width
+   qwen3-4b with phase 4's 8 requests, then rwkv6-1.6b (24 layers) and
+   hymba-1.5b (32 layers) with 10 greedy requests of 16 new tokens (two
+   prompts of one length co-batch, slots are reused). Each serve counts
+   its kernels from 0: a scan kernel once per layer per prefill call and
+   decode step, the flash kernel once per layer per prefill call, the
+   decode kernel once per layer per stripe decode step (chunk windows
+   stay plain); every request completes and no slot stays active. Each
    serve runs again under ``torch.profiler``.
 7. Recurrent kernel path vs plain path, full width, f32, 2 layers (f32
    leaves perturbed from their constant init): 4 requests through the
-   port on the card (the scan kernels) and on the CPU (their plain
-   versions), same weights: identical token streams, logprobs within
-   1e-3.
+   port on the card (the scan, flash and decode kernels) and on the CPU
+   (their plain versions), same weights: identical token streams,
+   logprobs within 1e-3.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
-median of 30) at the decode shape of its serve beside its plain version
-and its bound from bytes and flops (and for the scans, at a 300-token
-prefill, the latency floor of 300 dependent steps);
-``scaled_dot_product_attention`` on the gathered KV is the attention
-kernel's yardstick (the port never calls it); no single PyTorch call
-computes either recurrence. TF32 is off for every f32 comparison.
+the card kept busy while the host enqueues, median of 30) at the shape
+of its serve beside its plain version and its bound from bytes and flops
+(for the scans also at a 300-token prefill, with the latency floor of
+300 dependent steps): paged attention and the scans at decode, flash at
+the qwen3-4b prefill (B 1, S = T = 300), decode attention at
+hymba-1.5b's decode (B 8, 1024 stripe, its serve's lengths).
+``scaled_dot_product_attention`` is the yardstick of the attention
+kernels (on the gathered KV, causal, or with a length mask; the port
+never calls it); no single PyTorch call computes either recurrence. TF32
+is off for every f32 comparison.
 """
 from __future__ import annotations
 
@@ -70,10 +88,15 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SM_CLOCK_HZ = 1.98e9            # H100 SXM boost clock
 FMA_CYCLES = 4                  # latency of one dependent f32 FMA
+SPIN_CYCLES = 2_000_000         # ~1 ms at the boost clock: longer than the
+#                                 host takes to enqueue any timed call
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 HQ, HKV, HD, BS, B, MAX_BLOCKS = 32, 8, 128, 16, 8, 64
 SEED = 0
 PREFILL_T = 300                 # scan prefill shape: the longest prompt
+# (Hq, Hkv, hd) of the served attention: qwen3-4b, hymba-1.5b
+HEAD_SHAPES = ((32, 8, 128), (25, 5, 64))
+STRIPE_T = 1024                 # the serves' max_seq
 
 
 def phase(name):
@@ -208,6 +231,105 @@ def check_scan_vs_plain(name, op, case, shapes):
     return worst
 
 
+# ------------------------------------------------ flash / decode kernel cases
+def _report(name, out, ref, dt):
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"{name}: max |kernel - plain| {err:.3e} (tol {TOL[dt]})")
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+    return err
+
+
+def check_flash_vs_plain(flash_attention, attention_bshd):
+    """The flash kernel against its plain version at both served head
+    shapes; then the model's strided views against contiguous copies."""
+    worst = 0.0
+    for Hq, Hkv, hd in HEAD_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for Bq, S, T, win in ((1, 300, 300, 0), (2, 64, 364, 0),
+                                  (2, 37, 37, 0), (1, 300, 300, 128)):
+                g = torch.Generator().manual_seed(S + T + hd + win)
+                q = torch.randn((Bq, Hq, S, hd), generator=g).to("cuda", dt)
+                k, v = (torch.randn((Bq, Hkv, T, hd), generator=g)
+                        .to("cuda", dt) for _ in range(2))
+                out = flash_attention(q, k, v, sliding_window=win)
+                ref = flash_attention(q, k, v, sliding_window=win,
+                                      force_ref=True)
+                torch.cuda.synchronize()
+                worst = max(worst, _report(
+                    f"flash Hq {Hq} Hkv {Hkv} hd {hd} {str(dt):14s} S {S:3d} "
+                    f"T {T:3d} window {win:3d}", out, ref, dt))
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((1, 300, HQ, HD), generator=g).to("cuda", torch.bfloat16)
+    kv = torch.randn((1, 300, 2, HKV, HD), generator=g).to("cuda",
+                                                          torch.bfloat16)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    out = attention_bshd(q, k, v)
+    dense = attention_bshd(q, k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    if not torch.equal(out, dense):
+        raise AssertionError("flash on strided (B,S,H,hd) views != on "
+                             "contiguous copies")
+    print("flash on the model's (B,S,H,hd) views: bitwise equal to "
+          "contiguous copies")
+    return worst
+
+
+def stripe_case(Bq, Hq, Hkv, hd, dt, seed):
+    """q (B,Hq,hd) and a (B,T,Hkv,hd) K / V stripe pair on the card."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((Bq, Hq, hd), generator=g).to("cuda", dt)
+    k, v = (torch.randn((Bq, STRIPE_T, Hkv, hd), generator=g).to("cuda", dt)
+            for _ in range(2))
+    return q, k, v
+
+
+def check_decode_vs_plain(decode_attention, sharded_decode_attention):
+    """The decode kernel against its plain version at both served head
+    shapes, out and lse; the stripe read through strides against the
+    contiguous layout; a scalar length; the sharded merge."""
+    worst = 0.0
+    lens = [1, STRIPE_T, 37, 64, 65, 300, 511, 129]
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for Hq, Hkv, hd in HEAD_SHAPES:
+        for dt, win in ((torch.float32, 0), (torch.bfloat16, 0),
+                        (torch.bfloat16, 100)):
+            q, k_st, v_st = stripe_case(B, Hq, Hkv, hd, dt, seed=hd + win)
+            k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)
+            out, lse = decode_attention(q, k, v, n, sliding_window=win)
+            ro, rl = decode_attention(q, k, v, n, sliding_window=win,
+                                      force_ref=True)
+            co, cl = decode_attention(q, k.contiguous(), v.contiguous(), n,
+                                      sliding_window=win)
+            torch.cuda.synchronize()
+            name = f"decode Hq {Hq} Hkv {Hkv} hd {hd} {str(dt):14s} " \
+                   f"window {win:3d}"
+            worst = max(worst, _report(name + " out", out, ro, dt),
+                        _report(name + " lse", lse, rl, dt))
+            if not (torch.equal(out, co) and torch.equal(lse, cl)):
+                raise AssertionError(f"{name}: the strided stripe read != "
+                                     f"the contiguous layout")
+        o1, l1 = decode_attention(q, k, v, 300)
+        o2, l2 = decode_attention(q, k, v, torch.full(
+            (B,), 300, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
+            raise AssertionError("a scalar n_valid != the same per row")
+    print("stripe read through strides: bitwise equal to the contiguous "
+          "layout; scalar n_valid equal to per-row")
+    q, k_st, v_st = stripe_case(B, 25, 5, 64, torch.float32, seed=3)
+    k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)
+    out = sharded_decode_attention(q, k.chunk(4, 2), v.chunk(4, 2), 700)
+    whole, _ = decode_attention(q, k, v, 700)
+    torch.cuda.synchronize()
+    err = (out - whole).abs().max().item()
+    print(f"sharded decode, 4 shards of {STRIPE_T // 4}, n_valid 700 (last "
+          f"shard empty): max |merged - unsharded| {err:.3e} (tol 1e-4)")
+    if not (torch.isfinite(out).all() and err <= 1e-4):
+        raise AssertionError(f"sharded decode differs by {err}")
+    return max(worst, err)
+
+
 # ---------------------------------------------------------------- serving
 def make_requests(Request, vocab):
     """8 greedy requests: mixed lengths, one ~300-token prompt (chunk
@@ -270,24 +392,52 @@ def check_outputs(reqs, done, vocab):
                                  f"{r.out_logprobs}")
 
 
-def serve_recurrent(arch, fn, get_config, build_model, ServingEngine,
-                    Request):
+def expected_launches(name, L, m):
+    """Launches a serve owes a kernel: L layers times the calls of the
+    engine's metrics that run it."""
+    calls = {
+        "paged_window_attention": m["decode_steps"],      # incl. chunks
+        "flash_attention": m["prefill_batches"],
+        "decode_attention": m["decode_steps"] - m["chunk_steps"],
+        "wkv_scan": m["prefill_batches"] + m["decode_steps"],
+        "ssm_scan": m["prefill_batches"] + m["decode_steps"],
+    }
+    return L * calls[name]
+
+
+def check_launches(fns, launches, cfg, m):
+    for fn in fns:
+        name = fn.__name__
+        expect = expected_launches(name, cfg.n_layers, m)
+        print(f"{name} launches {launches[name]} = {expect} ({cfg.n_layers} "
+              f"layers; {m['prefill_batches']} prefill calls, "
+              f"{m['decode_steps']} steps of which {m['chunk_steps']} chunk "
+              f"windows)")
+        if launches[name] <= 0 or launches[name] != expect:
+            raise AssertionError(f"{name} launches {launches[name]} != "
+                                 f"{expect}")
+
+
+def serve_stripes(arch, fns, make_reqs, get_config, build_model,
+                  ServingEngine, Request):
     """Phase 6 for one model: full width, bf16, seed-0 weights, the stripe
-    engine, 10 requests; ``fn`` is the model's scan kernel wrapper, whose
-    launches are counted from 0 over the serve. Returns the launches."""
+    engine; ``fns`` are the kernel wrappers of its path, whose launches
+    are counted from 0 over the serve. Returns {name: launches}."""
     cfg = get_config(arch)
     model = build_model(cfg, device="cuda")
     params = model.init(SEED)
 
     def run():
-        eng = ServingEngine(model, params, batch_size=8, max_seq=1024)
-        reqs = make_recurrent_requests(Request, cfg.vocab_size)
+        eng = ServingEngine(model, params, batch_size=8, max_seq=STRIPE_T,
+                            paged=False)
+        reqs = make_reqs(Request, cfg.vocab_size)
         done, wall = run_engine(eng, reqs)
         return eng, reqs, done, wall
 
-    fn.launches = 0
+    for fn in fns:
+        fn.launches = 0
     eng, reqs, done, wall = run()
-    launches = fn.launches
+    launches = {fn.__name__: fn.launches for fn in fns}
     check_outputs(reqs, done, cfg.vocab_size)
     m, stats = eng.metrics, eng.pool_stats()
     print("metrics:", json.dumps(m))
@@ -296,19 +446,15 @@ def serve_recurrent(arch, fn, get_config, build_model, ServingEngine,
     lat = sorted(r.latency_s for r in reqs)
     print(f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s; "
           f"latency p50 {statistics.median(lat):.3f} s, max {lat[-1]:.3f} s")
-    expect = cfg.n_layers * (m["prefill_batches"] + m["decode_steps"])
-    print(f"{fn.__name__} launches {launches}; {cfg.n_layers} layers x "
-          f"({m['prefill_batches']} prefill calls + {m['decode_steps']} "
-          f"decode steps) = {expect}")
-    if launches <= 0 or launches != expect:
-        raise AssertionError(f"{fn.__name__} launches {launches} != {expect}")
+    check_launches(fns, launches, cfg, m)
     if stats["paged"] or stats["active"]:
         raise AssertionError(f"stripe engine did not drain: {stats}")
-    if m["prefill_batches"] >= m["prefills"] or m["slot_reuses"] == 0:
+    if make_reqs is make_recurrent_requests and (
+            m["prefill_batches"] >= m["prefills"] or m["slot_reuses"] == 0):
         raise AssertionError("co-batched admission and slot reuse must "
                              "both have run")
     profile_serve(lambda: run()[::3])          # (engine, wall)
-    return launches
+    return launches, reqs
 
 
 def perturb_f32_leaves(params, seed):
@@ -388,12 +534,16 @@ def profile_serve(run):
 # ----------------------------------------------------------------- timing
 def time_ms(fn, flush, iters=30, warmup=5):
     """Median device time of ``fn`` in ms (CUDA events), with the L2
-    cache flushed before every launch as the serving caller finds it."""
+    cache flushed before every launch as the serving caller finds it. A
+    spin kernel after the flush keeps the card busy while the host
+    enqueues ``fn``, so the interval holds the device's time and not the
+    wrapper's host time (an idle card would wait for the enqueue)."""
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -419,6 +569,28 @@ def sdpa_on_gathered(q, pk, pv, table, base):
     return lambda: F.scaled_dot_product_attention(qt, gk, gv,
                                                   attn_mask=mask,
                                                   enable_gqa=True)
+
+
+def flash_bound(Bq, Hq, Hkv, S, T, hd, dtype):
+    """q, k, v read once and out written once; causal flops 4 * B * Hq *
+    S * T * hd / 2 at the input type's peak."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * Bq * hd * (2 * S * Hq + 2 * T * Hkv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * Bq * Hq * S * T * hd / 2 / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decode_bound(lens, Hq, Hkv, hd, dtype):
+    """The valid K/V of every row read once, q and the lengths read once,
+    out and lse written once; 4 * hd flops per (query head, valid
+    position) at the input type's peak."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (sum(lens) * Hkv * hd * 2 * es + len(lens) * Hq * hd * 2 * es
+              + len(lens) * (Hq + 1) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * hd * Hq * sum(lens) / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bound(q, base, S, dtype):
@@ -485,6 +657,12 @@ def main() -> int:
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, sharded_decode_attention)
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ops import (attention_bshd,
+                                                         flash_attention)
     from repro_torch.kernels.paged_attention import kernel as pw_kernel
     from repro_torch.kernels.paged_attention.ops import paged_window_attention
     from repro_torch.kernels.paged_attention.ref import (
@@ -514,6 +692,9 @@ def main() -> int:
         (8, 1, 32, 64), (1, PREFILL_T, 32, 64), (4, 64, 4, 32)])
     ssm_err = check_scan_vs_plain("ssm_scan", selective_scan, ssm_case, [
         (8, 1, 3200, 16), (1, PREFILL_T, 3200, 16), (4, 64, 512, 16)])
+    flash_err = check_flash_vs_plain(flash_attention, attention_bshd)
+    dec_err = check_decode_vs_plain(decode_attention,
+                                    sharded_decode_attention)
 
     phase("4. serve full-width qwen3-4b, bf16, use_kernel=True")
     cfg = get_config("qwen3-4b")
@@ -525,10 +706,14 @@ def main() -> int:
     print(f"{n_params / 1e9:.3f} B params, "
           f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
           f" GB, init {time.perf_counter() - t0:.1f} s")
-    pw_kernel.paged_window_attention.launches = 0
+    paged_fns = (pw_kernel.paged_window_attention,
+                 flash_kernel.flash_attention)
+    for fn in paged_fns:
+        fn.launches = 0
     eng, reqs, done, wall = serve(cfg, params, model, ServingEngine, Request,
                                   use_kernel=True)
-    launches = pw_kernel.paged_window_attention.launches
+    paged_launches = {fn.__name__: fn.launches for fn in paged_fns}
+    launches = paged_launches["paged_window_attention"]
     check_outputs(reqs, done, cfg.vocab_size)
     m = eng.metrics
     print("metrics:", json.dumps(m))
@@ -537,11 +722,7 @@ def main() -> int:
     lat = sorted(r.latency_s for r in reqs)
     print(f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s; "
           f"latency p50 {statistics.median(lat):.3f} s, max {lat[-1]:.3f} s")
-    print(f"kernel launches {launches} = {cfg.n_layers} layers x "
-          f"{m['decode_steps']} decode/chunk steps")
-    if launches <= 0 or launches != cfg.n_layers * m["decode_steps"]:
-        raise AssertionError(f"launches {launches} != {cfg.n_layers} x "
-                             f"{m['decode_steps']}")
+    check_launches(paged_fns, paged_launches, cfg, m)
     if m["chunk_steps"] == 0 or m["shared_admissions"] == 0 \
             or m["cow_copies"] == 0:
         raise AssertionError("chunk windows, prefix sharing and "
@@ -580,14 +761,30 @@ def main() -> int:
     del params32, model32
     torch.cuda.empty_cache()
 
-    phase("6. serve full-width rwkv6-1.6b and hymba-1.5b, bf16, stripes")
-    scan_launches = {}
-    for arch, fn in (("rwkv6-1.6b", wkv_kernel.wkv_scan),
-                     ("hymba-1.5b", ssm_kernel.ssm_scan)):
+    phase("6. serve full-width qwen3-4b, rwkv6-1.6b and hymba-1.5b, bf16, "
+          "stripes")
+    flash_fn, dec_fn = flash_kernel.flash_attention, dec_kernel.decode_attention
+    stripe_launches = {}
+    for arch, fns, make_reqs in (
+            ("qwen3-4b", (flash_fn, dec_fn), make_requests),
+            ("rwkv6-1.6b", (wkv_kernel.wkv_scan,), make_recurrent_requests),
+            ("hymba-1.5b", (ssm_kernel.ssm_scan, flash_fn, dec_fn),
+             make_recurrent_requests)):
         print(f"--- {arch}")
-        scan_launches[fn.__name__] = serve_recurrent(
-            arch, fn, get_config, build_model, ServingEngine, Request)
+        stripe_launches[arch], served = serve_stripes(
+            arch, fns, make_reqs, get_config, build_model, ServingEngine,
+            Request)
+        if arch == "hymba-1.5b":
+            # n_valid of each of the first 8 requests at its last decode
+            hymba_lens = [len(r.prompt) + len(r.out_tokens) - 1
+                          for r in served[:B]]
         torch.cuda.empty_cache()
+    # launches on the served paths, each counted from 0 over its serve
+    serve_launches = {}
+    for counts in (paged_launches, *stripe_launches.values()):
+        for name, n in counts.items():
+            serve_launches[name] = serve_launches.get(name, 0) + n
+    print("launches summed over the serves:", json.dumps(serve_launches))
 
     phase("7. recurrent kernel path vs plain path, full width, f32, "
           "2 layers, card vs CPU")
@@ -596,7 +793,7 @@ def main() -> int:
                               Request)
         torch.cuda.empty_cache()
 
-    phase("timing at the decode shape of each serve")
+    phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
     timings = {}
@@ -625,6 +822,41 @@ def main() -> int:
                   f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), latency "
                   f"floor of {shape[1]} dependent steps "
                   f"{step_floor_ms(shape[1]):.5f} ms")
+    F = torch.nn.functional
+    Hq, Hkv, hd = HEAD_SHAPES[0]
+    g = torch.Generator().manual_seed(12)
+    q = torch.randn((1, PREFILL_T, Hq, hd), generator=g).to("cuda",
+                                                            torch.bfloat16)
+    kv = torch.randn((1, PREFILL_T, 2, Hkv, hd), generator=g).to(
+        "cuda", torch.bfloat16)
+    k, v = kv[:, :, 0], kv[:, :, 1]          # the model's prefill views
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    f_ms = time_ms(lambda: attention_bshd(q, k, v), flush)
+    fp_ms = time_ms(lambda: attention_bshd(q, k, v, force_ref=True), flush)
+    fl_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    fb_ms, fb_by = flash_bound(1, Hq, Hkv, PREFILL_T, PREFILL_T, hd,
+                               torch.bfloat16)
+    print(f"flash B 1 S = T = {PREFILL_T} Hq {Hq} Hkv {Hkv} hd {hd} bf16: "
+          f"kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, sdpa (causal) "
+          f"{fl_ms:.4f} ms, bound {fb_ms:.5f} ms ({fb_by})")
+    Hq, Hkv, hd = HEAD_SHAPES[1]
+    q, k_st, v_st = stripe_case(B, Hq, Hkv, hd, torch.bfloat16, seed=13)
+    k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)   # stripe, in place
+    n = torch.tensor(hymba_lens, dtype=torch.int32, device="cuda")
+    kc, vc = k.contiguous(), v.contiguous()
+    mask = (torch.arange(STRIPE_T, device="cuda")[None] < n[:, None].long()
+            )[:, None, None, :]                           # (B,1,1,T)
+    d_ms = time_ms(lambda: decode_attention(q, k, v, n), flush)
+    dp_ms = time_ms(lambda: decode_attention(q, k, v, n, force_ref=True),
+                    flush)
+    dl_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), flush)
+    db_ms, db_by = decode_bound(hymba_lens, Hq, Hkv, hd, torch.bfloat16)
+    print(f"decode B {B} T {STRIPE_T} Hq {Hq} Hkv {Hkv} hd {hd} bf16, "
+          f"lengths {hymba_lens}: kernel {d_ms:.4f} ms, plain {dp_ms:.4f} "
+          f"ms, sdpa (length mask) {dl_ms:.4f} ms, bound {db_ms:.5f} ms "
+          f"({db_by})")
     k_ms, p_ms, l_ms, b_ms, b_by = timings[1]
     rows = [{
         "name": "paged_window_attention", "route": "cuda",
@@ -644,9 +876,24 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
-            "launches": scan_launches[name], "max_abs_err": err,
+            "launches": serve_launches[name], "max_abs_err": err,
             "max_err": err, "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for name, source, replaces, err, times in (
+            ("flash_attention", "flash_attention/csrc/flash.cu",
+             "flash_attention/kernel.py:24", flash_err,
+             (f_ms, fp_ms, fb_ms, fb_by, fl_ms)),
+            ("decode_attention", "decode_attention/csrc/decode.cu",
+             "decode_attention/kernel.py:29", dec_err,
+             (d_ms, dp_ms, db_ms, db_by, dl_ms))):
+        k_ms, p_ms, b_ms, b_by, l_ms = times
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": serve_launches[name], "max_abs_err": err,
+            "max_err": err, "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

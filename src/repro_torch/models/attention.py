@@ -2,11 +2,17 @@
 prefill, and single-token / multi-token-window decode against the paged
 KV block pool or the fixed per-slot stripe cache.
 
-Prefill attention is plain torch (einsum + masked softmax), as the JAX
-reference leaves it to XLA. The paged read goes through the gather path
-(``use_kernel=False``) or through ``kernels.paged_attention``
-(``use_kernel=True``): the hand-written CUDA kernel on CUDA tensors, its
-plain version on CPU tensors.
+On CUDA tensors the hot paths take the hand-written CUDA kernels, the
+sites where the reference means its Pallas kernels to run on a TPU: prefill
+attention goes through ``kernels.flash_attention`` and the stripe decode
+read through ``kernels.decode_attention`` (the stripe read in place,
+with one valid length per row). On CPU tensors both stay plain torch
+(einsum + masked softmax), as the reference leaves them to XLA. Stripe
+chunk windows (``verify_decode_attention``) stay plain torch on every
+device: their per-row bases fit neither reference kernel. The paged read
+goes through the gather path (``use_kernel=False``) or through
+``kernels.paged_attention`` (``use_kernel=True``): the CUDA kernel on
+CUDA tensors, its plain version on CPU tensors.
 
 Cache updates are **in place**: where the reference returns a new pool
 or stripe from a donated functional ``.at[].set``, these functions write
@@ -21,6 +27,9 @@ import math
 
 import torch
 
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention as _decode_kernel)
+from repro_torch.kernels.flash_attention.ops import attention_bshd
 from repro_torch.models import layers
 from repro_torch.serve.blocks import SCRATCH_BLOCK
 
@@ -115,10 +124,15 @@ def _masked_attention(q, k, v, q_offset, *, sliding_window=0, causal=True):
 def causal_attention(q, k, v, *, sliding_window: int = 0, causal: bool = True):
     """Full or sliding-window (causal) attention; q/k/v aligned in time.
 
-    Sequences that are a multiple of ``Q_CHUNK`` longer than it run in
-    query chunks, so the score tensor never materializes at (S, T)."""
+    CUDA tensors go through the flash kernel. On the CPU, sequences that
+    are a multiple of ``Q_CHUNK`` longer than it run in query chunks, so
+    the score tensor never materializes at (S, T)."""
     B, S, Hq, hd = q.shape
     T = k.shape[1]
+    if q.is_cuda:
+        return attention_bshd(q, k, v, causal=causal,
+                              sliding_window=sliding_window) \
+            .reshape(B, S, Hq * hd)
     if S <= Q_CHUNK or S % Q_CHUNK:
         return _masked_attention(q, k, v, T - S, sliding_window=sliding_window,
                                  causal=causal)
@@ -281,11 +295,17 @@ def stripe_decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len, *,
     """One token per row against the stripe cache: cache_len (B,) tokens
     already cached per row (a scalar applies to every row). The new K/V
     goes to ``cache_len[b]`` (dropped at capacity), then row b attends
-    to its ``cache_len[b] + 1`` tokens. Returns (out, k_cache, v_cache)."""
+    to its ``cache_len[b] + 1`` tokens, through the decode kernel on CUDA
+    tensors (the stripe read in place). Returns (out, k_cache, v_cache)."""
     B = q.shape[0]
     idx = cache_len.reshape(-1).expand(B)
     _stripe_write(k_cache, k_new, idx[:, None].long())
     _stripe_write(v_cache, v_new, idx[:, None].long())
+    if q.is_cuda:
+        out, _ = _decode_kernel(q[:, 0], k_cache.transpose(1, 2),
+                                v_cache.transpose(1, 2), idx + 1,
+                                sliding_window=sliding_window)
+        return out.reshape(B, 1, -1), k_cache, v_cache
     out = decode_attention(q, k_cache, v_cache, idx + 1,
                            sliding_window=sliding_window)
     return out, k_cache, v_cache

@@ -4,17 +4,25 @@ where no CUDA device is present). Run them on a GPU machine with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same
-inputs, with TF32 off. Paged-window attention: f32 atol = rtol = 1e-4
-(the sum order differs), bf16 3e-2 (the reference grid's bf16
-tolerance). WKV and selective scans (f32 only): 1e-5 for one step, 1e-4
-over long scans, where the carried state accumulates rounding.
+inputs, with TF32 off. Paged-window, flash and decode attention: f32
+atol = rtol = 1e-4 (the sum order differs), bf16 3e-2 (the reference
+grid's bf16 tolerance). WKV and selective scans (f32 only): 1e-5 for one
+step, 1e-4 over long scans, where the carried state accumulates
+rounding.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, sharded_decode_attention)
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ops import (attention_bshd,
+                                                     flash_attention)
 from repro_torch.kernels.paged_attention import kernel as pw_kernel
 from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
                                                      paged_window_attention)
@@ -290,6 +298,220 @@ def test_recurrent_engine_on_card(cuda, name, kw):
         m = eng.metrics
         expect = cfg.n_layers * (m["prefill_batches"] + m["decode_steps"])
         assert fn.launches - before == (expect if device == "cuda" else 0)
+        streams[device] = reqs
+    for a, b in zip(streams["cuda"], streams["cpu"]):
+        assert a.out_tokens == b.out_tokens, a.rid
+        torch.testing.assert_close(torch.tensor(a.out_logprobs),
+                                   torch.tensor(b.out_logprobs),
+                                   atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- flash / decode kernels
+def _close(out, ref, dt):
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+
+
+# B x Hq x Hkv x hd x S x T x window x causal: the two served head shapes
+# (qwen3-4b, hymba-1.5b), a q offset, ragged S, a window, G = 1, wide and
+# odd head dims
+FLASH_GRID = [
+    (1, 32, 8, 128, 300, 300, 0, True),
+    (2, 32, 8, 128, 64, 364, 0, True),
+    (2, 25, 5, 64, 37, 37, 0, True),
+    (1, 25, 5, 64, 300, 300, 128, True),
+    (2, 4, 4, 112, 70, 90, 0, True),
+    (1, 8, 2, 192, 65, 65, 0, True),
+    (1, 4, 1, 256, 33, 50, 24, True),
+    (2, 6, 3, 32, 20, 45, 0, False),
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,hd,S,T,win,causal", FLASH_GRID)
+def test_flash_kernel_matches_plain_version(cuda, dt, B, Hq, Hkv, hd, S, T,
+                                            win, causal):
+    g = torch.Generator().manual_seed(S + T + hd)
+    q = torch.randn((B, Hq, S, hd), generator=g).to("cuda", dt)
+    k, v = (torch.randn((B, Hkv, T, hd), generator=g).to("cuda", dt)
+            for _ in range(2))
+    before = flash_kernel.flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, sliding_window=win)
+    assert flash_kernel.flash_attention.launches == before + 1
+    ref = flash_attention(q, k, v, causal=causal, sliding_window=win,
+                          force_ref=True)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == q.shape
+    _close(out, ref, dt)
+
+
+def test_flash_reads_model_views_in_place(cuda):
+    """(B,S,H,hd) q and k / v sliced out of one projection, as the model
+    passes them: the strided route equals the contiguous one bitwise."""
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((2, 50, 25, 64), generator=g).cuda()
+    kv = torch.randn((2, 50, 2, 5, 64), generator=g).cuda()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    out = attention_bshd(q, k, v, sliding_window=20)
+    dense = attention_bshd(q, k.contiguous(), v.contiguous(),
+                           sliding_window=20)
+    ref = attention_bshd(q, k, v, sliding_window=20, force_ref=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    assert torch.equal(out, dense)
+    _close(out, ref, torch.float32)
+
+
+def _stripe(B, T, Hkv, hd, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, T, Hkv, hd), generator=g).to("cuda", dt)
+            for _ in range(2)]
+
+
+# B x Hq x Hkv x hd x T x window
+DECODE_GRID = [
+    (8, 32, 8, 128, 1024, 0),
+    (8, 25, 5, 64, 1024, 0),
+    (8, 25, 5, 64, 1024, 100),
+    (3, 8, 8, 112, 300, 0),
+    (2, 8, 1, 256, 200, 37),
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,hd,T,win", DECODE_GRID)
+def test_decode_kernel_matches_plain_version(cuda, dt, B, Hq, Hkv, hd, T,
+                                             win):
+    """Ragged per-row lengths incl. 1, T and one past T (a stripe at
+    capacity); the stripe (B,T,Hkv,hd) read through strides equals the
+    contiguous (B,Hkv,T,hd) layout bitwise."""
+    g = torch.Generator().manual_seed(T + hd + win)
+    q = torch.randn((B, Hq, hd), generator=g).to("cuda", dt)
+    k_st, v_st = _stripe(B, T, Hkv, hd, dt, seed=T + win)
+    lens = [1, T, T + 1, 64, 65, 300 % T + 1, 17, 129][:B]
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)
+    before = decode_kernel.decode_attention.launches
+    out, lse = decode_attention(q, k, v, n, sliding_window=win)
+    assert decode_kernel.decode_attention.launches == before + 1
+    ro, rl = decode_attention(q, k, v, n, sliding_window=win, force_ref=True)
+    co, cl = decode_attention(q, k.contiguous(), v.contiguous(), n,
+                              sliding_window=win)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and lse.dtype == torch.float32
+    _close(out, ro, dt)
+    _close(lse, rl, dt)
+    assert torch.equal(out, co) and torch.equal(lse, cl)
+
+
+def test_decode_scalar_and_empty_rows(cuda):
+    q = torch.randn((4, 8, 64), device="cuda")
+    k, v = (t.transpose(1, 2) for t in _stripe(4, 96, 2, 64, torch.float32,
+                                               seed=3))
+    o1, l1 = decode_attention(q, k, v, 50)
+    o2, l2 = decode_attention(q, k, v, torch.full((4,), 50, dtype=torch.int32,
+                                                  device="cuda"))
+    o0, l0 = decode_attention(q, k, v, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert torch.equal(o0, torch.zeros_like(o0))
+    torch.testing.assert_close(l0, torch.full_like(l0, math.log(1e-30)))
+
+
+def test_sharded_decode_on_card(cuda):
+    """4 shards of a 1024 stripe, the last one empty, merge to the
+    unsharded kernel's output."""
+    q = torch.randn((8, 25, 64), device="cuda")
+    k, v = (t.transpose(1, 2) for t in _stripe(8, 1024, 5, 64, torch.float32,
+                                               seed=4))
+    before = decode_kernel.decode_attention.launches
+    out = sharded_decode_attention(q, k.chunk(4, 2), v.chunk(4, 2), 700)
+    assert decode_kernel.decode_attention.launches == before + 4
+    whole, _ = decode_attention(q, k, v, 700)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, whole, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_attention_kernels_take_unaligned_rows(cuda, dt):
+    """Rows that do not start 16-byte aligned take the element-wise
+    staging path: the same function as the plain version."""
+    g = torch.Generator().manual_seed(7)
+    qb = torch.randn((2, 4, 40, 65), generator=g).to("cuda", dt)
+    kvb = torch.randn((2, 2, 50, 65), generator=g).to("cuda", dt)
+    q, k, v = qb[..., 1:], kvb[..., 1:], kvb[..., :64]
+    assert not flash_kernel.rows_aligned(q, k, v)
+    out = flash_attention(q, k, v, sliding_window=9)
+    ref = flash_attention(q, k, v, sliding_window=9, force_ref=True)
+    n = torch.tensor([17, 50], dtype=torch.int32, device="cuda")
+    od, ld = decode_attention(q[:, :, 0], k, v, n)
+    rd, rl = decode_attention(q[:, :, 0], k, v, n, force_ref=True)
+    torch.cuda.synchronize()
+    _close(out, ref, dt)
+    _close(od, rd, dt)
+    _close(ld, rl, dt)
+
+
+def test_attention_kernels_reject_what_they_cannot_run(cuda):
+    q = torch.zeros((1, 4, 8, 64), device="cuda")
+    k = torch.zeros((1, 2, 8, 64), device="cuda")
+    wide = torch.zeros((1, 4, 8, 320), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_kernel.flash_attention(wide, wide[:, :2], wide[:, :2])
+    with pytest.raises(ValueError, match="dtype"):
+        flash_kernel.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="stride"):
+        flash_kernel.flash_attention(q.transpose(2, 3), k.transpose(2, 3),
+                                     k.transpose(2, 3))
+    n = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        decode_kernel.decode_attention(wide[:, :, 0], wide[:, :2],
+                                       wide[:, :2], n)
+    with pytest.raises(ValueError, match="dtype"):
+        decode_kernel.decode_attention(q[:, :, 0], k.bfloat16(),
+                                       k.bfloat16(), n)
+    with pytest.raises(ValueError, match="stride"):
+        decode_kernel.decode_attention(q[:, :, :, 0], k.transpose(2, 3),
+                                       k.transpose(2, 3), n)
+    with pytest.raises(ValueError, match="int32"):
+        decode_kernel.decode_attention(q[:, :, 0], k, k, n.long())
+    many = torch.zeros((1, 33, 64), device="cuda")
+    with pytest.raises(ValueError, match="group"):
+        decode_kernel.decode_attention(many, k[:, :1], k[:, :1], n)
+
+
+@pytest.mark.parametrize("name,chunk", [("qwen3-4b", 16),
+                                        ("hymba-1.5b", None)])
+def test_stripe_attention_engine_on_card(cuda, name, chunk):
+    """Reduced GQA models on the stripe layout: every prefill call runs
+    the flash kernel once per layer, every stripe decode step (not the
+    chunk windows) the decode kernel once per layer, and the streams
+    equal the CPU engine's (plain attention) on the same weights."""
+    cfg = dataclasses.replace(get_config(name).reduced(), n_kv_heads=2)
+    params = build_model(cfg, device="cuda").init(0)
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (40, 7, 7, 70, 12)]
+    streams = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        p = params if device == "cuda" else _to(params, "cpu")
+        before = (flash_kernel.flash_attention.launches,
+                  decode_kernel.decode_attention.launches)
+        eng = ServingEngine(model, p, batch_size=3, max_seq=96, paged=False,
+                            prefill_chunk=chunk, device=device)
+        reqs = [Request(rid=i, prompt=list(q), max_new_tokens=6)
+                for i, q in enumerate(prompts)]
+        assert len(eng.run(list(reqs))) == len(prompts)
+        m = eng.metrics
+        flash = flash_kernel.flash_attention.launches - before[0]
+        dec = decode_kernel.decode_attention.launches - before[1]
+        on = device == "cuda"
+        assert flash == (cfg.n_layers * m["prefill_batches"] if on else 0)
+        assert dec == (cfg.n_layers * (m["decode_steps"] - m["chunk_steps"])
+                       if on else 0)
+        assert eng.pool_stats()["active"] == 0
         streams[device] = reqs
     for a, b in zip(streams["cuda"], streams["cpu"]):
         assert a.out_tokens == b.out_tokens, a.rid

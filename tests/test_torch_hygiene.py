@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.paged_attention import kernel as pw_kernel
 from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
@@ -110,11 +112,25 @@ def _ssm_args():
             torch.zeros((1, 40, 16)))
 
 
+def _flash_args():
+    q = torch.zeros((1, 4, 3, 32))
+    kv = torch.zeros((1, 2, 5, 32))
+    return q, kv, kv
+
+
+def _decode_args():
+    kv = torch.zeros((2, 2, 5, 32))
+    return (torch.zeros((2, 4, 32)), kv, kv,
+            torch.ones(2, dtype=torch.int32))
+
+
 # (binding module, wrapper / C entry name, CPU arguments it must refuse)
 KERNELS = {
     "paged_window": (pw_kernel, "paged_window_attention", _paged_args),
     "wkv": (wkv_kernel, "wkv_scan", _wkv_args),
     "ssm_scan": (ssm_kernel, "ssm_scan", _ssm_args),
+    "flash": (flash_kernel, "flash_attention", _flash_args),
+    "decode": (decode_kernel, "decode_attention", _decode_args),
 }
 
 
