@@ -7,12 +7,19 @@ Phases (any failure exits non-zero; no result line is printed then):
 
 1. Environment: the card's name and power limit, torch / CUDA versions.
    Without a GPU it stops here.
-2. Build: every CUDA source of the port, with nvcc, into ``build/``.
+2. Build: every CUDA source of the port, with nvcc, into ``build/``;
+   ptxas registers and spills of every kernel instantiation; where
+   ``cuobjdump`` exists, whether the bf16 flash kernel's SASS holds
+   tensor-core ``HMMA`` and both attention kernels asynchronous copies
+   (``LDGSTS`` / ``UTMALDG``).
 3. Kernel vs plain version on the card: ``paged_window_attention`` at
    the full qwen3-4b head shape (Hq 32, Hkv 8, hd 128, bs 16, B 8) for
    S in {1, 4, 64}, ragged base lengths, one sliding window, f32
    (atol = rtol = 1e-4) and bf16 (3e-2); poisoning scratch block 0
-   changes no output bit. Then the two scan kernels, f32, random inputs
+   changes no output bit; then at the edges of its 64-position KV
+   splits (rows seeing 1, 63, 64, 65, 128 and all 512 positions) for bs
+   in {8, 16, 64}, S in {1, 4, 64}, f32 and bf16, scratch block 0
+   poisoned. Then the two scan kernels, f32, random inputs
    (non-zero bonus u, decays w in (0.45, 0.95), varied dt, A and D, a
    random initial state; k and the WKV state scaled by 1/sqrt(hd) and C
    by 1/sqrt(N) so outputs are of order 1): ``wkv_scan`` at the
@@ -25,7 +32,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    shapes (qwen3-4b: Hq 32, Hkv 8, hd 128; hymba-1.5b: Hq 25, Hkv 5, hd
    64), f32 (1e-4) and bf16 (3e-2): flash at S = T = 300, S = 64 < T =
    364 (q offset), ragged S = 37 and a 128 sliding window, and on the
-   model's strided (B,S,H,hd) views (bitwise equal to contiguous ones);
+   model's strided (B,S,H,hd) views (bitwise equal to contiguous ones),
+   and at every head dim {64, 112, 128, 192, 256} and group size {1, 4,
+   5} over S 65 < T 300, causal and with a 24 sliding window;
    decode at B 8 over a 1024 stripe with ragged per-row lengths (1 and T
    among them) and one window, out and lse, the stripe read through
    strides bitwise equal to the contiguous layout, a scalar length equal
@@ -62,7 +71,10 @@ of its serve beside its plain version and its bound from bytes and flops
 (for the scans also at a 300-token prefill, with the latency floor of
 300 dependent steps): paged attention and the scans at decode, flash at
 the qwen3-4b prefill (B 1, S = T = 300), decode attention at
-hymba-1.5b's decode (B 8, 1024 stripe, its serve's lengths).
+hymba-1.5b's decode (B 8, 1024 stripe, its serve's lengths); the paged
+kernel's row also carries its S = 64 chunk-window time (``window_*``),
+the flash row its time and SDPA's at S = T = 16 and that of one tiny
+elementwise kernel (what a launch costs this timing before any work).
 ``scaled_dot_product_attention`` is the yardstick of the attention
 kernels (on the gathered KV, causal, or with a length mask; the port
 never calls it); no single PyTorch call computes either recurrence. TF32
@@ -110,20 +122,78 @@ def gpu_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
+# ------------------------------------------------------------------ build
+def _demangle(names, tool_dir):
+    """Readable kernel names (``cu++filt`` where the toolkit has it)."""
+    tool = Path(tool_dir) / "cu++filt"
+    if tool.is_file():
+        out = subprocess.run([str(tool), *names], capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            return [n.replace("(int)", "").replace("void ", "")
+                    .replace("(anonymous namespace)::", "")
+                    .replace("<unnamed>::", "").split("(")[0] for n in out]
+    return names
+
+
+def print_ptxas(build_dir, tool_dir):
+    """Registers and spills of every compiled kernel, from each source's
+    ``-Xptxas -v`` log."""
+    for log in sorted(Path(build_dir).glob("*.log")):
+        entries, name = [], None
+        for line in log.read_text().splitlines():
+            if "Compiling entry function" in line:
+                name, spill = line.split("'")[1], "spills not reported"
+            elif name and "spill stores" in line:
+                spill = line.strip()
+            elif name and "Used" in line and "registers" in line:
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                entries.append((name, regs, spill))
+                name = None
+        for (_, regs, spill), short in zip(
+                entries, _demangle([e[0] for e in entries], tool_dir)):
+            print(f"  ptxas {log.stem}: {short}: {regs} registers; {spill}")
+
+
+def print_sass_checks(libs, tool_dir):
+    """Which kernels' SASS holds tensor-core MMAs (HMMA) and asynchronous
+    copies (LDGSTS, or UTMALDG for TMA), where cuobjdump exists."""
+    tool = Path(tool_dir) / "cuobjdump"
+    if not tool.is_file():
+        print("  sass: cuobjdump not available")
+        return
+    for src, lib in libs.items():
+        if src.stem not in ("flash", "paged_window"):
+            continue
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        funcs = {}
+        for part in sass.split("Function : ")[1:]:
+            name, _, body = part.partition("\n")
+            funcs[name.strip()] = body
+        names = _demangle(list(funcs), tool_dir)
+        for short, body in zip(names, funcs.values()):
+            print(f"  sass {src.stem}: {short}: HMMA "
+                  f"{'yes' if 'HMMA' in body else 'no'}, LDGSTS "
+                  f"{'yes' if 'LDGSTS' in body else 'no'}, UTMALDG "
+                  f"{'yes' if 'UTMALDG' in body else 'no'}")
+
+
 # ------------------------------------------------------------ kernel cases
-def window_case(S, dtype, bases, *, seed=0, device="cuda"):
-    """q / pool / table / base for B rows at the given base lengths: each
-    row owns distinct random blocks covering base + S tokens; table tails
-    point at scratch block 0."""
+def window_case(S, dtype, bases, *, seed=0, device="cuda", bs=BS,
+                max_blocks=MAX_BLOCKS):
+    """q / pool / table / base for one row per base length: each row owns
+    distinct random blocks covering base + S tokens; table tails point
+    at scratch block 0."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    nb = B * MAX_BLOCKS + 1
-    q = torch.randn((B, S, HQ, HD), generator=g).to(device, dtype)
-    pk = torch.randn((nb, BS, HKV, HD), generator=g).to(device, dtype)
-    pv = torch.randn((nb, BS, HKV, HD), generator=g).to(device, dtype)
+    nb = len(bases) * max_blocks + 1
+    q = torch.randn((len(bases), S, HQ, HD), generator=g).to(device, dtype)
+    pk = torch.randn((nb, bs, HKV, HD), generator=g).to(device, dtype)
+    pv = torch.randn((nb, bs, HKV, HD), generator=g).to(device, dtype)
     free = (torch.randperm(nb - 1, generator=g) + 1).tolist()
-    table = torch.zeros((B, MAX_BLOCKS), dtype=torch.int32)
+    table = torch.zeros((len(bases), max_blocks), dtype=torch.int32)
     for b, base in enumerate(bases):
-        for i in range(-(-(base + S) // BS)):
+        for i in range(-(-(base + S) // bs)):
             table[b, i] = free.pop()
     return (q, pk, pv, table.to(device),
             torch.tensor(bases, dtype=torch.int32, device=device))
@@ -162,6 +232,29 @@ def check_kernel_vs_plain(window_attn):
     if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
         raise AssertionError("poisoning scratch block 0 changed the output")
     print("scratch block 0 poisoned with +-1e9: outputs bitwise unchanged")
+    return max(worst, check_split_edges(window_attn))
+
+
+def check_split_edges(window_attn):
+    """Rows whose last window query sees 1, 63, 64, 65, 128 and all T =
+    512 positions, the edges of the kernel's 64-position KV splits, at
+    block sizes 8, 16 and 64; scratch block 0 poisoned, so a read of it
+    would show."""
+    worst = 0.0
+    for bs in (8, 16, 64):
+        mb = 512 // bs
+        for S in (1, 4, 64):
+            bases = [max(0, n - S) for n in (1, 63, 64, 65, 128, mb * bs)]
+            for dt in (torch.float32, torch.bfloat16):
+                args = window_case(S, dt, bases, seed=bs + S, bs=bs,
+                                   max_blocks=mb)
+                args[1][0], args[2][0] = 1e9, -1e9     # scratch block 0
+                out, lse = window_attn(*args)
+                ro, rl = window_attn(*args, force_ref=True)
+                torch.cuda.synchronize()
+                name = f"paged split edges bs {bs:2d} S {S:2d} {str(dt):14s}"
+                worst = max(worst, _report(name + " out", out, ro, dt),
+                            _report(name + " lse", lse, rl, dt))
     return worst
 
 
@@ -272,6 +365,22 @@ def check_flash_vs_plain(flash_attention, attention_bshd):
                              "contiguous copies")
     print("flash on the model's (B,S,H,hd) views: bitwise equal to "
           "contiguous copies")
+    for hd in (64, 112, 128, 192, 256):
+        for G in (1, 4, 5):
+            for dt in (torch.float32, torch.bfloat16):
+                g = torch.Generator().manual_seed(hd + G)
+                q = torch.randn((1, 2 * G, 65, hd), generator=g).to("cuda",
+                                                                   dt)
+                k, v = (torch.randn((1, 2, 300, hd), generator=g)
+                        .to("cuda", dt) for _ in range(2))
+                for win in (0, 24):
+                    out = flash_attention(q, k, v, sliding_window=win)
+                    ref = flash_attention(q, k, v, sliding_window=win,
+                                          force_ref=True)
+                    torch.cuda.synchronize()
+                    worst = max(worst, _report(
+                        f"flash hd {hd:3d} G {G} {str(dt):14s} S 65 T 300 "
+                        f"window {win:2d}", out, ref, dt))
     return worst
 
 
@@ -508,7 +617,7 @@ def profile_serve(run):
     """Where the time of a serve goes: ``run()`` (returning the engine
     and its wall time) again under torch.profiler (its overhead
     included), device time summed over kernels against the wall time,
-    and the top kernels."""
+    the top kernels, and the port's own kernels below them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -529,6 +638,10 @@ def profile_serve(run):
           f"{1 - busy_ms / (wall * 1e3):.3f}), {len(prof.events())} events")
     for t, e in rows[:8]:
         print(f"  {t / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    # the port's own kernels (anonymous namespace) below the top 8
+    for t, e in rows[8:]:
+        if "anonymous namespace" in e.key:
+            print(f"  {t / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
 # ----------------------------------------------------------------- timing
@@ -679,12 +792,9 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {len(libs)} CUDA source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
-    for src in libs:
-        log = _build.BUILD_DIR / f"{src.stem}.log"
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print("  ptxas:", line.strip())
+    tool_dir = Path(_build.nvcc()).parent
+    print_ptxas(_build.BUILD_DIR, tool_dir)
+    print_sass_checks(libs, tool_dir)
 
     phase("3. kernels vs plain versions on the card (TF32 off)")
     max_err = check_kernel_vs_plain(paged_window_attention)
@@ -840,6 +950,17 @@ def main() -> int:
     print(f"flash B 1 S = T = {PREFILL_T} Hq {Hq} Hkv {Hkv} hd {hd} bf16: "
           f"kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, sdpa (causal) "
           f"{fl_ms:.4f} ms, bound {fb_ms:.5f} ms ({fb_by})")
+    # the same call at S = T = 16 (one tile), and one tiny elementwise
+    # kernel: what a launch costs this timing before any work
+    q16, k16, v16 = (t[:, :16] for t in (q, k, v))
+    qt16, kt16, vt16 = (t[:, :, :16].contiguous() for t in (qt, kt, vt))
+    f16_ms = time_ms(lambda: attention_bshd(q16, k16, v16), flush)
+    fl16_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt16, kt16, vt16, is_causal=True, enable_gqa=True), flush)
+    tiny = torch.zeros(16, device="cuda")
+    tiny_ms = time_ms(lambda: tiny.add_(1), flush)
+    print(f"flash at S = T = 16: kernel {f16_ms:.4f} ms, sdpa {fl16_ms:.4f} "
+          f"ms; one 16-element add {tiny_ms:.4f} ms")
     Hq, Hkv, hd = HEAD_SHAPES[1]
     q, k_st, v_st = stripe_case(B, Hq, Hkv, hd, torch.bfloat16, seed=13)
     k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)   # stripe, in place
@@ -858,6 +979,7 @@ def main() -> int:
           f"ms, sdpa (length mask) {dl_ms:.4f} ms, bound {db_ms:.5f} ms "
           f"({db_by})")
     k_ms, p_ms, l_ms, b_ms, b_by = timings[1]
+    w_ms, wp_ms, wl_ms, wb_ms, wb_by = timings[64]
     rows = [{
         "name": "paged_window_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -865,7 +987,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_attention/kernel.py:148",
         "launches": launches, "max_abs_err": max_err, "max_err": max_err,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": l_ms}]
+        "bound_by": b_by, "library_ms": l_ms, "window_ms": w_ms,
+        "window_plain_ms": wp_ms, "window_library_ms": wl_ms,
+        "window_bound_ms": wb_ms, "window_bound_by": wb_by}]
     for name, source, replaces, err in (
             ("wkv_scan", "rwkv_scan/csrc/wkv.cu", "rwkv_scan/kernel.py:29",
              wkv_err),
@@ -894,6 +1018,8 @@ def main() -> int:
             "launches": serve_launches[name], "max_abs_err": err,
             "max_err": err, "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+    next(r for r in rows if r["name"] == "flash_attention").update(
+        s16_ms=f16_ms, s16_library_ms=fl16_ms, tiny_op_ms=tiny_ms)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Each ``kernels/*/csrc/*.cu`` builds with ``nvcc`` for ``sm_90a`` into
 ``build/<stem>-<hash>.so`` at the repo root, where the hash covers the
-source and the flags: an edited source builds anew, an unchanged one
-loads the library already built. The library exposes a plain C
+source, the headers it includes with ``#include "..."`` (those include
+theirs in turn) and the flags: an edited source or header builds anew,
+an unchanged one loads the library already built. The library exposes a plain C
 interface and is loaded with ``ctypes``. A failed build raises.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,10 +30,31 @@ def sources() -> list[Path]:
     return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def includes(src: Path) -> list[Path]:
+    """The headers ``src`` includes with quotes, each resolved against
+    the directory of the file that includes it, and theirs in turn, each
+    once, in the order first met."""
+    seen: list[Path] = []
+    todo = [Path(src).resolve()]
+    while todo:
+        f = todo.pop(0)
+        for name in _INCLUDE.findall(f.read_bytes()):
+            header = (f.parent / name.decode()).resolve()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(Path(src).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(src).stem}-{digest[:16]}.so"
+    h = hashlib.sha256(Path(src).read_bytes())
+    for header in includes(src):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc() -> str:

@@ -17,48 +17,70 @@
 // (B, H, S, hd) layout are both read without a copy. Inputs are f32 or
 // bf16; hd <= 256, any S, T >= 1 (no multiple-of-tile gate).
 //
-// Design. The TPU grid swept the KV blocks as a sequential grid axis
-// over VMEM accumulators. Here one CTA takes one (batch row, q head,
-// 64-query tile) and loops over 64-position K/V tiles itself, loading
-// only the tiles that intersect the tile's causal / window band. The
-// query tile and each K/V tile are staged in shared memory as f32 (head
-// dim zero-padded to a multiple of 32), in 16-byte loads where the rows
-// are aligned. Each warp owns 16 query rows (8 at hd > 128). Scores:
-// lane t takes key t of a 32-key chunk and dots it with the warp's rows (float4 reads: K row per lane, padded to avoid
-// bank conflicts; Q rows as broadcasts). The online softmax (running
-// max, denominator, rescaled accumulator) stays in f32 registers; the
-// chunk's probabilities go through shared memory to the PV product,
-// where the lanes split the head dim.
+// Two instantiations, chosen by dtype (neither is a fallback of the other).
+//
+// bf16: tensor cores. One CTA takes one (batch row, KV head, tile of 64
+// packed query rows); packed row r is (position r / G, query head
+// kvh * G + r % G), so the G query heads of a KV head share every K/V
+// tile the CTA stages (G-fold less K/V traffic than one CTA per q head).
+// Two warp groups of 4 warps each hold all 64 rows (16 a warp) and take
+// alternate 64-position K/V tiles of the causal / window band (32 at
+// hd > 128), and merge (o, m, l) through shared memory at the end. Each
+// group has one K and one V tile in shared memory, bf16, XOR-swizzled in
+// 16-byte chunks (chunk ^ (row & 7)) so `ldmatrix` is conflict-free,
+// filled by 16-byte `cp.async.cg`: V_j is in flight during QK_j and the
+// group's next K during PV_j. Positions outside the band are zero-filled
+// (the src-size-0 form) and never read. S = QK^T and O += PV run as
+// `mma.sync.m16n8k16` (bf16 in, f32 accumulate) fed by `ldmatrix` (V
+// through `ldmatrix.trans`); P stays in registers, rounded to bf16 as
+// the A operand of PV (kernels/include/hopper.cuh). The online softmax
+// is f32, in base 2 with the scale folded in. Only tiles that cross the
+// diagonal, the window edge or T are masked. The grid's slow axis is the
+// query tile, heaviest (last) tiles first. hd is zero-padded to a
+// multiple of 64 (64, 128, 192, 256; the configs use 64, 112, 128 and
+// 192). `mma.sync` and not `wgmma`: at the served shapes the bound is
+// bytes, and a warpgroup product needs 64-row warpgroup tiles fed from
+// shared memory by a producer (TMA, mbarriers), a larger redesign. Rows
+// that are not 16-byte aligned are staged element by element into the
+// same layout.
+//
+// f32: CUDA cores. TF32 keeps about three digits, which the f32 callers'
+// 1e-4 tolerance and identical f32 token streams do not allow, so the
+// f32 kernel keeps the first design: one CTA per (batch row, q head,
+// 64-query tile), K/V tiles staged as f32 (16-byte loads where rows are
+// aligned), each warp 16 query rows (8 at hd > 128), lane t scores key t
+// of a 32-key chunk, PV with the lanes splitting the head dim.
 //
 // Bound on an H100 SXM. At the qwen3-4b prefill shape (Hq 32, Hkv 8, hd
 // 128, S = T = 300, bf16) the causal work is 4 * Hq * S * T * hd / 2
 // = 0.74 GFLOP against 6.1 MB of q, k, v and out: 0.0007 ms at the bf16
 // tensor-core peak, 0.0018 ms at 3.35 TB/s, so the bound is bytes; on
 // CUDA cores in f32 (67 TFLOP/s) the same work takes 0.011 ms at best.
-// What this first design leaves on the table: the dots run on CUDA
-// cores (no mma / wgmma), the K/V staging is synchronous (no cp.async /
-// TMA double buffering, so loads do not overlap the math), and the G
-// query heads of one KV head each load the same K/V tile.
+// The bf16 grid there is ceil(300 * 4 / 64) * 8 = 152 CTAs (160 with
+// one CTA per q head before), one per SM (registers). What holds it
+// above its bound and its SDPA yardstick (PERF.md has the times): every
+// query tile re-streams its band's K/V from L2, and the warps that issue
+// a tile's cp.async copies stall while the L2 serves them, so copies and
+// math overlap only across the two groups; with one or two warps per
+// scheduler the QK, softmax and PV latencies of a tile are exposed. A
+// producer warp with TMA bulk copies and wgmma consumers is the next
+// step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "../../include/hopper.cuh"
+
 namespace {
 
+// f32 path: the CUDA-core kernel (T = float only)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -71,23 +93,13 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// One 16-byte load of `src` (4 f32 or 8 bf16), widened to f32 at `dst`.
+// One 16-byte load of `src` (4 f32) at `dst`.
 template <typename T>
 __device__ __forceinline__ void load16(const T* src, float* dst);
 template <>
 __device__ __forceinline__ void load16<float>(const float* src, float* dst) {
   *reinterpret_cast<float4*>(dst) =
       __ldg(reinterpret_cast<const float4*>(src));
-}
-template <>
-__device__ __forceinline__ void load16<__nv_bfloat16>(
-    const __nv_bfloat16* src, float* dst) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
 // Stage rows [0, nrows) of a tile into shared memory as f32: row r is
@@ -300,15 +312,15 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Hq, int Hkv, int S, int T_, int hd,
-                   Strides qs_, Strides ks_, Strides vs_, Strides os_,
-                   int causal, int window, int vec, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int B, int Hq, int Hkv, int S, int T_, int hd,
+                       Strides qs_, Strides ks_, Strides vs_, Strides os_,
+                       int causal, int window, int vec, cudaStream_t stream) {
 #define FLASH_HD(HDP_)                                                     \
   case HDP_:                                                               \
-    return launch_hd<T, HDP_>(q, k, v, out, B, Hq, Hkv, S, T_, hd, qs_,    \
-                              ks_, vs_, os_, causal, window, vec, stream)
+    return launch_hd<float, HDP_>(q, k, v, out, B, Hq, Hkv, S, T_, hd,     \
+                                  qs_, ks_, vs_, os_, causal, window, vec, \
+                                  stream)
   switch ((hd + 31) / 32 * 32) {
     FLASH_HD(32);
     FLASH_HD(64);
@@ -322,6 +334,293 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       return cudaErrorInvalidValue;
   }
 #undef FLASH_HD
+}
+
+// ------------------------------------------------ bf16 tensor-core path
+using hopper::bf16;
+
+constexpr int kMmaRows = 64;        // packed query rows per CTA
+constexpr int kGroups = 2;          // warp groups; group g takes K/V tiles
+                                    // g, g + 2, ... of the band
+constexpr int kGroupThreads = 128;  // 4 warps x 16 rows
+constexpr int kMmaThreads = kGroups * kGroupThreads;
+
+template <int HDP>
+struct MmaCfg {
+  static constexpr int BK = HDP <= 128 ? 64 : 32;  // keys per K/V tile
+  static constexpr int CPR = HDP / 8;              // 16-byte chunks per row
+  static constexpr int TILE = BK * HDP;            // elements of a tile
+  // the Q tile, then per group one K and one V tile, all bf16
+  static constexpr size_t SMEM =
+      sizeof(bf16) * ((size_t)kMmaRows * HDP + kGroups * 2 * (size_t)TILE);
+};
+
+// Stage positions [first, first + ROWS) of one K or V tile (row stride
+// `stride`) into a swizzled bf16 tile, by the `nthreads` threads of a
+// warp group (`tid` within it): positions outside [lo, hi) and head
+// dims past hd are zero and never read from device memory. With `vec`
+// (16-byte aligned rows, hd % 8 == 0) every 16-byte chunk is one
+// cp.async; else element-wise loads and stores.
+template <int HDP, int ROWS>
+__device__ __forceinline__ void stage_kv(bf16* dst, const bf16* src,
+                                         int stride, int first, int lo,
+                                         int hi, int hd, bool vec, int tid,
+                                         int nthreads) {
+  constexpr int CPR = HDP / 8;
+  if (vec) {
+#pragma unroll 4
+    for (int e = tid; e < ROWS * CPR; e += nthreads) {
+      const int r = e / CPR;
+      const int c = e - r * CPR;
+      const int p = first + r;
+      const bool ok = p >= lo && p < hi && c * 8 < hd;
+      hopper::cp_async16(dst + hopper::swz(r, c, CPR),
+                         ok ? src + (size_t)p * stride + c * 8 : src, ok);
+    }
+    return;
+  }
+  for (int e = tid; e < ROWS * HDP; e += nthreads) {
+    const int r = e / HDP;
+    const int d = e - r * HDP;
+    const int p = first + r;
+    dst[hopper::swz(r, d / 8, CPR) + (d & 7)] =
+        (p >= lo && p < hi && d < hd) ? src[(size_t)p * stride + d]
+                                      : __float2bfloat16(0.f);
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     int S, int T_, int hd, int G, Strides qs_, Strides ks_,
+                     Strides vs_, Strides os_, int causal, int window,
+                     int vec, float scale_log2) {
+  using namespace hopper;
+  using C = MmaCfg<HDP>;
+  constexpr int BK = C::BK;
+  constexpr int CPR = C::CPR;
+  constexpr int NT = BK / 8;     // 8-key score tiles per K/V tile
+  constexpr int DT = HDP / 8;    // 8-wide output tiles
+  extern __shared__ uint4 smem_u4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_u4);  // (kMmaRows, HDP)
+  bf16* kv = qs + kMmaRows * HDP;               // per group K, V
+
+  const int group = threadIdx.x / kGroupThreads;
+  const int gtid = threadIdx.x % kGroupThreads;
+  const int warp = gtid / 32;  // rows warp * 16 .. + 15 of the tile
+  const int lane = threadIdx.x % 32;
+  const int gid = lane >> 2;   // accumulator row within the warp's 16
+  const int tig = lane & 3;    // accumulator column pair
+  bf16* ks = kv + group * 2 * C::TILE;
+  bf16* vs = ks + C::TILE;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;  // heaviest tiles first
+  const int R = S * G;
+  const int r0 = tile * kMmaRows;
+  const int r_last = min(r0 + kMmaRows, R) - 1;
+  const int off = T_ - S;  // absolute position of query 0
+  const int pos_first = r0 / G;
+  const int pos_last = r_last / G;
+  // keys any row of this tile can see: [lo, hi)
+  const int hi = causal ? min(T_, off + pos_last + 1) : T_;
+  const int lo = window > 0 ? max(0, off + pos_first - window + 1) : 0;
+  // keys every row of this tile sees: tiles inside [full_lo, full_hi)
+  // need no mask
+  const int full_hi = causal ? off + pos_first + 1 : T_;
+  const int full_lo = window > 0 ? off + pos_last - window + 1 : 0;
+
+  const bf16* kb = k + (size_t)b * ks_.b + (size_t)kvh * ks_.h;
+  const bf16* vb = v + (size_t)b * vs_.b + (size_t)kvh * vs_.h;
+  const bf16* qb = q + (size_t)b * qs_.b + (size_t)kvh * G * qs_.h;
+
+  // the query tile: packed row r -> (position, head), zero past R / hd
+  if (vec) {
+    for (int e = threadIdx.x; e < kMmaRows * CPR; e += kMmaThreads) {
+      const int r = e / CPR;
+      const int c = e - r * CPR;
+      const int pr = r0 + r;
+      const bool ok = pr < R && c * 8 < hd;
+      const bf16* src =
+          ok ? qb + (size_t)(pr % G) * qs_.h + (size_t)(pr / G) * qs_.s +
+                   c * 8
+             : q;
+      cp_async16(qs + swz(r, c, CPR), src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kMmaRows * HDP; e += kMmaThreads) {
+      const int r = e / HDP;
+      const int d = e - r * HDP;
+      const int pr = r0 + r;
+      qs[swz(r, d / 8, CPR) + (d & 7)] =
+          (pr < R && d < hd)
+              ? qb[(size_t)(pr % G) * qs_.h + (size_t)(pr / G) * qs_.s + d]
+              : __float2bfloat16(0.f);
+    }
+  }
+  int t0 = (lo / BK + group) * BK;  // this group's first tile
+  if (t0 < hi)
+    stage_kv<HDP, BK>(ks, kb, ks_.s, t0, lo, hi, hd, vec, gtid,
+                      kGroupThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // the query tile, staged by both groups, has landed
+
+  // absolute positions of this thread's two accumulator rows
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qpos[i] = off + (r0 + warp * 16 + gid + 8 * i) / G;
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+
+  // V_j is in flight during QK_j and K_j+2 (the group's next) during
+  // PV_j: each copy overlaps the other product, and a thread issues half
+  // a tile's copies at a time
+  for (; t0 < hi; t0 += kGroups * BK) {
+    stage_kv<HDP, BK>(vs, vb, vs_.s, t0, lo, hi, hd, vec, gtid,
+                      kGroupThreads);
+    cp_async_commit();
+    cp_async_wait<1>();  // K_j has landed
+    group_sync(1 + group, kGroupThreads);
+
+    float s[NT][4];
+    qk_tile<HDP, BK>(s, qs, warp * 16, ks, lane);
+    // scale (base 2), mask where the tile crosses an edge
+    const bool need_mask = t0 + BK > full_hi || t0 < full_lo;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (need_mask) {
+          const int key = t0 + j * 8 + tig * 2 + (e & 1);
+          const int qp = qpos[e >> 1];
+          const bool ok = key < T_ && (!causal || key <= qp) &&
+                          (window <= 0 || key > qp - window);
+          if (!ok) x = -INFINITY;
+        }
+        s[j][e] = x;
+      }
+    group_sync(1 + group, kGroupThreads);  // K_j consumed
+    if (t0 + kGroups * BK < hi)
+      stage_kv<HDP, BK>(ks, kb, ks_.s, t0 + kGroups * BK, lo, hi, hd, vec,
+                        gtid, kGroupThreads);
+    cp_async_commit();
+    softmax_step<NT, DT>(s, o, m, l);
+    cp_async_wait<1>();  // V_j has landed
+    group_sync(1 + group, kGroupThreads);
+    pv_tile<HDP, BK>(o, s, vs, lane);
+    group_sync(1 + group, kGroupThreads);  // V_j consumed
+  }
+  cp_async_wait<0>();
+
+  // group 1 hands (o, m, l) to group 0 through shared memory (the Q and
+  // K/V tiles are consumed): thread t of group 1 holds the same rows and
+  // columns as thread t of group 0
+  static_assert((DT * 4 + 4) * kGroupThreads * sizeof(float) <= C::SMEM,
+                "the hand-over must fit the tiles");
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_u4);
+  const int slot = warp * 32 + lane;
+  if (group == 1) {
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(j * 4 + e) * kGroupThreads + slot] = o[j][e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      red[(DT * 4 + i) * kGroupThreads + slot] = m[i];
+      red[(DT * 4 + 2 + i) * kGroupThreads + slot] = l[i];
+    }
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m1 = red[(DT * 4 + i) * kGroupThreads + slot];
+    const float l1 = red[(DT * 4 + 2 + i) * kGroupThreads + slot];
+    const float mx = fmaxf(m[i], m1);
+    const float m_safe = mx == -INFINITY ? 0.f : mx;
+    const float a0 = m[i] == -INFINITY ? 0.f : exp2f(m[i] - m_safe);
+    const float a1 = m1 == -INFINITY ? 0.f : exp2f(m1 - m_safe);
+    l[i] = l[i] * a0 + l1 * a1;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e)
+        o[j][e] = o[j][e] * a0 +
+                  red[(j * 4 + e) * kGroupThreads + slot] * a1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int pr = r0 + warp * 16 + gid + 8 * i;
+    if (pr >= R) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    bf16* ob = out + (size_t)b * os_.b + (size_t)(kvh * G + pr % G) * os_.h +
+               (size_t)(pr / G) * os_.s;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int d = j * 8 + tig * 2;
+      if (d < hd) ob[d] = __float2bfloat16(o[j][2 * i] * inv);
+      if (d + 1 < hd) ob[d + 1] = __float2bfloat16(o[j][2 * i + 1] * inv);
+    }
+  }
+}
+
+template <int HDP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       void* out, int B, int Hq, int Hkv, int S, int T_,
+                       int hd, Strides qs_, Strides ks_, Strides vs_,
+                       Strides os_, int causal, int window, int vec,
+                       cudaStream_t stream) {
+  using C = MmaCfg<HDP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const int G = Hq / Hkv;
+  const int tiles = (S * G + kMmaRows - 1) / kMmaRows;
+  if (tiles > 65535 || B > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(Hkv, B, tiles);
+  flash_mma_kernel<HDP><<<grid, kMmaThreads, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, T_, hd, G,
+      qs_, ks_, vs_, os_, causal, window, vec,
+      1.4426950408889634f / sqrtf((float)hd));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int B, int Hq, int Hkv, int S, int T_,
+                        int hd, Strides qs_, Strides ks_, Strides vs_,
+                        Strides os_, int causal, int window, int vec,
+                        cudaStream_t stream) {
+#define FLASH_MMA(HDP_)                                                   \
+  case HDP_:                                                              \
+    return launch_mma<HDP_>(q, k, v, out, B, Hq, Hkv, S, T_, hd, qs_, ks_, \
+                            vs_, os_, causal, window, vec, stream)
+  switch ((hd + 63) / 64 * 64) {
+    FLASH_MMA(64);
+    FLASH_MMA(128);
+    FLASH_MMA(192);
+    FLASH_MMA(256);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FLASH_MMA
 }
 
 }  // namespace
@@ -339,11 +638,10 @@ extern "C" int flash_attention(
   const Strides qs_{q_sb, q_sh, q_ss}, ks_{k_sb, k_sh, k_st},
       vs_{v_sb, v_sh, v_st}, os_{o_sb, o_sh, o_ss};
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, out, B, Hq, Hkv, S, T, hd, qs_, ks_,
-                              vs_, os_, causal, window, vec, st);
+    return (int)launch_f32(q, k, v, out, B, Hq, Hkv, S, T, hd, qs_, ks_,
+                           vs_, os_, causal, window, vec, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, T, hd,
-                                      qs_, ks_, vs_, os_, causal, window,
-                                      vec, st);
+    return (int)launch_bf16(q, k, v, out, B, Hq, Hkv, S, T, hd, qs_, ks_,
+                            vs_, os_, causal, window, vec, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -49,7 +49,10 @@ def check_strided(name, t):
 
 def rows_aligned(*tensors) -> bool:
     """Every row (head-dim run) of every tensor starts 16-byte aligned and
-    fills whole 16-byte loads: the kernels' vector staging path."""
+    fills whole 16-byte loads: the kernels' 16-byte staging path
+    (``cp.async`` in the bf16 tensor-core flash kernel, 16-byte loads in
+    the f32 flash and the decode kernels); else they stage element by
+    element."""
     for t in tensors:
         es = t.element_size()
         if t.data_ptr() % 16 or (t.shape[-1] * es) % 16 \

@@ -101,6 +101,49 @@ def test_kernel_matches_plain_version(cuda, S, Hq, Hkv, hd, bs, win, dt):
     torch.testing.assert_close(lse, rl, atol=TOL[dt], rtol=TOL[dt])
 
 
+def _case_at(bases, S, Hq, Hkv, hd, bs, max_blocks, dtype, *, seed):
+    """As ``_case``, at the given base lengths."""
+    g = torch.Generator().manual_seed(seed)
+    B = len(bases)
+    nb = B * max_blocks + 1
+    q = torch.randn((B, S, Hq, hd), generator=g)
+    pk = torch.randn((nb, bs, Hkv, hd), generator=g)
+    pv = torch.randn((nb, bs, Hkv, hd), generator=g)
+    free = (torch.randperm(nb - 1, generator=g) + 1).tolist()
+    table = torch.zeros((B, max_blocks), dtype=torch.int32)
+    for b, base in enumerate(bases):
+        for i in range(-(-(base + S) // bs)):
+            table[b, i] = free.pop()
+    return [t.to("cuda", dtype) for t in (q, pk, pv)] + \
+        [table.cuda(), torch.tensor(bases, dtype=torch.int32, device="cuda")]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 4, 64])
+@pytest.mark.parametrize("bs", [8, 16, 64])
+def test_kernel_at_split_edges(cuda, bs, S, dt):
+    """Rows whose last window query sees 1, 63, 64, 65, 128 and all T
+    positions (the edges of 64-position splits), one launch per call,
+    and poisoning scratch block 0 changes no output bit."""
+    max_blocks = 512 // bs
+    T = max_blocks * bs
+    bases = [max(0, n - S) for n in (1, 63, 64, 65, 128, T)]
+    args = _case_at(bases, S, 32, 8, 128, bs, max_blocks, dt,
+                    seed=bs + S)
+    before = pw_kernel.paged_window_attention.launches
+    out, lse = paged_window_attention(*args)
+    assert pw_kernel.paged_window_attention.launches == before + 1
+    ro, rl = paged_window_attention(*args, force_ref=True)
+    q, pk, pv, table, base = args
+    pk[0], pv[0] = 1e9, -1e9
+    out2, lse2 = paged_window_attention(q, pk, pv, table, base)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ro.float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+    torch.testing.assert_close(lse, rl, atol=TOL[dt], rtol=TOL[dt])
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
 def test_decode_wrapper_is_window_at_s1(cuda):
     q, pk, pv, table, base = _case(8, 1, 32, 8, 128, 16, 32, torch.float32)
     od, ld = paged_decode_attention(q[:, 0], pk, pv, table, base + 1)
@@ -345,21 +388,56 @@ def test_flash_kernel_matches_plain_version(cuda, dt, B, Hq, Hkv, hd, S, T,
     _close(out, ref, dt)
 
 
-def test_flash_reads_model_views_in_place(cuda):
+# (S, T) pairs from {1, 15, 16, 17, 63, 64, 65, 300}: ragged tile edges
+# on both axes, q offsets T - S > 0, S = T
+FLASH_ST = [(1, 1), (1, 300), (15, 16), (16, 17), (17, 63), (63, 64),
+            (64, 65), (65, 300), (16, 16), (300, 300)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("hd", [64, 112, 128, 192, 256])
+def test_flash_kernel_over_head_dims_and_groups(cuda, hd, G, dt):
+    """Every served head dim (zero-padded to the tensor-core tile in
+    bf16) and group size, over ragged S and T, causal and with a sliding
+    window."""
+    Hkv = 2
+    for i, (S, T) in enumerate(FLASH_ST):
+        g = torch.Generator().manual_seed(hd * 10 + G + i)
+        q = torch.randn((1, G * Hkv, S, hd), generator=g).to("cuda", dt)
+        k, v = (torch.randn((1, Hkv, T, hd), generator=g).to("cuda", dt)
+                for _ in range(2))
+        for win in (0, 24):
+            out = flash_attention(q, k, v, sliding_window=win)
+            ref = flash_attention(q, k, v, sliding_window=win,
+                                  force_ref=True)
+            torch.cuda.synchronize()
+            _close(out, ref, dt)
+
+
+# dtype x Hq x Hkv x hd x window: hymba's heads with a window in f32,
+# qwen3-4b's and kimi-k2's head dims at G = 4 in bf16 (tensor cores)
+VIEW_CASES = [(torch.float32, 25, 5, 64, 20),
+              (torch.bfloat16, 32, 8, 112, 0),
+              (torch.bfloat16, 32, 8, 128, 20)]
+
+
+@pytest.mark.parametrize("dt,Hq,Hkv,hd,win", VIEW_CASES)
+def test_flash_reads_model_views_in_place(cuda, dt, Hq, Hkv, hd, win):
     """(B,S,H,hd) q and k / v sliced out of one projection, as the model
     passes them: the strided route equals the contiguous one bitwise."""
     g = torch.Generator().manual_seed(1)
-    q = torch.randn((2, 50, 25, 64), generator=g).cuda()
-    kv = torch.randn((2, 50, 2, 5, 64), generator=g).cuda()
+    q = torch.randn((2, 50, Hq, hd), generator=g).to("cuda", dt)
+    kv = torch.randn((2, 50, 2, Hkv, hd), generator=g).to("cuda", dt)
     k, v = kv[:, :, 0], kv[:, :, 1]
-    out = attention_bshd(q, k, v, sliding_window=20)
+    out = attention_bshd(q, k, v, sliding_window=win)
     dense = attention_bshd(q, k.contiguous(), v.contiguous(),
-                           sliding_window=20)
-    ref = attention_bshd(q, k, v, sliding_window=20, force_ref=True)
+                           sliding_window=win)
+    ref = attention_bshd(q, k, v, sliding_window=win, force_ref=True)
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.is_contiguous()
     assert torch.equal(out, dense)
-    _close(out, ref, torch.float32)
+    _close(out, ref, dt)
 
 
 def _stripe(B, T, Hkv, hd, dt, seed):

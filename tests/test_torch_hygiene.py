@@ -157,6 +157,30 @@ def test_build_path_follows_source_hash(tmp_path):
         sorted(m.SOURCE.name for m, _, _ in KERNELS.values())
 
 
+def test_build_path_follows_included_headers(tmp_path):
+    """A library is named by the headers its source includes too, and
+    theirs in turn: editing one builds anew, an unrelated file does
+    not. The flash and paged-window sources share the tensor-core
+    header."""
+    (tmp_path / "inc").mkdir()
+    a, b = tmp_path / "inc" / "a.cuh", tmp_path / "inc" / "b.cuh"
+    a.write_text('#include "b.cuh"\n// a')
+    b.write_text("// b")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "inc/a.cuh"\n')
+    assert _build.includes(src) == [a.resolve(), b.resolve()]
+    one = _build.library_path(src)
+    b.write_text("// b, edited")
+    two = _build.library_path(src)
+    assert two != one
+    (tmp_path / "inc" / "c.cuh").write_text("// not included")
+    assert _build.library_path(src) == two
+    header = (_build.KERNELS_DIR / "include" / "hopper.cuh").resolve()
+    assert {p.name for p in _build.sources()
+            if header in _build.includes(p)} == {"flash.cu",
+                                                 "paged_window.cu"}
+
+
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_binding_matches_the_c_signature(kernel):
     """The ctypes argtypes mirror the CUDA source's extern "C" entry:

@@ -6,6 +6,8 @@ does) and its independent gather oracle. Inputs are made with numpy
 from a fixed seed and handed to both. Tolerances: f32 3e-5, bf16 3e-2
 (the reference's kernel-vs-gather contract, ``tests/test_kernels.py``).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,10 +17,12 @@ from repro.kernels.paged_attention.ops import (
     paged_decode_attention as jax_decode, paged_window_attention as jax_window)
 from repro.kernels.paged_attention.ref import gathered_window_ref
 from repro.models import attention as jax_attention
+from repro_torch.kernels.decode_attention.ref import merge_partials
+from repro_torch.kernels.paged_attention import kernel as pw_kernel
 from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
                                                      paged_window_attention)
 from repro_torch.kernels.paged_attention.ref import (
-    paged_decode_attention_ref)
+    paged_decode_attention_ref, paged_window_attention_ref)
 from repro_torch.models import attention
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -173,3 +177,159 @@ def test_paged_decode_attention_matches_jax(use_kernel):
     np.testing.assert_array_equal(tpk.numpy(), np.asarray(jpk))
     np.testing.assert_array_equal(tpv.numpy(), np.asarray(jpv))
     _close(to, jo, 3e-5)
+
+
+# ------------------------------------------- the CUDA kernel's host plan
+# block sizes of the card-only grid (tests/test_torch_cuda.py)
+CARD_BLOCK_SIZES = (4, 8, 16, 64)
+
+
+@pytest.mark.parametrize("bs", CARD_BLOCK_SIZES)
+@pytest.mark.parametrize("S", [1, 4, 64])
+def test_plan_splits_cover_the_table_once(bs, S):
+    """For every table width 1..64 the splits are whole-block ranges that
+    cover [0, max_blocks * bs) exactly once, in order; a split is whole
+    staged tiles; a decode split holds 64 positions (one block at bs >=
+    64); the shared memory fits."""
+    for hd, itemsize in ((32, 4), (128, 2), (128, 4), (256, 2), (256, 4)):
+        one_block = pw_kernel.smem_bytes(hd, itemsize, bs, 1 if S == 1 else 2,
+                                         min(4 * S, pw_kernel.ROW_TILE))
+        mma = itemsize == 2 and S >= 16
+        if one_block > pw_kernel.SMEM_LIMIT and not mma:
+            with pytest.raises(ValueError, match="shared memory"):
+                pw_kernel.plan(S, 32, 8, hd, bs, 1, itemsize)
+            continue
+        for mb in range(1, 65):
+            p = pw_kernel.plan(S, 32, 8, hd, bs, mb, itemsize)
+            assert p.mma == mma
+            ranges = pw_kernel.split_ranges(p, bs, mb)
+            assert len(ranges) == p.n_splits
+            assert [j for r in ranges for j in r] == list(range(mb * bs))
+            assert all(r.start % bs == 0 and len(r) for r in ranges)
+            assert p.split_blocks % p.tile_blocks == 0
+            assert p.smem <= pw_kernel.SMEM_LIMIT
+            rows = pw_kernel.MMA_ROWS if mma else pw_kernel.ROW_TILE
+            assert p.row_tiles == -(-S * 4 // rows)
+            if S == 1 and p.tile_blocks == max(1, 64 // bs):
+                assert p.split_blocks * bs == max(bs, 64)
+
+
+def test_plan_reads_no_lengths_and_sizes_the_qwen3_decode():
+    """The plan is a function of shapes: at qwen3-4b's decode (bs 16, a
+    1024-token table) 16 splits of 4 blocks; its bf16 chunk windows (S =
+    64) one split over 4 tensor-core tiles of 64 packed rows (16 tiles of
+    16 on CUDA cores in f32)."""
+    p = pw_kernel.plan(1, 32, 8, 128, 16, 64, 2)
+    assert (p.tile_blocks, p.split_blocks, p.n_splits, p.row_tiles) == \
+        (4, 4, 16, 1)
+    lens = [316, 90, 80, 21, 33, 49, 136, 266]
+    working = sum(len(pw_kernel.visible_splits(p, 16, 64, n - 1, 0))
+                  for n in lens)
+    assert working * 8 == 160                         # CTAs with work
+    c = pw_kernel.plan(64, 32, 8, 128, 16, 64, 2)
+    assert c.mma and (c.n_splits, c.row_tiles) == (1, 4)
+    assert pw_kernel.plan(64, 32, 8, 128, 16, 64, 4).row_tiles == 16
+    with pytest.raises(ValueError, match="shared memory"):
+        pw_kernel.plan(1, 8, 2, 256, 256, 4, 4)
+
+
+@pytest.mark.parametrize("bs", CARD_BLOCK_SIZES)
+@pytest.mark.parametrize("window", [0, 5, 40])
+def test_visible_splits_are_the_splits_a_row_reads(bs, window):
+    """The merge reads exactly the splits that hold a position the row
+    sees: together they cover its range, and each one meets it."""
+    mb = 12
+    for S in (1, 4):
+        p = pw_kernel.plan(S, 8, 2, 64, bs, mb, 2)
+        p = p._replace(split_blocks=max(1, 16 // bs),
+                       n_splits=-(-mb // max(1, 16 // bs)))
+        ranges = pw_kernel.split_ranges(p, bs, mb)
+        for base in range(0, mb * bs - S + 1, 3):
+            for w in range(S):
+                n = base + w + 1
+                seen = set(range(max(n - window, 0) if window else 0, n))
+                vis = pw_kernel.visible_splits(p, bs, mb, base, w, window)
+                assert seen == {j for s in vis for j in ranges[s]} & seen
+                assert all(seen & set(ranges[s]) for s in vis)
+
+
+def _case_at(B, S, Hq, Hkv, hd, bs, mb, bases, *, seed):
+    """numpy inputs at the given base lengths: each row owns distinct
+    blocks covering base + S tokens; table tails stay at scratch 0."""
+    rng = np.random.default_rng(seed)
+    nb = B * mb + 2
+    q = rng.standard_normal((B, S, Hq, hd), np.float32)
+    pk = rng.standard_normal((nb, bs, Hkv, hd), np.float32)
+    pv = rng.standard_normal((nb, bs, Hkv, hd), np.float32)
+    free = list(rng.permutation(np.arange(1, nb)))
+    table = np.zeros((B, mb), np.int32)
+    for b, base in enumerate(bases):
+        for i in range(-(-(base + S) // bs)):
+            table[b, i] = free.pop()
+    return q, pk, pv, table, np.asarray(bases, np.int32)
+
+
+def _split_and_merge(q, pk, pv, table, base, window, p, bs):
+    """The CUDA kernel's algorithm in plain f32 math: per split, each row's
+    softmax over the positions of the split it sees (out normalised,
+    lse); a split a row does not see is never written (lse -inf here);
+    the partials merged with ``merge_partials``."""
+    B, S, Hq, hd = q.shape
+    Hkv, mb = pk.shape[2], table.shape[1]
+    G = Hq // Hkv
+    gk = pk[table.long()].reshape(B, mb * bs, Hkv, hd).float()
+    gv = pv[table.long()].reshape(B, mb * bs, Hkv, hd).float()
+    heads = torch.arange(Hq) // G
+    outs, lses = [], []
+    for s, rng in enumerate(pw_kernel.split_ranges(p, bs, mb)):
+        o = torch.zeros((B, S, Hq, hd))
+        lse = torch.full((B, S, Hq), float("-inf"))
+        for b in range(B):
+            for w in range(S):
+                if s not in pw_kernel.visible_splits(p, bs, mb, int(base[b]),
+                                                     w, window):
+                    continue
+                n = int(base[b]) + w + 1
+                lo = max(n - window, 0) if window else 0
+                pos = [j for j in rng if lo <= j < n]
+                kk, vv = gk[b, pos][:, heads], gv[b, pos][:, heads]
+                sc = torch.einsum("hd,phd->hp", q[b, w].float(), kk) \
+                    / math.sqrt(hd)
+                lse[b, w] = torch.logsumexp(sc, -1)
+                o[b, w] = torch.einsum("hp,phd->hd", torch.softmax(sc, -1),
+                                       vv)
+        outs.append(o.reshape(B * S, Hq, hd))
+        lses.append(lse.reshape(B * S, Hq))
+    out = merge_partials(outs, lses).reshape(B, S, Hq, hd)
+    return out, torch.logsumexp(torch.stack(lses), 0).reshape(B, S, Hq)
+
+
+# B x S x Hq x Hkv x hd x bs x max_blocks x window x base lengths x split
+# blocks (None: the kernel's own plan): rows whose later splits see
+# nothing, base 0, split edges, sliding windows, finer splits at S > 1
+SPLIT_CASES = [
+    (4, 1, 8, 2, 64, 16, 8, 0, [0, 15, 63, 127], None),
+    (4, 1, 8, 2, 32, 8, 24, 0, [0, 64, 65, 191], None),
+    (3, 1, 4, 1, 64, 16, 12, 40, [10, 100, 191], None),
+    (2, 1, 8, 2, 64, 64, 4, 0, [0, 200], None),
+    (2, 4, 8, 2, 32, 8, 12, 0, [0, 50], 2),
+    (3, 4, 4, 2, 32, 4, 24, 12, [0, 30, 91], 3),
+    (2, 3, 8, 4, 64, 16, 6, 0, [1, 62], None),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,bs,mb,win,bases,sb", SPLIT_CASES)
+def test_split_and_merge_matches_the_plain_versions(B, S, Hq, Hkv, hd, bs,
+                                                    mb, win, bases, sb):
+    arrays = _case_at(B, S, Hq, Hkv, hd, bs, mb, bases, seed=sum(bases) + S)
+    (jq, jk, jv, jt, jb), (q, pk, pv, table, base) = _both(arrays, "f32")
+    p = pw_kernel.plan(S, Hq, Hkv, hd, bs, mb, 4)
+    if sb is not None:
+        p = p._replace(split_blocks=sb, n_splits=-(-mb // sb))
+    out, lse = _split_and_merge(q, pk, pv, table, base, win, p, bs)
+    ro, rl = paged_window_attention_ref(q, pk, pv, table, base,
+                                        sliding_window=win)
+    go, gl = gathered_window_ref(jq, jk, jv, jt, jb, sliding_window=win)
+    for ref_o, ref_l in ((ro.numpy(), rl.numpy()), (go, gl)):
+        _close(out, ref_o, TOL["f32"])
+        _close(lse, ref_l, TOL["f32"])
