@@ -39,7 +39,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    among them) and one window, out and lse, the stripe read through
    strides bitwise equal to the contiguous layout, a scalar length equal
    to the same length per row; the sharded op over 4 shards of the
-   stripe, one of them empty, within 1e-4 of the unsharded kernel (f32).
+   stripe, one of them empty, within 1e-4 of the unsharded kernel (f32);
+   then at the edges of its 64-position KV splits (lengths 0, 1, 63, 64,
+   65, 127, T - 1, T) at both head shapes, f32 and bf16, with the stripe
+   tail past each length poisoned with NaN, a 70-position window that
+   starts inside a split, and back-to-back calls with other lengths.
 4. Serve at full width: qwen3-4b (36 layers, bf16, random weights from a
    seeded generator) behind ``ServingEngine(batch_size=8, max_seq=1024,
    use_kernel=True)``, 8 greedy requests. The paged kernel must launch
@@ -70,11 +74,15 @@ the card kept busy while the host enqueues, median of 30) at the shape
 of its serve beside its plain version and its bound from bytes and flops
 (for the scans also at a 300-token prefill, with the latency floor of
 300 dependent steps): paged attention and the scans at decode, flash at
-the qwen3-4b prefill (B 1, S = T = 300), decode attention at
-hymba-1.5b's decode (B 8, 1024 stripe, its serve's lengths); the paged
+the qwen3-4b prefill (B 1, S = T = 300), decode attention at the
+stripe decode of hymba-1.5b and of qwen3-4b (B 8, 1024 stripe, each
+serve's lengths) and with every length 1 (its floor); the paged
 kernel's row also carries its S = 64 chunk-window time (``window_*``),
 the flash row its time and SDPA's at S = T = 16 and that of one tiny
-elementwise kernel (what a launch costs this timing before any work).
+elementwise kernel (what a launch costs this timing before any work),
+the scan rows their prefill numbers (``prefill_*``), the decode row its
+qwen3-4b numbers (``qwen3_*``) and floors (``floor_ms``,
+``qwen3_floor_ms``).
 ``scaled_dot_product_attention`` is the yardstick of the attention
 kernels (on the gathered KV, causal, or with a length mask; the port
 never calls it); no single PyTorch call computes either recurrence. TF32
@@ -439,6 +447,39 @@ def check_decode_vs_plain(decode_attention, sharded_decode_attention):
     return max(worst, err)
 
 
+def check_decode_split_edges(decode_attention):
+    """The decode kernel at the edges of its 64-position KV splits (rows
+    of length 0, 1, 63, 64, 65, 127, T - 1 and T), with the stripe tail
+    past each length poisoned with NaN (the plain version reads the
+    clean stripe), at both served head shapes, f32 and bf16; then a
+    window whose first position falls inside a split; then back-to-back
+    calls with other lengths (the in-kernel merge counters reset)."""
+    worst = 0.0
+    cases = [(hs, dt, 0, [0, 1, 63, 64, 65, 127, STRIPE_T - 1, STRIPE_T])
+             for hs in HEAD_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    cases += [(HEAD_SHAPES[1], torch.bfloat16, 70,
+               [100, 130, 200, STRIPE_T, 700, 65, 1100, 10]),
+              (HEAD_SHAPES[0], torch.bfloat16, 0,
+               [1024, 1000, 640, 65, 64, 300, 2, 900])]
+    for (Hq, Hkv, hd), dt, win, lens in cases:
+        q, k_st, v_st = stripe_case(B, Hq, Hkv, hd, dt, seed=sum(lens) + win)
+        n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        ro, rl = decode_attention(q, k_st.transpose(1, 2),
+                                  v_st.transpose(1, 2), n,
+                                  sliding_window=win, force_ref=True)
+        tail = torch.arange(STRIPE_T, device="cuda")[None] >= n[:, None]
+        k_st[tail], v_st[tail] = float("nan"), float("nan")
+        out, lse = decode_attention(q, k_st.transpose(1, 2),
+                                    v_st.transpose(1, 2), n,
+                                    sliding_window=win)
+        torch.cuda.synchronize()
+        name = f"decode split edges Hq {Hq} Hkv {Hkv} hd {hd} " \
+               f"{str(dt):14s} window {win:2d} NaN tails"
+        worst = max(worst, _report(name + " out", out, ro, dt),
+                    _report(name + " lse", lse, rl, dt))
+    return worst
+
+
 # ---------------------------------------------------------------- serving
 def make_requests(Request, vocab):
     """8 greedy requests: mixed lengths, one ~300-token prompt (chunk
@@ -667,6 +708,34 @@ def time_ms(fn, flush, iters=30, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def time_decode(decode_attention, flush, Hq, Hkv, hd, lens):
+    """The decode kernel at B 8 over a 1024 stripe read in place (bf16)
+    at a serve's lengths: kernel, plain version, SDPA with a length mask
+    on the contiguous (B,Hkv,T,hd) copy, the bound; then the kernel with
+    every row of length 1 (its floor). Returns (kernel, plain, bound,
+    bound by, sdpa, floor)."""
+    F = torch.nn.functional
+    q, k_st, v_st = stripe_case(B, Hq, Hkv, hd, torch.bfloat16, seed=13)
+    k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)   # stripe, in place
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ones = torch.ones_like(n)
+    kc, vc = k.contiguous(), v.contiguous()
+    mask = (torch.arange(STRIPE_T, device="cuda")[None] < n[:, None].long()
+            )[:, None, None, :]                           # (B,1,1,T)
+    d_ms = time_ms(lambda: decode_attention(q, k, v, n), flush)
+    dp_ms = time_ms(lambda: decode_attention(q, k, v, n, force_ref=True),
+                    flush)
+    dl_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), flush)
+    df_ms = time_ms(lambda: decode_attention(q, k, v, ones), flush)
+    db_ms, db_by = decode_bound(lens, Hq, Hkv, hd, torch.bfloat16)
+    print(f"decode B {B} T {STRIPE_T} Hq {Hq} Hkv {Hkv} hd {hd} bf16, "
+          f"lengths {lens}: kernel {d_ms:.4f} ms, plain {dp_ms:.4f} ms, "
+          f"sdpa (length mask) {dl_ms:.4f} ms, bound {db_ms:.5f} ms "
+          f"({db_by}); every length 1: kernel {df_ms:.4f} ms")
+    return d_ms, dp_ms, db_ms, db_by, dl_ms, df_ms
+
+
 def sdpa_on_gathered(q, pk, pv, table, base):
     """Gather the rows' KV (outside the timed call) and return a closure
     running one SDPA call with the causal-in-window mask."""
@@ -803,8 +872,9 @@ def main() -> int:
     ssm_err = check_scan_vs_plain("ssm_scan", selective_scan, ssm_case, [
         (8, 1, 3200, 16), (1, PREFILL_T, 3200, 16), (4, 64, 512, 16)])
     flash_err = check_flash_vs_plain(flash_attention, attention_bshd)
-    dec_err = check_decode_vs_plain(decode_attention,
-                                    sharded_decode_attention)
+    dec_err = max(check_decode_vs_plain(decode_attention,
+                                        sharded_decode_attention),
+                  check_decode_split_edges(decode_attention))
 
     phase("4. serve full-width qwen3-4b, bf16, use_kernel=True")
     cfg = get_config("qwen3-4b")
@@ -874,7 +944,7 @@ def main() -> int:
     phase("6. serve full-width qwen3-4b, rwkv6-1.6b and hymba-1.5b, bf16, "
           "stripes")
     flash_fn, dec_fn = flash_kernel.flash_attention, dec_kernel.decode_attention
-    stripe_launches = {}
+    stripe_launches, decode_lens = {}, {}
     for arch, fns, make_reqs in (
             ("qwen3-4b", (flash_fn, dec_fn), make_requests),
             ("rwkv6-1.6b", (wkv_kernel.wkv_scan,), make_recurrent_requests),
@@ -884,10 +954,9 @@ def main() -> int:
         stripe_launches[arch], served = serve_stripes(
             arch, fns, make_reqs, get_config, build_model, ServingEngine,
             Request)
-        if arch == "hymba-1.5b":
-            # n_valid of each of the first 8 requests at its last decode
-            hymba_lens = [len(r.prompt) + len(r.out_tokens) - 1
-                          for r in served[:B]]
+        # n_valid of each of the first 8 requests at its last decode
+        decode_lens[arch] = [len(r.prompt) + len(r.out_tokens) - 1
+                             for r in served[:B]]
         torch.cuda.empty_cache()
     # launches on the served paths, each counted from 0 over its serve
     serve_launches = {}
@@ -927,7 +996,7 @@ def main() -> int:
             k_ms = time_ms(lambda: op(*args), flush)
             p_ms = time_ms(lambda: op(*args, force_ref=True), flush)
             b_ms, b_by = bound_fn(*shape)
-            scans.setdefault(name, (k_ms, p_ms, b_ms, b_by))
+            scans.setdefault(name, []).append((k_ms, p_ms, b_ms, b_by))
             print(f"{name} {shape}: kernel {k_ms:.4f} ms, plain "
                   f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), latency "
                   f"floor of {shape[1]} dependent steps "
@@ -961,23 +1030,11 @@ def main() -> int:
     tiny_ms = time_ms(lambda: tiny.add_(1), flush)
     print(f"flash at S = T = 16: kernel {f16_ms:.4f} ms, sdpa {fl16_ms:.4f} "
           f"ms; one 16-element add {tiny_ms:.4f} ms")
-    Hq, Hkv, hd = HEAD_SHAPES[1]
-    q, k_st, v_st = stripe_case(B, Hq, Hkv, hd, torch.bfloat16, seed=13)
-    k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)   # stripe, in place
-    n = torch.tensor(hymba_lens, dtype=torch.int32, device="cuda")
-    kc, vc = k.contiguous(), v.contiguous()
-    mask = (torch.arange(STRIPE_T, device="cuda")[None] < n[:, None].long()
-            )[:, None, None, :]                           # (B,1,1,T)
-    d_ms = time_ms(lambda: decode_attention(q, k, v, n), flush)
-    dp_ms = time_ms(lambda: decode_attention(q, k, v, n, force_ref=True),
-                    flush)
-    dl_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), flush)
-    db_ms, db_by = decode_bound(hymba_lens, Hq, Hkv, hd, torch.bfloat16)
-    print(f"decode B {B} T {STRIPE_T} Hq {Hq} Hkv {Hkv} hd {hd} bf16, "
-          f"lengths {hymba_lens}: kernel {d_ms:.4f} ms, plain {dp_ms:.4f} "
-          f"ms, sdpa (length mask) {dl_ms:.4f} ms, bound {db_ms:.5f} ms "
-          f"({db_by})")
+    dec_times = {}
+    for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
+                                ("qwen3-4b", HEAD_SHAPES[0])):
+        dec_times[arch] = time_decode(decode_attention, flush, Hq, Hkv, hd,
+                                      decode_lens[arch])
     k_ms, p_ms, l_ms, b_ms, b_by = timings[1]
     w_ms, wp_ms, wl_ms, wb_ms, wb_by = timings[64]
     rows = [{
@@ -995,21 +1052,23 @@ def main() -> int:
              wkv_err),
             ("ssm_scan", "ssm_scan/csrc/ssm_scan.cu", "ssm_scan/kernel.py:36",
              ssm_err)):
-        k_ms, p_ms, b_ms, b_by = scans[name]
+        (k_ms, p_ms, b_ms, b_by), (pk_ms, pp_ms, pb_ms, pb_by) = scans[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": serve_launches[name], "max_abs_err": err,
             "max_err": err, "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "prefill_ms": pk_ms, "prefill_plain_ms": pp_ms,
+            "prefill_bound_ms": pb_ms, "prefill_bound_by": pb_by})
     for name, source, replaces, err, times in (
             ("flash_attention", "flash_attention/csrc/flash.cu",
              "flash_attention/kernel.py:24", flash_err,
              (f_ms, fp_ms, fb_ms, fb_by, fl_ms)),
             ("decode_attention", "decode_attention/csrc/decode.cu",
              "decode_attention/kernel.py:29", dec_err,
-             (d_ms, dp_ms, db_ms, db_by, dl_ms))):
+             dec_times["hymba-1.5b"][:5])):
         k_ms, p_ms, b_ms, b_by, l_ms = times
         rows.append({
             "name": name, "route": "cuda",
@@ -1020,6 +1079,11 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
     next(r for r in rows if r["name"] == "flash_attention").update(
         s16_ms=f16_ms, s16_library_ms=fl16_ms, tiny_op_ms=tiny_ms)
+    q_ms, qp_ms, qb_ms, qb_by, ql_ms, qf_ms = dec_times["qwen3-4b"]
+    next(r for r in rows if r["name"] == "decode_attention").update(
+        floor_ms=dec_times["hymba-1.5b"][5], qwen3_ms=q_ms,
+        qwen3_plain_ms=qp_ms, qwen3_bound_ms=qb_ms, qwen3_bound_by=qb_by,
+        qwen3_library_ms=ql_ms, qwen3_floor_ms=qf_ms)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

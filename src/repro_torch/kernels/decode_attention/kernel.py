@@ -1,18 +1,26 @@
 """Binding of the CUDA decode-attention kernel (``csrc/decode.cu``, built
 by ``kernels._build``, loaded with ``ctypes``).
 
-The kernel reads q, k and v through their element strides (head-dim
-stride 1), so the model's (B, T, Hkv, hd) stripe, transposed to (B, Hkv,
-T, hd), is read in place. The wrapper checks device, dtype, shape and
-strides, allocates ``out`` / ``lse`` with ``torch.empty``, and launches
-on the current CUDA stream without synchronising; a launch CUDA refuses
-raises. ``decode_attention.launches`` counts successful launches.
+``plan`` is the kernel's host-side plan, a function of shapes only (the
+wrapper never reads ``n_valid`` on the host): the split of the stripe's
+``[0, T)`` into KV splits (flash-decoding across CTAs), the query heads
+of a CTA and the shared memory. The kernel reads q, k and v
+through their element strides (head-dim stride 1), so the model's (B, T,
+Hkv, hd) stripe, transposed to (B, Hkv, T, hd), is read in place. The
+wrapper checks device, dtype, shape and strides, allocates ``out`` /
+``lse`` with ``torch.empty`` and, when the plan has more than one split,
+takes the f32 partials and the merge counters from a scratch kept per
+device and stream; it launches on the current CUDA stream without
+synchronising, and a launch CUDA refuses raises. The last split of a row
+to finish merges the row inside the kernel, so a call is one launch:
+``decode_attention.launches`` counts them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -22,12 +30,100 @@ from repro_torch.kernels.flash_attention.kernel import (check_strided,
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode.cu"
 MAX_HEAD_DIM = 256
-MAX_GROUP = 32                   # one warp per query head of a KV head
+MAX_WARPS = 8                    # warps per CTA, one query head each
+MAX_GROUP = 32                   # query heads of a KV head
+TILE = 64                        # positions per staged K / V tile
+MAX_SPLITS = 32                  # longer stripes get splits of more tiles
+SMEM_LIMIT = 227 * 1024          # dynamic shared memory a CTA may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the C signature: q, k, v, n_valid, out, lse; B, Hq, Hkv, T, hd, 8
-# strides (q: batch, head; k, v: batch, head, position), window, vec,
-# dtype; stream
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+# the C signature: q, k, v, n_valid, out, lse, part_o, part_lse,
+# counters; B, Hq, Hkv, T, hd, 8 strides (q: batch, head; k, v: batch,
+# head, position), window, vec, split_len, n_splits, dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    split_len: int     # positions per split, whole tiles
+    n_splits: int      # splits of [0, T); > 1 needs the scratch
+    heads: int         # query heads per CTA, a warp each
+    groups: int        # CTAs per KV head and split (G over ``heads``)
+    smem: int          # bytes of dynamic shared memory per CTA
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernel's head dim: hd rounded up to a multiple of 32."""
+    return -(-hd // 32) * 32
+
+
+def smem_bytes(heads: int, hd: int, itemsize: int) -> int:
+    """A CTA's query rows of the padded head dim in f32 and as copied
+    (the input's dtype), then a K and a V tile of TILE positions in the
+    input's dtype, each row padded by one 16-byte chunk."""
+    hdp = padded_head_dim(hd)
+    return (4 + itemsize) * heads * hdp \
+        + itemsize * 2 * TILE * (hdp + 16 // itemsize)
+
+
+def heads_per_cta(G: int) -> int:
+    """The G query heads of a KV head split evenly over ceil(G /
+    MAX_WARPS) CTAs: all G in one CTA up to G = 8."""
+    groups = -(-G // MAX_WARPS)
+    return -(-G // groups)
+
+
+def plan(B: int, Hq: int, Hkv: int, T: int, hd: int, itemsize: int) -> Plan:
+    """The launch plan for one call, from shapes alone. Splits are whole
+    64-position tiles: one tile each up to MAX_SPLITS tiles (T <= 2048),
+    then as many tiles as keep the splits at MAX_SPLITS. Raises on a
+    grid CUDA cannot launch."""
+    G = Hq // Hkv
+    tiles = -(-T // TILE)
+    per_split = max(1, -(-tiles // MAX_SPLITS))
+    split_len = TILE * per_split
+    n_splits = max(1, -(-T // split_len))
+    heads = heads_per_cta(G)
+    if B > 65535:
+        raise ValueError(f"B {B}: the grid takes at most 65535")
+    return Plan(split_len, n_splits, heads, -(-G // heads),
+                smem_bytes(heads, hd, itemsize))
+
+
+def split_ranges(p: Plan, T: int) -> list[range]:
+    """The stripe positions each split covers, in order."""
+    return [range(s * p.split_len, min(s * p.split_len + p.split_len, T))
+            for s in range(p.n_splits)]
+
+
+def visible_splits(p: Plan, n: int, T: int, window: int = 0) -> range:
+    """The splits that hold a position of a row's range ``[max(0, n -
+    window), min(n, T))``: each one's CTA works (and writes a partial
+    when there are several), the others exit at once."""
+    hi = max(0, min(n, T))
+    lo = max(0, n - window) if window > 0 else 0
+    first = lo // p.split_len
+    return range(first, (hi - 1) // p.split_len + 1 if hi > lo else first)
+
+
+# (device, stream) -> (part_o, part_lse, counters): the counters start at
+# 0 and the kernel leaves them at 0, and the calls of one stream run in
+# order, so one allocation serves every call on that stream
+_SCRATCH: dict = {}
+
+
+def _scratch(device, stream, B, Hq, ctas, hd, n_splits):
+    """The f32 partials and the int32 merge counters, one per row and
+    CTA of heads (``ctas`` = Hkv * groups), for a call, from the cache,
+    grown (counters re-zeroed) when the call needs more."""
+    need = (B * Hq * n_splits * hd, B * Hq * n_splits, B * ctas)
+    have = _SCRATCH.get((device, stream))
+    if have is None or any(t.numel() < n for t, n in zip(have, need)):
+        size = need if have is None else \
+            [max(t.numel(), n) for t, n in zip(have, need)]
+        have = (torch.empty(size[0], dtype=torch.float32, device=device),
+                torch.empty(size[1], dtype=torch.float32, device=device),
+                torch.zeros(size[2], dtype=torch.int32, device=device))
+        _SCRATCH[(device, stream)] = have
+    return have
 
 
 @functools.cache
@@ -84,12 +180,18 @@ def decode_attention(q, k, v, n_valid, *, sliding_window: int = 0):
     lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
     if B == 0 or Hq == 0:
         return out, lse
+    p = plan(B, Hq, Hkv, T, hd, q.element_size())
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = (None, None, None)
+    if p.n_splits > 1:
+        part = tuple(t.data_ptr() for t in _scratch(
+            q.device, stream, B, Hq, Hkv * p.groups, hd, p.n_splits))
     strides = [*q.stride()[:2], *k.stride()[:3], *v.stride()[:3]]
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      n_valid.data_ptr(), out.data_ptr(), lse.data_ptr(), B,
-                      Hq, Hkv, T, hd, *strides, int(sliding_window),
-                      int(rows_aligned(q, k, v)), _DTYPES[q.dtype], stream)
+                      n_valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                      *part, B, Hq, Hkv, T, hd, *strides,
+                      int(sliding_window), int(rows_aligned(q, k, v)),
+                      p.split_len, p.n_splits, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError_t "
                            f"{err}")

@@ -1,9 +1,12 @@
-// Shared device helpers of the port's tensor-core attention kernels
-// (flash_attention/csrc/flash.cu, paged_attention/csrc/paged_window.cu):
-// 16-byte cp.async with zero fill, ldmatrix, mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) and the XOR-swizzled tile layout they read. A source
-// that includes this header is rebuilt when it changes (kernels/_build.py
-// hashes a source together with the headers it includes).
+// Shared device helpers of the port's kernels: cp.async with zero fill
+// (16 bytes for the attention kernels' K/V tiles, 4 bytes for the
+// selective scan's per-step rows), and for the tensor-core attention
+// kernels (flash_attention/csrc/flash.cu,
+// paged_attention/csrc/paged_window.cu) ldmatrix, mma.sync m16n8k16
+// (bf16 in, f32 accumulate) and the XOR-swizzled tile layout they read.
+// A source that includes this header is rebuilt when it changes
+// (kernels/_build.py hashes a source together with the headers it
+// includes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +35,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4-byte asynchronous copy (through L1), zero fill as cp_async16.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,6 +1,8 @@
 """Binding of the CUDA selective-scan kernel (``csrc/ssm_scan.cu``,
 built by ``kernels._build``, loaded with ``ctypes``).
 
+The kernel lays each channel's N state entries over a group of lanes,
+two entries a lane (the next power of two >= N / 2 lanes, at most 32).
 The wrapper checks device, dtype, shape and contiguity, allocates ``y``
 / the final state with ``torch.empty``, and launches on the current CUDA
 stream without synchronising; a launch CUDA refuses raises.
@@ -17,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
-MAX_STATE = 64                 # h[N] of a channel lives in registers
+MAX_STATE = 64                 # h of a channel lives in 32 lanes' registers
 # the C signature: u, dt, Bm, Cm, A, D, state, y, state_out; B, T, di,
 # N; stream
 ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -57,6 +59,8 @@ def _check(u, dt, Bm, Cm, A, D, state):
                          f"{tuple(state.shape)} for di={di}, N={N}")
     if not 1 <= N <= MAX_STATE:
         raise ValueError(f"state size {N}: the kernel takes 1..{MAX_STATE}")
+    if B > 65535:
+        raise ValueError(f"B {B}: the grid takes at most 65535")
 
 
 def ssm_scan(u, dt, Bm, Cm, A, D, state):

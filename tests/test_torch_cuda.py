@@ -273,6 +273,44 @@ def test_ssm_kernel_matches_plain_version(cuda, B, T, di, N):
     torch.testing.assert_close(sT, rs, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("di", [3200, 333])
+@pytest.mark.parametrize("T", [1, 2, 31, 300, 1000])
+@pytest.mark.parametrize("N", [1, 5, 16, 17, 33, 64])
+def test_ssm_kernel_over_state_sizes(cuda, N, T, di):
+    """Every lane-group width (N 1 / 5 / 16 / 17 / 33 / 64: 1 to 32 lanes
+    per channel, two entries a lane past 32), chunks of the staged steps
+    (T 1 to 1000), hymba's width and a ragged channel tail."""
+    args = _ssm_case(2, T, di, N, seed=N + T + di)
+    before = ssm_kernel.ssm_scan.launches
+    y, sT = selective_scan(*args)
+    assert ssm_kernel.ssm_scan.launches == before + 1
+    ry, rs = selective_scan(*args, force_ref=True)
+    torch.cuda.synchronize()
+    tol = _scan_tol(T)
+    torch.testing.assert_close(y, ry, atol=tol, rtol=tol)
+    torch.testing.assert_close(sT, rs, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("N", [16, 33])
+def test_ssm_state_out_aliases_state(cuda, N):
+    """The C entry point with the final state written over the initial
+    one in place (``state_out`` is ``state``): one launch, the plain
+    version's result."""
+    *args, s0 = _ssm_case(2, 40, 333, N, seed=N)
+    ry, rs = selective_scan(*args, s0, force_ref=True)
+    state = s0.clone()
+    y = torch.empty_like(args[0])
+    B, T, di = y.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    err = ssm_kernel._launcher()(*(t.data_ptr() for t in args),
+                                 state.data_ptr(), y.data_ptr(),
+                                 state.data_ptr(), B, T, di, N, stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(state, rs, atol=1e-4, rtol=1e-4)
+
+
 def test_scan_kernels_carry_state(cuda):
     """Two halves with the state threaded through equal the whole."""
     r, k, v, w, u, s0 = _wkv_case(1, 256, 4, 64, seed=1)
@@ -480,6 +518,93 @@ def test_decode_kernel_matches_plain_version(cuda, dt, B, Hq, Hkv, hd, T,
     _close(out, ro, dt)
     _close(lse, rl, dt)
     assert torch.equal(out, co) and torch.equal(lse, cl)
+
+
+def _decode_vs_plain(q, k_st, v_st, lens, win, dt, *, poison=True):
+    """One kernel call on the stripe (B,T,Hkv,hd) read in place, with NaN
+    past each row's length when ``poison``, against the plain version on
+    the clean stripe, out and lse; the contiguous (B,Hkv,T,hd) layout
+    gives the same bits. Counts one launch."""
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ro, rl = decode_attention(q, k_st.transpose(1, 2), v_st.transpose(1, 2),
+                              n, sliding_window=win, force_ref=True)
+    if poison:
+        T = k_st.shape[1]
+        tail = torch.arange(T, device="cuda")[None] >= n[:, None]
+        k_st, v_st = k_st.clone(), v_st.clone()
+        k_st[tail], v_st[tail] = float("nan"), float("nan")
+    k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)
+    before = decode_kernel.decode_attention.launches
+    out, lse = decode_attention(q, k, v, n, sliding_window=win)
+    assert decode_kernel.decode_attention.launches == before + 1
+    co, cl = decode_attention(q, k.contiguous(), v.contiguous(), n,
+                              sliding_window=win)
+    torch.cuda.synchronize()
+    _close(out, ro, dt)
+    _close(lse, rl, dt)
+    assert torch.equal(out, co) and torch.equal(lse, cl)
+    return out, lse
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 12, 32])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_kernel_at_split_edges(cuda, hd, G, dt):
+    """Rows whose lengths sit on the edges of the 64-position splits (0,
+    1, 63, 64, 65, 127, T - 1, T), the stripe tail past each length
+    poisoned with NaN; G 12 and 32 take two and four CTAs a KV head."""
+    T = 1024
+    g = torch.Generator().manual_seed(hd + G)
+    q = torch.randn((8, 2 * G, hd), generator=g).to("cuda", dt)
+    k_st, v_st = _stripe(8, T, 2, hd, dt, seed=hd * G)
+    _decode_vs_plain(q, k_st, v_st, [0, 1, 63, 64, 65, 127, T - 1, T], 0,
+                     dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("win", [33, 70])
+def test_decode_window_ends_inside_a_split(cuda, win, dt):
+    """Sliding windows whose first position falls inside a split, so
+    the first visible split is partly masked; rows of one and of several
+    splits, a row longer than the stripe."""
+    g = torch.Generator().manual_seed(win)
+    q = torch.randn((8, 25, 64), generator=g).to("cuda", dt)
+    k_st, v_st = _stripe(8, 1024, 5, 64, dt, seed=win)
+    _decode_vs_plain(q, k_st, v_st, [100, 130, 200, 1024, 700, 65, 1100, 10],
+                     win, dt)
+
+
+# hd x G x dtype x window: splits of two 64-position tiles (T > 2048),
+# staged one tile at a time
+LONG_CASES = [(64, 5, torch.bfloat16, 0), (128, 4, torch.float32, 0),
+              (128, 4, torch.bfloat16, 500), (256, 8, torch.float32, 0)]
+
+
+@pytest.mark.parametrize("hd,G,dt,win", LONG_CASES)
+def test_decode_kernel_over_long_stripes(cuda, hd, G, dt, win):
+    T = 3000
+    p = decode_kernel.plan(4, 2 * G, 2, T, hd, torch.finfo(dt).bits // 8)
+    assert p.split_len == 128
+    g = torch.Generator().manual_seed(hd + win)
+    q = torch.randn((4, 2 * G, hd), generator=g).to("cuda", dt)
+    k_st, v_st = _stripe(4, T, 2, hd, dt, seed=G)
+    _decode_vs_plain(q, k_st, v_st, [T, 129, 2100, 1], win, dt)
+
+
+def test_decode_merge_counters_reset(cuda):
+    """Back-to-back calls with other lengths (and a smaller batch between
+    them, sharing the cached scratch) each equal the plain version: the
+    last split of every row left its merge counter at 0."""
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((8, 32, 128), generator=g).to("cuda", torch.bfloat16)
+    k_st, v_st = _stripe(8, 1024, 8, 128, torch.bfloat16, seed=9)
+    for lens in ([316, 90, 80, 21, 33, 49, 136, 266],
+                 [1024, 1000, 640, 65, 64, 300, 2, 900],
+                 [317, 91, 81, 22, 34, 50, 137, 267]):
+        _decode_vs_plain(q, k_st, v_st, lens, 0, torch.bfloat16,
+                         poison=False)
+        _decode_vs_plain(q[:2], k_st[:2], v_st[:2], lens[::-1][:2], 0,
+                         torch.bfloat16, poison=False)
 
 
 def test_decode_scalar_and_empty_rows(cuda):

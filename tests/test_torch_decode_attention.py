@@ -9,6 +9,7 @@ out and lse (the reference's kernel-vs-oracle contract). A row with no
 valid position follows the reference *kernel* (out 0, lse log(1e-30)),
 not its oracle (NaN, -inf).
 """
+import inspect
 import math
 
 import jax.numpy as jnp
@@ -148,3 +149,141 @@ def test_cpu_route_is_the_plain_version():
     assert kernel.decode_attention.launches == before
     ro, rl = decode_attention_ref(q, k, v, n, sliding_window=8)
     assert torch.equal(out, ro) and torch.equal(lse, rl)
+
+
+# ------------------------------------------- the CUDA kernel's host plan
+def test_plan_reads_no_lengths_and_sizes_the_served_shapes():
+    """The plan takes shapes only. Over the serves' 1024-position
+    stripes it cuts 16 splits of one 64-position tile: at qwen3-4b's
+    decode (G 4, hd 128, bf16) one CTA of 4 heads a KV head and 37 KB of
+    shared memory, at hymba-1.5b's (G 5, hd 64) one of 5 and 20 KB; at the
+    serves' lengths 85 (hymba) and 160 (qwen3-4b) CTAs hold work."""
+    assert list(inspect.signature(kernel.plan).parameters) == \
+        ["B", "Hq", "Hkv", "T", "hd", "itemsize"]
+    q = kernel.plan(8, 32, 8, 1024, 128, 2)
+    assert q == kernel.Plan(64, 16, 4, 1, 6 * 4 * 128 + 2 * 2 * 64 * 136)
+    h = kernel.plan(8, 25, 5, 1024, 64, 2)
+    assert h == kernel.Plan(64, 16, 5, 1, 6 * 5 * 64 + 2 * 2 * 64 * 72)
+    hymba = [316, 90, 80, 80, 21, 33, 49, 136]
+    qwen = [316, 90, 80, 21, 33, 49, 136, 266]
+    assert 5 * sum(len(kernel.visible_splits(h, n, 1024)) for n in hymba) \
+        == 85
+    assert 8 * sum(len(kernel.visible_splits(q, n, 1024)) for n in qwen) \
+        == 160
+
+
+@pytest.mark.parametrize("hd,itemsize", [(32, 4), (64, 2), (112, 4),
+                                         (128, 2), (256, 2), (256, 4)])
+def test_plan_splits_cover_the_stripe_once(hd, itemsize):
+    """For every stripe length the splits are whole-tile ranges that
+    cover [0, T) exactly once, in order, at most MAX_SPLITS of them, one
+    tile each up to 2048 positions; the G query heads go to the fewest
+    CTAs of at most MAX_WARPS heads, as evenly as they split; the shared
+    memory fits at every group size."""
+    for T in (*range(0, 300), 1023, 1024, 1025, 2048, 2049, 3000, 32768):
+        for G in (1, 4, 5, 8, 9, 12, 17, 32):
+            p = kernel.plan(2, 2 * G, 2, T, hd, itemsize)
+            ranges = kernel.split_ranges(p, T)
+            assert len(ranges) == p.n_splits <= kernel.MAX_SPLITS
+            assert [j for r in ranges for j in r] == list(range(T))
+            assert p.split_len % kernel.TILE == 0
+            assert all(r.start == s * p.split_len
+                       for s, r in enumerate(ranges))
+            assert p.split_len == kernel.TILE or T > 2048
+            assert p.smem == kernel.smem_bytes(p.heads, hd, itemsize)
+            assert p.smem <= kernel.SMEM_LIMIT
+            assert p.heads <= kernel.MAX_WARPS
+            assert p.groups == -(-G // kernel.MAX_WARPS)
+            assert p.heads * (p.groups - 1) < G <= p.heads * p.groups
+            assert p.heads * p.groups - G < p.groups
+
+
+@pytest.mark.parametrize("window", [0, 5, 40, 100])
+def test_visible_splits_are_the_splits_a_row_reads(window):
+    """The splits whose CTAs work for a row are exactly those that hold a
+    position the row sees: together they cover its range, each meets
+    it; a row that sees nothing has none."""
+    for T in (64, 200, 3000):
+        p = kernel.plan(1, 8, 2, T, 64, 2)
+        ranges = kernel.split_ranges(p, T)
+        for n in (*range(0, 260, 3), T - 1, T, T + 1, T + 70):
+            lo = max(0, n - window) if window else 0
+            seen = set(range(lo, min(n, T)))
+            vis = kernel.visible_splits(p, n, T, window)
+            assert {j for s in vis for j in ranges[s]} >= seen
+            assert all(seen & set(ranges[s]) for s in vis)
+            assert bool(vis) == bool(seen)
+
+
+def _split_and_merge(q, k, v, lens, window, p):
+    """The CUDA kernel's algorithm in plain f32 math: per visible split,
+    each query head's softmax over the positions of the split it sees
+    (out normalised, lse); a row seen by one split takes that split's
+    result, a row seen by several merges them with ``merge_partials``
+    (splits it does not see are never written: lse -inf here), a row
+    that sees nothing gets out 0 and lse log(1e-30)."""
+    B, Hq, hd = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kk = k.float().repeat_interleave(G, dim=1)        # (B, Hq, T, hd)
+    vv = v.float().repeat_interleave(G, dim=1)
+    outs, lses = [], []
+    for s, rng in enumerate(kernel.split_ranges(p, T)):
+        o = torch.zeros((B, Hq, hd))
+        lse = torch.full((B, Hq), float("-inf"))
+        for b, n in enumerate(lens):
+            if s not in kernel.visible_splits(p, n, T, window):
+                continue
+            lo = max(0, n - window) if window else 0
+            pos = [j for j in rng if lo <= j < n]
+            sc = torch.einsum("hd,hpd->hp", q[b].float(), kk[b][:, pos]) \
+                / math.sqrt(hd)
+            lse[b] = torch.logsumexp(sc, -1)
+            o[b] = torch.einsum("hp,hpd->hd", torch.softmax(sc, -1),
+                                vv[b][:, pos])
+        outs.append(o)
+        lses.append(lse)
+    out = torch.zeros((B, Hq, hd))
+    lse = torch.full((B, Hq), EMPTY_LSE)
+    for b, n in enumerate(lens):
+        vis = list(kernel.visible_splits(p, n, T, window))
+        if len(vis) == 1:
+            out[b], lse[b] = outs[vis[0]][b], lses[vis[0]][b]
+        elif vis:
+            out[b] = merge_partials([outs[s][b:b + 1] for s in vis],
+                                    [lses[s][b:b + 1] for s in vis])[0]
+            lse[b] = torch.logsumexp(torch.stack([lses[s][b] for s in vis]),
+                                     0)
+    return out, lse
+
+
+# B x Hq x Hkv x T x hd x window x lengths x split length (None: the
+# kernel's own plan): rows at split edges, an empty row, rows past T, a
+# window ending inside a split, splits of several tiles
+SPLIT_CASES = [
+    (8, 8, 2, 256, 32, 0, [0, 1, 63, 64, 65, 127, 255, 256], None),
+    (4, 10, 2, 200, 64, 40, [0, 50, 130, 201], None),
+    (3, 4, 4, 256, 32, 0, [256, 17, 0], 96),
+    (3, 8, 1, 512, 64, 100, [511, 260, 99], 192),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,hd,win,lens,split", SPLIT_CASES)
+def test_split_and_merge_matches_the_plain_versions(B, Hq, Hkv, T, hd, win,
+                                                    lens, split):
+    arrays = _qkv(B, Hq, Hkv, T, hd, seed=sum(lens) + T)
+    (jq, jk, jv), (q, k, v) = _both(arrays, "f32")
+    p = kernel.plan(B, Hq, Hkv, T, hd, 4)
+    if split is not None:
+        p = p._replace(split_len=split, n_splits=-(-T // split))
+    assert len({len(kernel.visible_splits(p, n, T, win)) for n in lens}) > 1
+    out, lse = _split_and_merge(q, k, v, lens, win, p)
+    ro, rl = decode_attention_ref(q, k, v, torch.tensor(lens),
+                                  sliding_window=win)
+    _close(out, ro.numpy(), TOL["f32"])
+    _close(lse, rl.numpy(), TOL["f32"])
+    for b, n in enumerate(lens):
+        jo, jl = jax_decode(jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], n,
+                            sliding_window=win)
+        _close(out[b:b + 1], jo, TOL["f32"])
+        _close(lse[b:b + 1], jl, TOL["f32"])
