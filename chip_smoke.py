@@ -24,9 +24,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    random initial state; k and the WKV state scaled by 1/sqrt(hd) and C
    by 1/sqrt(N) so outputs are of order 1): ``wkv_scan`` at the
    rwkv6-1.6b decode shape (B 8, T 1, H 32, hd 64), a full-width prefill
-   (T 300) and a reduced shape (hd 32); ``ssm_scan`` at the hymba-1.5b
-   decode shape (B 8, T 1, di 3200, N 16), T 300 and di 512. Max abs
-   error of out and final state within 1e-5 at T = 1, 1e-4 at T >= 256;
+   (T 300) and a reduced shape (hd 32), then with decays in the model's
+   own range (w = exp(-exp(z)): underflowing to 0, 0.9933 to 0.9999,
+   and 0.45 to 0.95) at the decode shape, T 300, the 16-step chunk edge
+   (T 17) and the serve's co-batched prefill (B 2, T 64); ``ssm_scan``
+   at the hymba-1.5b decode shape (B 8, T 1, di 3200, N 16), T 300 and
+   di 512. Max abs error of out and final state within 1e-5 at T = 1,
+   1e-4 above;
    two halves with the state threaded through equal the whole scan.
    Then ``flash_attention`` and ``decode_attention`` at both served head
    shapes (qwen3-4b: Hq 32, Hkv 8, hd 128; hymba-1.5b: Hq 25, Hkv 5, hd
@@ -73,14 +77,17 @@ Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
 of its serve beside its plain version and its bound from bytes and flops
 (for the scans also at a 300-token prefill, with the latency floor of
-300 dependent steps): paged attention and the scans at decode, flash at
-the qwen3-4b prefill (B 1, S = T = 300), decode attention at the
-stripe decode of hymba-1.5b and of qwen3-4b (B 8, 1024 stripe, each
+300 dependent steps, and WKV at the rwkv6 serve's co-batched prefill,
+B 2, T 64, each WKV shape with its launch plan): paged attention and
+the scans at decode, flash at the qwen3-4b prefill (B 1, S = T = 300),
+decode attention at the stripe decode of hymba-1.5b and of qwen3-4b
+(B 8, 1024 stripe, each
 serve's lengths) and with every length 1 (its floor); the paged
 kernel's row also carries its S = 64 chunk-window time (``window_*``),
 the flash row its time and SDPA's at S = T = 16 and that of one tiny
 elementwise kernel (what a launch costs this timing before any work),
-the scan rows their prefill numbers (``prefill_*``), the decode row its
+the scan rows their prefill numbers (``prefill_*``), the WKV row also
+its co-batched prefill numbers (``cobatch_*``), the decode row its
 qwen3-4b numbers (``qwen3_*``) and floors (``floor_ms``,
 ``qwen3_floor_ms``).
 ``scaled_dot_product_attention`` is the yardstick of the attention
@@ -97,6 +104,7 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -117,6 +125,7 @@ PREFILL_T = 300                 # scan prefill shape: the longest prompt
 # (Hq, Hkv, hd) of the served attention: qwen3-4b, hymba-1.5b
 HEAD_SHAPES = ((32, 8, 128), (25, 5, 64))
 STRIPE_T = 1024                 # the serves' max_seq
+COBATCH_WKV = (2, 64, 32, 64)   # the rwkv6 serve's two 64-token prompts
 
 
 def phase(name):
@@ -267,12 +276,27 @@ def check_split_edges(window_attn):
 
 
 # ------------------------------------------------------- scan kernel cases
-def wkv_case(Bq, T, H, hd, *, seed=0):
+def model_decays(shape, g):
+    """w = exp(-exp(z)) as the model makes it, each entry from one of
+    three ranges: z in (4.7, 6) (w underflows to 0 in f32), z in (-9.2,
+    -5) (w from 0.9933, the ``decay_base = -5`` init, to 0.9999), and w
+    in (0.45, 0.95)."""
+    pick = torch.randint(0, 3, shape, generator=g)
+    z = torch.where(pick == 0, 4.7 + 1.3 * torch.rand(shape, generator=g),
+                    -9.2 + 4.2 * torch.rand(shape, generator=g))
+    mid = 0.45 + 0.5 * torch.rand(shape, generator=g)
+    return torch.where(pick == 2, mid, torch.exp(-torch.exp(z)))
+
+
+def wkv_case(Bq, T, H, hd, *, seed=0, decays="mid"):
     """r, k, v, w, u, state on the card: k and the state scaled by
-    1/sqrt(hd), decays in (0.45, 0.95), a non-zero bonus u."""
+    1/sqrt(hd), decays in (0.45, 0.95) (``decays="model"``: in the
+    model's range, ``model_decays``), a non-zero bonus u."""
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn((Bq, T, H, hd), generator=g) for _ in range(3))
     w = 0.45 + 0.5 * torch.sigmoid(torch.randn((Bq, T, H, hd), generator=g))
+    if decays == "model":
+        w = model_decays((Bq, T, H, hd), g)
     u = 0.5 * torch.randn((H, hd), generator=g)
     s0 = torch.randn((Bq, H, hd, hd), generator=g)
     return [t.cuda() for t in (r, k / math.sqrt(hd), v, w, u,
@@ -867,8 +891,14 @@ def main() -> int:
 
     phase("3. kernels vs plain versions on the card (TF32 off)")
     max_err = check_kernel_vs_plain(paged_window_attention)
-    wkv_err = check_scan_vs_plain("wkv_scan", wkv, wkv_case, [
-        (8, 1, 32, 64), (1, PREFILL_T, 32, 64), (4, 64, 4, 32)])
+    wkv_err = max(
+        check_scan_vs_plain("wkv_scan", wkv, wkv_case, [
+            (8, 1, 32, 64), (1, PREFILL_T, 32, 64), (4, 64, 4, 32)]),
+        check_scan_vs_plain(
+            "wkv_scan, model-range decays", wkv,
+            partial(wkv_case, decays="model"), [
+                (8, 1, 32, 64), (1, PREFILL_T, 32, 64), (2, 17, 32, 64),
+                (2, 64, 32, 64)]))
     ssm_err = check_scan_vs_plain("ssm_scan", selective_scan, ssm_case, [
         (8, 1, 3200, 16), (1, PREFILL_T, 3200, 16), (4, 64, 512, 16)])
     flash_err = check_flash_vs_plain(flash_attention, attention_bshd)
@@ -988,10 +1018,14 @@ def main() -> int:
               f"{p_ms:.4f} ms, sdpa on gathered KV {l_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by})")
     scans = {}
-    for name, op, case, bound_fn, dims in (
-            ("wkv_scan", wkv, wkv_case, wkv_bound, (32, 64)),
-            ("ssm_scan", selective_scan, ssm_case, ssm_bound, (3200, 16))):
-        for shape in ((B, 1, *dims), (1, PREFILL_T, *dims)):
+    for name, op, case, bound_fn, shapes in (
+            ("wkv_scan", wkv, wkv_case, wkv_bound,
+             ((B, 1, 32, 64), (1, PREFILL_T, 32, 64), COBATCH_WKV)),
+            ("ssm_scan", selective_scan, ssm_case, ssm_bound,
+             ((B, 1, 3200, 16), (1, PREFILL_T, 3200, 16)))):
+        for shape in shapes:
+            if name == "wkv_scan":
+                print(f"wkv_scan {shape}: {wkv_kernel.plan(*shape)}")
             args = case(*shape, seed=11)
             k_ms = time_ms(lambda: op(*args), flush)
             p_ms = time_ms(lambda: op(*args, force_ref=True), flush)
@@ -1052,7 +1086,8 @@ def main() -> int:
              wkv_err),
             ("ssm_scan", "ssm_scan/csrc/ssm_scan.cu", "ssm_scan/kernel.py:36",
              ssm_err)):
-        (k_ms, p_ms, b_ms, b_by), (pk_ms, pp_ms, pb_ms, pb_by) = scans[name]
+        (k_ms, p_ms, b_ms, b_by), (pk_ms, pp_ms, pb_ms, pb_by) = \
+            scans[name][:2]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{source}",
@@ -1077,6 +1112,10 @@ def main() -> int:
             "launches": serve_launches[name], "max_abs_err": err,
             "max_err": err, "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+    ck_ms, cp_ms, cb_ms, cb_by = scans["wkv_scan"][2]
+    next(r for r in rows if r["name"] == "wkv_scan").update(
+        cobatch_ms=ck_ms, cobatch_plain_ms=cp_ms, cobatch_bound_ms=cb_ms,
+        cobatch_bound_by=cb_by)
     next(r for r in rows if r["name"] == "flash_attention").update(
         s16_ms=f16_ms, s16_library_ms=fl16_ms, tiny_op_ms=tiny_ms)
     q_ms, qp_ms, qb_ms, qb_by, ql_ms, qf_ms = dec_times["qwen3-4b"]

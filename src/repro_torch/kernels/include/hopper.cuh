@@ -1,6 +1,7 @@
 // Shared device helpers of the port's kernels: cp.async with zero fill
-// (16 bytes for the attention kernels' K/V tiles, 4 bytes for the
-// selective scan's per-step rows), and for the tensor-core attention
+// (16 bytes for the attention kernels' K/V tiles and the WKV scan's rows,
+// 4 bytes for the scans' unaligned rows), the scans' transpose-reduce of
+// per-step partials over a group of lanes, and for the tensor-core attention
 // kernels (flash_attention/csrc/flash.cu,
 // paged_attention/csrc/paged_window.cu) ldmatrix, mma.sync m16n8k16
 // (bf16 in, f32 accumulate) and the XOR-swizzled tile layout they read.
@@ -57,6 +58,48 @@ __device__ __forceinline__ void cp_async_wait() {
 // Barrier `id` (1..15) over the `threads` threads of a warp group.
 __device__ __forceinline__ void group_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads));
+}
+
+// One round of the transpose-reduce below, O lanes apart over K values
+// a lane: the lanes with bit O keep the upper half of each block of 2O
+// values, the others the lower, and each adds its partner's copy of the
+// half it keeps. A compile-time recursion, so every index is a constant
+// and v stays in registers.
+template <int O, int K, int TC>
+struct ReduceRound {
+  __device__ __forceinline__ static void run(float (&v)[TC], int g) {
+    const bool up = (g & O) != 0;
+#pragma unroll
+    for (int s = 0; s < K; s += 2 * O)
+#pragma unroll
+      for (int i = 0; i < O; ++i) {
+        const float lo = v[s + i], hi = v[s + i + O];
+        v[s / 2 + i] =
+            (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
+      }
+    ReduceRound<O / 2, K / 2, TC>::run(v, g);
+  }
+};
+template <int K, int TC>
+struct ReduceRound<0, K, TC> {
+  __device__ __forceinline__ static void run(float (&)[TC], int) {}
+};
+
+// Each of a group's L lanes (L a power of two: a selective-scan
+// channel's, a WKV column pair's) holds one partial per step of a chunk
+// in v; afterwards lane g holds in v[q] the group's sum for step
+// q * W + g % W (W = min(L, K), q < K / W). While L > K the two halves
+// of the group are first added (their lanes then hold the same sums).
+template <int L, int K>
+__device__ __forceinline__ void reduce_steps(float (&v)[K], int g) {
+  if constexpr (L > K) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], L / 2);
+    reduce_steps<L / 2, K>(v, g);
+  } else {
+    ReduceRound<L / 2, K, K>::run(v, g);
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {

@@ -1,26 +1,84 @@
 """Binding of the CUDA WKV6 kernel (``csrc/wkv.cu``, built by
 ``kernels._build``, loaded with ``ctypes``).
 
-The wrapper checks device, dtype, shape and contiguity, allocates
-``out`` / the final state with ``torch.empty``, and launches on the
-current CUDA stream without synchronising; a launch CUDA refuses raises.
-``wkv_scan.launches`` counts successful launches.
+``plan`` is the kernel's launch plan, a function of shapes only (the
+wrapper never reads a tensor's values): each pair of state columns
+(b, h, j), (b, h, j + 1) gets ``lanes`` lanes, each holding ``rows``
+consecutive rows of both (the head dim padded to 32, 64 or 128), a CTA
+of ``threads`` covers ``columns`` consecutive columns of one (b, h), and
+time is staged in chunks of ``chunk`` steps (one step at T 1, in one
+stage; else 16, in a ring of two). The wrapper checks device, dtype,
+shape and contiguity, allocates ``out`` / the final state with
+``torch.empty``, and launches on the current CUDA stream without
+synchronising; a launch CUDA refuses raises. ``wkv_scan.launches``
+counts successful launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.kernel import rows_aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
-MAX_HEAD_DIM = 128             # column j of the state lives in registers
-# the C signature: r, k, v, w, u, state, out, state_out; B, T, H, hd;
-# stream
-ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+MAX_HEAD_DIM = 128             # 32 lanes of 4 rows a column pair
+THREADS = 128                  # per CTA
+ROWS = 4                       # rows of a column a lane holds
+PAIR = 2                       # columns a lane holds
+CHUNK = 16                     # time steps a staged chunk above T 1
+# the C signature: r, k, v, w, u, state, out, state_out; B, T, H, hd,
+# lanes, chunk, vec; stream
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    lanes: int         # L: lanes a column pair
+    rows: int          # E: rows a lane holds; lanes * rows = padded hd
+    columns: int       # CH: columns a CTA covers
+    chunk: int         # TC: time steps a staged chunk
+    stages: int        # chunks in the shared-memory ring
+    grid: tuple        # (column blocks, H, B)
+    threads: int       # per CTA
+    smem: int          # bytes of dynamic shared memory per CTA
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernel's head dim: 32, 64 or 128, the least that holds hd."""
+    return next(p for p in (32, 64, 128) if hd <= p)
+
+
+def plan(B: int, T: int, H: int, hd: int) -> Plan:
+    """The launch plan for one call, from shapes alone. Raises on a shape
+    the kernel does not take."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd}: the kernel takes 1..{MAX_HEAD_DIM}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"B {B}, H {H}: the grid takes at most 65535")
+    hdp = padded_head_dim(hd)
+    lanes = hdp // ROWS
+    columns = PAIR * THREADS // lanes
+    chunk, stages = (1, 1) if T == 1 else (CHUNK, 2)
+    stage = 3 * chunk * hdp + chunk * columns          # r, k, w rows; v
+    smem = 4 * (stages * stage + columns * (hdp + 4))  # + the state slice
+    return Plan(lanes, ROWS, columns, chunk, stages,
+                (-(-hd // columns), H, B), THREADS, smem)
+
+
+def owned(p: Plan, hd: int, cta: tuple, thread: int) -> list[tuple]:
+    """The state entries (b, h, i, j) that ``thread`` of CTA ``cta`` =
+    (x, y, z) carries, as the kernel assigns them: columns j = x *
+    columns + PAIR * (thread // lanes) + (0, 1), rows i = rows * (thread
+    % lanes) + e; entries past hd are padding and carry nothing."""
+    x, h, b = cta
+    j0 = x * p.columns + PAIR * (thread // p.lanes)
+    i0 = p.rows * (thread % p.lanes)
+    return [(b, h, i, j) for j in range(j0, j0 + PAIR)
+            for i in range(i0, i0 + p.rows) if i < hd and j < hd]
 
 
 @functools.cache
@@ -65,11 +123,14 @@ def wkv_scan(r, k, v, w, u, state):
     out = torch.empty_like(r)
     if B == 0 or T == 0:
         return out, state.clone()
+    p = plan(B, T, H, hd)
     state_out = torch.empty_like(state)
+    vec = rows_aligned(r, k, v, w, state, out, state_out)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                       u.data_ptr(), state.data_ptr(), out.data_ptr(),
-                      state_out.data_ptr(), B, T, H, hd, stream)
+                      state_out.data_ptr(), B, T, H, hd, p.lanes, p.chunk,
+                      int(vec), stream)
     if err:
         raise RuntimeError(f"wkv_scan launch failed: cudaError_t {err}")
     wkv_scan.launches += 1

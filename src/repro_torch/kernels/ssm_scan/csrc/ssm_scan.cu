@@ -71,6 +71,7 @@ namespace {
 using hopper::cp_async4;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
+using hopper::reduce_steps;
 
 // L lanes a channel, E entries a lane, TC time steps a staged chunk
 // (16 at T <= 16, else 32: a chunk costs a barrier and a reduction, a
@@ -102,47 +103,6 @@ __device__ __forceinline__ void load_e(const float* p, float (&v)[E]) {
   } else {
     v[0] = p[0];
   }
-}
-
-// One round of the transpose-reduce below, O lanes apart over K values
-// a lane: the lanes with bit O keep the upper half of each block of 2O
-// values, the others the lower, and each adds its partner's copy of the
-// half it keeps. A compile-time recursion, so every index is a constant
-// and v stays in registers.
-template <int O, int K, int TC>
-struct ReduceRound {
-  __device__ __forceinline__ static void run(float (&v)[TC], int g) {
-    const bool up = (g & O) != 0;
-#pragma unroll
-    for (int s = 0; s < K; s += 2 * O)
-#pragma unroll
-      for (int i = 0; i < O; ++i) {
-        const float lo = v[s + i], hi = v[s + i + O];
-        v[s / 2 + i] =
-            (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
-      }
-    ReduceRound<O / 2, K / 2, TC>::run(v, g);
-  }
-};
-template <int K, int TC>
-struct ReduceRound<0, K, TC> {
-  __device__ __forceinline__ static void run(float (&)[TC], int) {}
-};
-
-// Each of a channel's L lanes holds one partial per step of a chunk in
-// v; afterwards lane g holds in v[j] the channel's sum for step
-// j * W + g % W (W = min(L, TC), j < TC / W). At L = 32 > TC the two
-// halves of the group are first added (their lanes then hold the same
-// sums).
-template <int L, int TC>
-__device__ __forceinline__ void reduce_steps(float (&v)[TC], int g) {
-  if constexpr (L > TC) {
-#pragma unroll
-    for (int i = 0; i < TC; ++i)
-      v[i] += __shfl_xor_sync(0xffffffffu, v[i], L / 2);
-  }
-  constexpr int W = L < TC ? L : TC;
-  ReduceRound<W / 2, TC, TC>::run(v, g);
 }
 
 template <int L, int E, int TC>

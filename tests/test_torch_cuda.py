@@ -8,7 +8,9 @@ inputs, with TF32 off. Paged-window, flash and decode attention: f32
 atol = rtol = 1e-4 (the sum order differs), bf16 3e-2 (the reference
 grid's bf16 tolerance). WKV and selective scans (f32 only): 1e-5 for one
 step, 1e-4 over long scans, where the carried state accumulates
-rounding.
+rounding; the WKV cases with decays in the model's range (down to 0 and
+up to 0.9999) scale k by 1/sqrt(hd), so a state that forgets little
+stays of order 1.
 """
 import dataclasses
 import math
@@ -214,10 +216,25 @@ def _scan_tol(T):
     return 1e-5 if T == 1 else 1e-4
 
 
-def _wkv_case(B, T, H, hd, seed):
+def _model_decays(shape, g):
+    """w = exp(-exp(z)) as the model makes it, each entry from one of
+    three ranges: z in (4.7, 6) (w underflows to 0 in f32), z in (-9.2,
+    -5) (w from 0.9933, the ``decay_base = -5`` init, to 0.9999), and w
+    in (0.45, 0.95)."""
+    pick = torch.randint(0, 3, shape, generator=g)
+    z = torch.where(pick == 0, 4.7 + 1.3 * torch.rand(shape, generator=g),
+                    -9.2 + 4.2 * torch.rand(shape, generator=g))
+    mid = 0.45 + 0.5 * torch.rand(shape, generator=g)
+    return torch.where(pick == 2, mid, torch.exp(-torch.exp(z)))
+
+
+def _wkv_case(B, T, H, hd, seed, decays="mid"):
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn((B, T, H, hd), generator=g) for _ in range(3))
     w = 0.45 + 0.5 * torch.sigmoid(torch.randn((B, T, H, hd), generator=g))
+    if decays == "model":
+        w = _model_decays((B, T, H, hd), g)
+        k = k / math.sqrt(hd)   # a near-1 decay sums ~T steps of k v
     u = 0.5 * torch.randn((H, hd), generator=g)
     s0 = torch.randn((B, H, hd, hd), generator=g)
     return [t.cuda() for t in (r, k, v, w, u, s0)]
@@ -252,6 +269,92 @@ def test_wkv_kernel_matches_plain_version(cuda, B, T, H, hd):
     tol = _scan_tol(T)
     torch.testing.assert_close(out, ro, atol=tol, rtol=tol)
     torch.testing.assert_close(sT, rs, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("hd", [32, 48, 64, 128])
+@pytest.mark.parametrize("T", [1, 2, 15, 16, 17, 31, 32, 33, 300, 1000])
+def test_wkv_kernel_at_chunk_edges(cuda, T, hd, B):
+    """T 1 (the one-step instantiation), T on both sides of the 16-step
+    chunk edges of the two-chunk ring (15-17, 31-33), long scans that
+    wrap the ring many times, every padded head dim (32, 64, 128, and 48
+    padded to 64), decays in the model's range (0, 0.9933-0.9999,
+    0.45-0.95)."""
+    args = _wkv_case(B, T, 3, hd, seed=T + hd + B, decays="model")
+    before = wkv_kernel.wkv_scan.launches
+    out, sT = wkv(*args)
+    assert wkv_kernel.wkv_scan.launches == before + 1
+    ro, rs = wkv(*args, force_ref=True)
+    torch.cuda.synchronize()
+    tol = _scan_tol(T)
+    torch.testing.assert_close(out, ro, atol=tol, rtol=tol)
+    torch.testing.assert_close(sT, rs, atol=tol, rtol=tol)
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, device=t.device, dtype=t.dtype)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("hd,T", [(30, 40), (50, 7), (64, 33)])
+def test_wkv_kernel_element_staging(cuda, hd, T):
+    """The 4-byte staging path: a head dim that is no multiple of 4, and
+    hd 64 with r and the state starting off a 16-byte boundary."""
+    r, k, v, w, u, s0 = _wkv_case(2, T, 2, hd, seed=hd, decays="model")
+    if hd % 4 == 0:
+        r, s0 = _misaligned(r), _misaligned(s0)
+        assert r.data_ptr() % 16 and s0.data_ptr() % 16
+    out, sT = wkv(r, k, v, w, u, s0)
+    ro, rs = wkv(r, k, v, w, u, s0, force_ref=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ro, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sT, rs, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("hd,T", [(64, 1), (64, 40), (30, 40), (128, 17)])
+def test_wkv_state_out_aliases_state(cuda, hd, T):
+    """The C entry point with the final state written over the initial
+    one in place (``state_out`` is ``state``): one launch, the plain
+    version's result."""
+    *args, s0 = _wkv_case(2, T, 3, hd, seed=hd + T, decays="model")
+    ro, rs = wkv(*args, s0, force_ref=True)
+    state = s0.clone()
+    out = torch.empty_like(args[0])
+    B, T, H, hd = out.shape
+    p = wkv_kernel.plan(B, T, H, hd)
+    vec = wkv_kernel.rows_aligned(*args[:4], state, out)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = wkv_kernel._launcher()(*(t.data_ptr() for t in args),
+                                 state.data_ptr(), out.data_ptr(),
+                                 state.data_ptr(), B, T, H, hd, p.lanes,
+                                 p.chunk, int(vec), stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ro, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(state, rs, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv_kernel_back_to_back_shapes(cuda):
+    """Calls at other shapes (other plans: lanes, chunk, stages, grid)
+    queued back to back with no synchronisation between them, each
+    against the plain version afterwards."""
+    shapes = [(8, 1, 32, 64), (1, 300, 32, 64), (2, 64, 32, 64),
+              (8, 1, 4, 128), (1, 17, 5, 32), (3, 16, 2, 48),
+              (8, 1, 32, 64)]
+    cases = [_wkv_case(*s, seed=i, decays="model")
+             for i, s in enumerate(shapes)]
+    before = wkv_kernel.wkv_scan.launches
+    results = [wkv(*a) for a in cases]
+    assert wkv_kernel.wkv_scan.launches == before + len(shapes)
+    for shape, a, (out, sT) in zip(shapes, cases, results):
+        ro, rs = wkv(*a, force_ref=True)
+        tol = _scan_tol(shape[1])
+        torch.testing.assert_close(out, ro, atol=tol, rtol=tol)
+        torch.testing.assert_close(sT, rs, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("B,T,di,N", [

@@ -160,8 +160,8 @@ def test_build_path_follows_source_hash(tmp_path):
 def test_build_path_follows_included_headers(tmp_path):
     """A library is named by the headers its source includes too, and
     theirs in turn: editing one builds anew, an unrelated file does
-    not. The attention sources and the selective scan share the
-    helpers header."""
+    not. The attention sources and both scans share the helpers
+    header."""
     (tmp_path / "inc").mkdir()
     a, b = tmp_path / "inc" / "a.cuh", tmp_path / "inc" / "b.cuh"
     a.write_text('#include "b.cuh"\n// a')
@@ -179,7 +179,7 @@ def test_build_path_follows_included_headers(tmp_path):
     assert {p.name for p in _build.sources()
             if header in _build.includes(p)} == {"decode.cu", "flash.cu",
                                                  "paged_window.cu",
-                                                 "ssm_scan.cu"}
+                                                 "ssm_scan.cu", "wkv.cu"}
 
 
 @pytest.mark.parametrize("kernel", list(KERNELS))

@@ -2,8 +2,10 @@
 
 Both sides run the same weights (the reference's ``init_params``, carried
 over through numpy by ``params_from_numpy``) on the same numpy inputs,
-in f32, for reduced qwen3-4b (MHA: 4 q heads, 4 KV heads) and a GQA
-variant (2 KV heads, G = 2). Logits agree within atol = rtol = 1e-4.
+in f32, for reduced qwen3-4b (MHA: 4 q heads, 4 KV heads), a GQA
+variant (2 KV heads, G = 2) and the other dense configs, reduced:
+deepseek-7b, minitron-8b (relu2, no gate) and nemotron-4-340b (relu2).
+Logits agree within atol = rtol = 1e-4.
 The paged calls run the port both through the gather path and through
 the kernel ops (their plain version on CPU tensors).
 """
@@ -22,7 +24,11 @@ from repro_torch.models.model import build_model, init_params
 from repro_torch.weights import params_from_numpy
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-VARIANTS = {"mha": {}, "gqa": {"n_kv_heads": 2}}
+# stack id -> (config, overrides of its reduced variant)
+VARIANTS = {"mha": ("qwen3-4b", {}), "gqa": ("qwen3-4b", {"n_kv_heads": 2}),
+            **{name: (name, {}) for name in ("deepseek-7b", "minitron-8b",
+                                             "nemotron-4-340b")}}
+DENSE = ["qwen3-4b", "deepseek-7b", "minitron-8b", "nemotron-4-340b"]
 BS, MAX_BLOCKS, B = 8, 4, 3
 
 
@@ -38,9 +44,9 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module", params=list(VARIANTS))
 def stack(request):
-    kw = VARIANTS[request.param]
-    jcfg = dataclasses.replace(jax_config("qwen3-4b").reduced(), **kw)
-    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), **kw)
+    name, kw = VARIANTS[request.param]
+    jcfg = dataclasses.replace(jax_config(name).reduced(), **kw)
+    cfg = dataclasses.replace(get_config(name).reduced(), **kw)
     jmodel = jax_build(jcfg)
     jparams = jmodel.init(jax.random.key(0))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
@@ -250,7 +256,7 @@ def _specs(tree):
     return out
 
 
-@pytest.mark.parametrize("name", ["qwen3-4b", "rwkv6-1.6b", "hymba-1.5b"])
+@pytest.mark.parametrize("name", DENSE + ["rwkv6-1.6b", "hymba-1.5b"])
 def test_param_dtypes_and_shapes_match_the_reference(name):
     """Every leaf keeps the reference's shape and dtype: bf16 leaves
     follow cfg.dtype, the f32 ones (decay_base, bonus_u, A_log, D,
@@ -267,7 +273,7 @@ def test_param_dtypes_and_shapes_match_the_reference(name):
     assert _specs(init_params(get_config(name), device="meta")) == \
         _specs(full)
     assert "float32" in {d for _, d in _specs(full).values()} \
-        or name == "qwen3-4b"
+        or name in DENSE
 
 
 def test_params_from_numpy_keeps_bf16_bits():
