@@ -48,6 +48,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    65, 127, T - 1, T) at both head shapes, f32 and bf16, with the stripe
    tail past each length poisoned with NaN, a 70-position window that
    starts inside a split, and back-to-back calls with other lengths.
+   Then the sampler (plain PyTorch, as the reference's is XLA outside any
+   Pallas kernel): ``sample``, ``draft_propose`` and
+   ``speculative_accept`` on the card and on the CPU on the same f32
+   logits (V 151,936) for every (temperature, top-k, seed) of
+   ``SAMPLER_GRID``: threefry bits and uniforms bitwise equal, tokens
+   identical on every row.
 4. Serve at full width: qwen3-4b (36 layers, bf16, random weights from a
    seeded generator) behind ``ServingEngine(batch_size=8, max_seq=1024,
    use_kernel=True)``, 8 greedy requests. The paged kernel must launch
@@ -55,6 +61,26 @@ Phases (any failure exits non-zero; no result line is printed then):
    layer per prefill call, and the pool must drain clean. The same serve
    then runs again under ``torch.profiler``: device busy time, idle
    share and the top kernels.
+4b. The same model behind ``make_lm_service`` (1 replica, B 8, max_seq
+   1024, priority policy, use_kernel, a Tracer), started by the port's
+   Supervisor with its serve loop on a thread: phase 4's 8 prompts and 4
+   more as payloads (half sampled, two priority tiers, 16 new tokens)
+   from 4 client threads with ``on_token`` callbacks (client k starts once
+   payload k - 1 streams, so chunk windows, prefix sharing and
+   copy-on-write all run), one cancelled on its first token. Every request ends completed or cancelled, the pool
+   drains, the paged / flash launches follow phase 4's rule, the
+   Prometheus exposition holds the engine, pool, loop, scheduler and
+   balancer series, the Chrome trace covers the request, loop and pool
+   tracks, the loop's plan window measured time; tokens/s, TTFT, the
+   loop's plan / commit-wait split, then the profiler's busy / idle share.
+4c. The same 12 requests through an ``AsyncServeLoop`` and a synchronous
+   ``Scheduler.drain()``: tokens identical, logprobs within 1e-5.
+4d. ``dispatch_step()`` on a decode batch with sampled rows never waits
+   for the device: no synchronising call in it at full width (PyTorch's
+   sync debug mode), and with depth cut to 2 layers (a 36-layer step
+   overflows the launch queue behind a spin) it returns behind a 0.5 s
+   spin while the card still spins; its host time beside the step's
+   device time, and how long the stream stays busy after it returns.
 5. Kernel path vs plain path at full width in f32 (4 layers): identical
    token streams, logprobs within 1e-3.
 6. Serve on the stripe layout, bf16, random weights from seed 0,
@@ -72,6 +98,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    port on the card (the scan, flash and decode kernels) and on the CPU
    (their plain versions), same weights: identical token streams,
    logprobs within 1e-3.
+8. ``python -m repro_torch.launch.serve --arch qwen3-4b --stream
+   --trace-out`` in a subprocess on the card (reduced width): ends with
+   ``OK``.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
@@ -89,7 +118,8 @@ elementwise kernel (what a launch costs this timing before any work),
 the scan rows their prefill numbers (``prefill_*``), the WKV row also
 its co-batched prefill numbers (``cobatch_*``), the decode row its
 qwen3-4b numbers (``qwen3_*``) and floors (``floor_ms``,
-``qwen3_floor_ms``).
+``qwen3_floor_ms``). The sampler's device and host time per sampled and
+all-greedy step at B 8, V 151,936 is printed beside them.
 ``scaled_dot_product_attention`` is the yardstick of the attention
 kernels (on the gathered KV, causal, or with a length mask; the port
 never calls it); no single PyTorch call computes either recurrence. TF32
@@ -107,6 +137,7 @@ from dataclasses import replace
 from functools import partial
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -849,6 +880,476 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+# --------------------------------------------------------------- sampling
+VOCAB = 151936                  # qwen3-4b's vocabulary
+SAMPLER_GRID = [(t, k, s) for t in (0.0, 0.3, 1.0, 1.5) for k in (0, 1, 50)
+                for s in (0, 7, -1, 2**31 - 1)]
+
+
+def _knobs(part):
+    return ([np.asarray(c, dt) for c, dt in zip(zip(*part), (
+        np.float32, np.int32, np.int32))])
+
+
+def check_sampler(sampling, prng):
+    """``sample``, ``draft_propose`` and ``speculative_accept`` on the card
+    against the CPU on identical f32 logits (B 8, V 151,936), every
+    (temperature, top-k, seed) of ``SAMPLER_GRID``: the threefry bits and
+    uniforms bitwise equal, tokens and ``accepted`` identical on every
+    row; logprobs within 2e-5 (a log-sum-exp over 151,936 terms in
+    another order), probs within 1e-6. Returns (rows, worst errors)."""
+    g = torch.Generator().manual_seed(SEED + 5)
+    lp_err = p_err = 0.0
+    for b0 in range(0, len(SAMPLER_GRID), B):
+        temps, top_ks, seeds = _knobs(SAMPLER_GRID[b0:b0 + B])
+        n = len(temps)
+        ctrs = np.arange(b0, b0 + n, dtype=np.int32)
+        k0, k1 = sampling.stream_keys(seeds, ctrs, sampling.TOKEN_STREAM)
+        bits = {d: prng.bits(torch.as_tensor(k0, device=d),
+                             torch.as_tensor(k1, device=d), VOCAB)
+                for d in ("cuda", "cpu")}
+        uni = {d: prng.uniform(b, prng.TINY, 1.0) for d, b in bits.items()}
+        if not torch.equal(bits["cuda"].cpu(), bits["cpu"]) or not \
+                torch.equal(uni["cuda"].cpu().view(torch.int32),
+                            uni["cpu"].view(torch.int32)):
+            raise AssertionError(f"sampler rows {b0}..: threefry bits or "
+                                 f"uniforms differ between card and CPU")
+        lg = torch.randn((n, VOCAB), generator=g) * 3
+        tl = torch.randn((n, 4, VOCAB), generator=g) * 2
+        dp = torch.softmax(torch.randn((n, 3, VOCAB), generator=g), -1)
+        prop = tl[:, :3].argmax(-1)
+        prop[::2, 1] = (prop[::2, 1] + 1) % VOCAB
+        ns = np.asarray([3, 0, 3, 2, 3, 1, 0, 3][:n], np.int32)
+        out = {}
+        for d in ("cuda", "cpu"):
+            out[d] = [t.cpu() for t in (
+                *sampling.sample(lg.to(d), temps, top_ks, seeds, ctrs),
+                *sampling.draft_propose(lg.to(d), temps, top_ks, seeds, ctrs,
+                                        ctrs % 3),
+                *sampling.speculative_accept(tl.to(d), dp.to(d), prop.numpy(),
+                                             ns, temps, top_ks, seeds, ctrs))]
+        (tok, lp, dtok, probs, acc, atok, alp) = out["cuda"]
+        (ctok, clp, cdtok, cprobs, cacc, catok, calp) = out["cpu"]
+        for name, a, b in (("sample tokens", tok, ctok),
+                           ("draft tokens", dtok, cdtok),
+                           ("accepted", acc, cacc),
+                           ("accept tokens", atok, catok)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sampler rows {b0}..: {name} card "
+                                     f"{a.tolist()} != cpu {b.tolist()}")
+        lp_err = max(lp_err, (lp - clp).abs().max().item(),
+                     (alp - calp).abs().max().item())
+        p_err = max(p_err, (probs - cprobs).abs().max().item())
+    print(f"sampler: {len(SAMPLER_GRID)} rows (temperatures 0 / 0.3 / 1.0 / "
+          f"1.5 x top-k 0 / 1 / 50 x seeds 0 / 7 / -1 / 2^31-1, V {VOCAB}): "
+          f"threefry bits and uniforms bitwise equal card vs CPU; sample, "
+          f"draft and accept tokens identical; max |logprob diff| "
+          f"{lp_err:.3e} (tol 2e-5), max |prob diff| {p_err:.3e} (tol 1e-6)")
+    if lp_err > 2e-5 or p_err > 1e-6:
+        raise AssertionError(f"sampler: logprobs {lp_err} / probs {p_err}")
+    return len(SAMPLER_GRID), lp_err
+
+
+def time_sampler(sampling):
+    """The sampler at B 8, V 151,936 on the card, sampled rows (the first
+    8 of ``SAMPLER_GRID`` with temperature > 0) and all-greedy rows:
+    device time (CUDA events after a spin that keeps the host ahead),
+    host time of staging + enqueue (perf_counter while the card spins),
+    medians of 20; and the kernels one sampled call launches (profiler).
+    Returns a dict of the numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sampled = [r for r in SAMPLER_GRID if r[0] > 0][:B]
+    temps, top_ks, seeds = _knobs(sampled)
+    ctrs = np.arange(B, dtype=np.int32)
+    g = torch.Generator().manual_seed(SEED + 7)
+    lg = (torch.randn((B, VOCAB), generator=g) * 3).cuda()
+    out = {}
+    for name, t in (("sampled", temps), ("greedy", np.zeros(B, np.float32))):
+        dev, host = [], []
+        for i in range(25):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES * 10)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            sampling.sample_rows(lg, sampling.Rows(t, top_ks, seeds, ctrs,
+                                                   "cuda"))
+            t1 = time.perf_counter()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 5:
+                dev.append(start.elapsed_time(end))
+                host.append((t1 - t0) * 1e3)
+        out[f"{name}_device_ms"] = statistics.median(dev)
+        out[f"{name}_host_ms"] = statistics.median(host)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sampling.sample_rows(lg, sampling.Rows(temps, top_ks, seeds, ctrs,
+                                               "cuda"))
+        torch.cuda.synchronize()
+    out["sampled_launches"] = sum(
+        e.count for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    print(f"sampler B {B} V {VOCAB}: sampled rows device "
+          f"{out['sampled_device_ms']:.4f} ms, host "
+          f"{out['sampled_host_ms']:.4f} ms, "
+          f"{out['sampled_launches']} device ops; all greedy device "
+          f"{out['greedy_device_ms']:.4f} ms, host "
+          f"{out['greedy_host_ms']:.4f} ms")
+    return out
+
+
+# ------------------------------------------------------- the LM service
+def service_payloads(vocab):
+    """Phase 4's 8 prompts plus 4 more, as service payloads: 16 new tokens
+    each; the odd ones sampled (temperature 0.7, top-k 0 or 50, a seed of
+    their own); priority tiers 0 and 1 across both kinds."""
+    from repro_torch.serve.engine import Request
+    g = torch.Generator().manual_seed(SEED + 4)
+    prompts = [r.prompt for r in make_requests(Request, vocab)]
+    prompts += [torch.randint(2, vocab, (n,), generator=g).tolist()
+                for n in (48, 9, 160, 21)]
+    out = []
+    for i, p in enumerate(prompts):
+        pay = {"prompt": p, "max_new_tokens": 16, "priority": (i // 2) % 2}
+        if i % 2:
+            pay["sampling"] = {"temperature": 0.7,
+                               "top_k": 0 if i % 4 == 1 else 50,
+                               "seed": 100 + i}
+        out.append(pay)
+    return out
+
+
+CANCEL = 5                      # the payload cancelled after one token
+CLIENTS = 4
+WAIT_S = 600.0
+
+
+def run_service(model, params, payloads):
+    """Full-width LM service: ``make_lm_service`` (1 replica, B 8, max_seq
+    1024, priority policy, use_kernel, a Tracer) started by the port's
+    Supervisor, its serve loop on its own thread; ``CLIENTS`` client
+    threads send the payloads (client k payloads k, k + 4, ...) with
+    ``on_token`` callbacks, through the service's balancer; client k
+    starts once payload k - 1 has streamed a token, so payload 2 (the
+    64-token prefix) arrives while payload 1 (the prefix + 10) holds its
+    blocks and shares them up to a partial tail (copy-on-write); payload
+    ``CANCEL`` goes through the replica's ``submit`` and is cancelled on
+    its first streamed token. Everything started is stopped before it
+    returns.
+    Returns (engine, wall s, service, tracer, results, ttft s)."""
+    import threading
+    from repro_torch.core.supervisor import Supervisor
+    from repro_torch.serve.service import make_lm_service
+    from repro_torch.serve.telemetry import Tracer
+    tracer = Tracer()
+    sup = Supervisor()
+    svc = make_lm_service("lm", model, params, n_replicas=1, batch_size=B,
+                          max_seq=STRIPE_T, policy="priority",
+                          use_kernel=True, tracer=tracer, supervisor=sup)
+    sup.start_all()
+    rep = svc.replicas[0].handler
+    results, ttft, errors = {}, {}, []
+    streamed = [threading.Event() for _ in payloads]
+
+    def send(i):
+        toks, handle, submitted = [], {}, threading.Event()
+        t_send = time.perf_counter()
+
+        def on_token(tok, lp):
+            if not toks:
+                ttft[i] = time.perf_counter() - t_send
+                streamed[i].set()
+            toks.append(tok)
+            if i == CANCEL and len(toks) == 1:
+                # the client cancels on its first token (the loop applies
+                # it at its next boundary)
+                submitted.wait(WAIT_S)
+                handle["h"].cancel()
+        pay = dict(payloads[i], on_token=on_token)
+        if i != CANCEL:
+            results[i] = ("completed", svc(pay), toks)
+            return
+        handle["h"] = h = rep.submit(pay)
+        submitted.set()
+        if not h._done.wait(WAIT_S):
+            raise AssertionError("the cancelled request never resolved")
+        results[i] = ("cancelled" if h.cancelled else "not cancelled",
+                      h.result(), toks)
+
+    def client(k):
+        try:
+            if k and not streamed[k - 1].wait(WAIT_S):
+                raise AssertionError(f"payload {k - 1} streamed nothing")
+            for i in range(k, len(payloads), CLIENTS):
+                send(i)
+        except Exception as e:          # surfaces in the main thread
+            errors.append(e)
+
+    rep.loop.start()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(WAIT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a service client did not finish")
+        if errors:
+            raise errors[0]
+    finally:
+        rep.loop.stop()
+        sup.stop_all()
+    return rep.scheduler.engine, wall, svc, tracer, results, ttft
+
+
+def check_service(eng, svc, tracer, results, payloads, vocab):
+    """Every request completed (16 tokens, streamed == reply) or, for
+    ``CANCEL``, cancelled after streaming; the pool drained; the
+    Prometheus exposition holds the engine, pool, loop, scheduler and
+    balancer series; the Chrome trace parses and covers the request,
+    loop and pool tracks."""
+    import tempfile
+    from repro_torch.serve.service import service_prometheus_text
+    from repro_torch.serve.telemetry import PID_LOOP, PID_POOL, PID_REQUESTS
+    if sorted(results) != list(range(len(payloads))):
+        raise AssertionError(f"replies for {sorted(results)}")
+    for i, (status, reply, toks) in results.items():
+        want = "cancelled" if i == CANCEL else "completed"
+        n = len(reply["tokens"])
+        if status != want or reply["tokens"] != toks[:n] or not (
+                n == 16 if i != CANCEL else 1 <= n < 16):
+            raise AssertionError(f"payload {i}: {status}, {n} tokens")
+        if not all(0 <= t < vocab for t in reply["tokens"]) or not all(
+                math.isfinite(x) and x <= 0 for x in reply["logprobs"]):
+            raise AssertionError(f"payload {i}: bad tokens or logprobs")
+    m, stats = eng.metrics, eng.pool_stats()
+    if m["completed"] != len(payloads) - 1 or m["cancelled"] != 1:
+        raise AssertionError(f"engine completed {m['completed']}, "
+                             f"cancelled {m['cancelled']}")
+    if stats["used"] or stats["logical_blocks"] \
+            or stats["available"] != stats["total"]:
+        raise AssertionError(f"pool did not drain: {stats}")
+    if m["chunk_steps"] == 0 or m["shared_admissions"] == 0 \
+            or m["cow_copies"] == 0:
+        raise AssertionError("chunk windows, prefix sharing and "
+                             "copy-on-write must all have run")
+    text = service_prometheus_text(svc)
+    series = [line for line in text.splitlines()
+              if line and not line.startswith("#")]
+    for prefix in ("engine_", "pool_", "loop_", "scheduler_", "balancer_"):
+        if not any(s.startswith(prefix) for s in series):
+            raise AssertionError(f"no {prefix}* series in the exposition")
+    print(f"prometheus: {len(series)} series, e.g.")
+    for s in series:
+        if s.split("{")[0] in ("engine_completed", "engine_cancelled",
+                               "loop_ticks", "loop_plan_time_s",
+                               "loop_commit_wait_s", "balancer_served",
+                               "scheduler_completed", "pool_used"):
+            print("   ", s)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "service_trace.json"
+        n_events = tracer.write_chrome_trace(path)
+        events = json.loads(path.read_text())["traceEvents"]
+    pids = {e["pid"] for e in events}
+    names = {e["name"] for e in events}
+    need = {"request", "queued", "first_token", "plan-window", "commit-wait",
+            "pool"}
+    if not {PID_LOOP, PID_REQUESTS, PID_POOL} <= pids or not need <= names:
+        raise AssertionError(f"trace tracks {pids}, events missing "
+                             f"{need - names}")
+    print(f"chrome trace: {n_events} events over the loop, request and "
+          f"pool tracks ({tracer.dropped} dropped)")
+
+
+def async_vs_sync(model, params, payloads):
+    """The same requests submitted to an ``AsyncServeLoop`` before it
+    starts (its own thread) and to a fresh engine's ``Scheduler.drain()``,
+    both ``ServingEngine(B 8, max_seq 1024, use_kernel=True)`` on the
+    card, priority policy: tokens identical, logprobs within 1e-5."""
+    from repro_torch.serve.async_loop import AsyncServeLoop
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Scheduler
+
+    def requests():
+        return [Request(rid=i, prompt=list(p["prompt"]), max_new_tokens=16,
+                        priority=p["priority"],
+                        sampling=SamplingParams(**p.get("sampling", {})))
+                for i, p in enumerate(payloads)]
+
+    def engine():
+        return ServingEngine(model, params, batch_size=B, max_seq=STRIPE_T,
+                             use_kernel=True)
+
+    loop = AsyncServeLoop(Scheduler(engine(), policy="priority"))
+    areqs = requests()
+    handles = [loop.submit(r) for r in areqs]
+    loop.start()
+    try:
+        for h in handles:
+            if not h._done.wait(WAIT_S):
+                raise AssertionError(f"async request {h.rid} never resolved")
+            h.result()
+    finally:
+        loop.stop()
+    sched = Scheduler(engine(), policy="priority")
+    sreqs = requests()
+    for r in sreqs:
+        sched.submit(r)
+    sched.drain()
+    err = 0.0
+    for a, s in zip(areqs, sreqs):
+        if a.out_tokens != s.out_tokens:
+            raise AssertionError(f"request {a.rid}: async {a.out_tokens} != "
+                                 f"sync {s.out_tokens}")
+        err = max(err, max(abs(x - y) for x, y in zip(a.out_logprobs,
+                                                      s.out_logprobs)))
+    print(f"{len(areqs)} requests: async streams identical to the "
+          f"synchronous drain; max |logprob diff| {err:.3e} (tol 1e-5); "
+          f"loop {loop.metrics['ticks']} ticks")
+    if err > 1e-5:
+        raise AssertionError(f"async vs sync logprobs differ by {err}")
+    return err
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _decode_engine(model, params, vocab):
+    """``ServingEngine(B 8, max_seq 1024, use_kernel)`` past admission:
+    8 rows decoding, 4 of them sampled (temperature 0.7, top-k 0 / 50)."""
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    eng = ServingEngine(model, params, batch_size=B, max_seq=STRIPE_T,
+                        use_kernel=True)
+    g = torch.Generator().manual_seed(SEED + 6)
+    reqs = [Request(rid=i, prompt=torch.randint(2, vocab, (20 + 7 * i,),
+                                                generator=g).tolist(),
+                    max_new_tokens=64,
+                    sampling=SamplingParams(temperature=0.7,
+                                            top_k=50 if i % 4 == 1 else 0,
+                                            seed=i) if i % 2
+                    else SamplingParams()) for i in range(B)]
+    if eng.add_requests(reqs) != B:
+        raise AssertionError("the decode batch did not admit")
+    for _ in range(3):
+        eng.step()
+    return eng
+
+
+def _dispatch_syncs(eng):
+    """One ``dispatch_step()`` under PyTorch's sync debug mode: (tick,
+    host ms, the synchronising calls it reported)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            tick = eng.dispatch_step()
+            h_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return tick, h_ms, [str(w.message).splitlines()[0] for w in caught
+                        if SYNC_WARNING in str(w.message)]
+
+
+def check_dispatch(model, params, cfg):
+    """``dispatch_step()`` never waits for the device. At full width (36
+    layers, B 8, 4 sampled rows): PyTorch's sync debug mode reports no
+    synchronising call in it; its host time beside the step's device
+    time (profiler: kernel time of one dispatch + commit) and how long
+    the stream stays busy after it returns. A step's ~3,400 launches
+    overflow the device's launch queue behind any long spin, so the
+    spin test runs at full width with depth cut to 2 layers (~400
+    launches): behind a 0.5 s spin, dispatch returns while the card
+    still spins. Returns (host ms, step device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import build_model
+    eng = _decode_engine(model, params, cfg.vocab_size)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tick, h_ms, syncs = _dispatch_syncs(eng)
+        t_ret = time.perf_counter()
+        while not torch.cuda.current_stream().query():
+            pass
+        tail_ms = (time.perf_counter() - t_ret) * 1e3
+        tick.commit()
+        host.append(h_ms)
+        print(f"dispatch_step, 36 layers: host {h_ms:.3f} ms; the stream "
+              f"stays busy {tail_ms:.3f} ms after it returns; "
+              f"synchronising calls {len(syncs)}")
+        for s_ in syncs[:3]:
+            print("    sync:", s_[:160])
+        if syncs:
+            raise AssertionError("dispatch_step synchronised the stream")
+    def profiled_step():
+        """Device ms and device ops (kernels, copies) of one step."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in ops) / 1e3,
+                sum(e.count for e in ops))
+
+    dev_ms, n_ops = profiled_step()
+    print(f"dispatch_step median host {statistics.median(host):.3f} ms "
+          f"against {dev_ms:.3f} ms of device time a step, {n_ops} device "
+          f"ops (profiler)")
+    del eng
+    cfg2 = replace(cfg, n_layers=2)
+    model2 = build_model(cfg2, device="cuda")
+    eng = _decode_engine(model2, model2.init(SEED), cfg.vocab_size)
+    print(f"2 layers: {profiled_step()[1]} device ops a step")
+    spin_ms = 500.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(spin_ms * 1e-3 * SM_CLOCK_HZ))
+        tick, h_ms, syncs = _dispatch_syncs(eng)
+        spinning = not torch.cuda.current_stream().query()
+        tick.commit()
+        print(f"dispatch_step, 2 layers, behind a {spin_ms:.0f} ms spin: "
+              f"host {h_ms:.3f} ms, returned while the card spun: "
+              f"{spinning}; synchronising calls {len(syncs)}")
+        if not spinning or h_ms >= spin_ms / 2 or syncs:
+            raise AssertionError("dispatch_step waited for the device")
+    return statistics.median(host), dev_ms
+
+
+def run_launcher():
+    """``python -m repro_torch.launch.serve --arch qwen3-4b --stream
+    --trace-out`` on the card (reduced width) in a subprocess: ends with
+    ``OK`` and writes a trace that parses."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "launcher_trace.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                            "--arch", "qwen3-4b", "--stream", "--trace-out",
+                            str(trace)], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        for line in lines[-6:]:
+            print("   ", line[:200])
+        if r.returncode != 0 or not lines or lines[-1] != "OK":
+            print(r.stderr[-2000:], file=sys.stderr)
+            raise AssertionError(f"launcher exited {r.returncode}")
+        n = len(json.loads(trace.read_text())["traceEvents"])
+    print(f"launcher: OK, trace of {n} events")
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -878,6 +1379,7 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan.ops import selective_scan
     from repro_torch.models.model import build_model
+    from repro_torch.serve import prng, sampling
     from repro_torch.serve.engine import Request, ServingEngine
 
     phase("2. build")
@@ -905,6 +1407,7 @@ def main() -> int:
     dec_err = max(check_decode_vs_plain(decode_attention,
                                         sharded_decode_attention),
                   check_decode_split_edges(decode_attention))
+    check_sampler(sampling, prng)
 
     phase("4. serve full-width qwen3-4b, bf16, use_kernel=True")
     cfg = get_config("qwen3-4b")
@@ -923,7 +1426,6 @@ def main() -> int:
     eng, reqs, done, wall = serve(cfg, params, model, ServingEngine, Request,
                                   use_kernel=True)
     paged_launches = {fn.__name__: fn.launches for fn in paged_fns}
-    launches = paged_launches["paged_window_attention"]
     check_outputs(reqs, done, cfg.vocab_size)
     m = eng.metrics
     print("metrics:", json.dumps(m))
@@ -944,7 +1446,44 @@ def main() -> int:
     decode_bases = [len(r.prompt) + len(r.out_tokens) - 1 for r in reqs]
     profile_serve(lambda: serve(cfg, params, model, ServingEngine, Request,
                                 use_kernel=True)[::3])
-    del eng, params, model
+    del eng
+
+    phase("4b. serve full-width qwen3-4b through the LM service, bf16, "
+          "paged, use_kernel=True")
+    payloads = service_payloads(cfg.vocab_size)
+    for fn in paged_fns:
+        fn.launches = 0
+    eng, wall, svc, tracer, results, ttft = run_service(model, params,
+                                                        payloads)
+    svc_launches = {fn.__name__: fn.launches for fn in paged_fns}
+    m = eng.metrics
+    print("metrics:", json.dumps(m))
+    print("pool:", json.dumps(eng.pool_stats()))
+    check_service(eng, svc, tracer, results, payloads, cfg.vocab_size)
+    check_launches(paged_fns, svc_launches, cfg, m)
+    loop_m = svc.replicas[0].handler.loop.metrics
+    n_tok = sum(len(reply["tokens"]) for _, reply, _ in results.values())
+    firsts = sorted(ttft.values())
+    print(f"{len(payloads)} payloads from {CLIENTS} client threads "
+          f"({sum(1 for p in payloads if 'sampling' in p)} sampled, one "
+          f"cancelled after its first token): {n_tok} tokens in {wall:.3f} "
+          f"s: {n_tok / wall:.1f} tok/s; TTFT p50 "
+          f"{statistics.median(firsts):.3f} s, max {firsts[-1]:.3f} s; loop "
+          f"{loop_m['ticks']} ticks, {loop_m['planned']} admissions "
+          f"planned in flight, plan_time_s {loop_m['plan_time_s']:.4f}, "
+          f"commit_wait_s {loop_m['commit_wait_s']:.4f}; copy-on-write "
+          f"copies {m['cow_copies']}")
+    if not loop_m["plan_time_s"] > 0:
+        raise AssertionError("the loop's plan window measured nothing")
+    del eng, svc, tracer
+    profile_serve(lambda: run_service(model, params, payloads)[:2])
+
+    phase("4c. async loop vs synchronous drain on the card, full width")
+    async_vs_sync(model, params, payloads)
+
+    phase("4d. dispatch_step does not wait for the device")
+    check_dispatch(model, params, cfg)
+    del params, model
     torch.cuda.empty_cache()
 
     phase("5. kernel path vs plain path, full width, f32, 4 layers")
@@ -990,7 +1529,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     # launches on the served paths, each counted from 0 over its serve
     serve_launches = {}
-    for counts in (paged_launches, *stripe_launches.values()):
+    for counts in (paged_launches, svc_launches,
+                   *stripe_launches.values()):
         for name, n in counts.items():
             serve_launches[name] = serve_launches.get(name, 0) + n
     print("launches summed over the serves:", json.dumps(serve_launches))
@@ -1001,6 +1541,10 @@ def main() -> int:
         recurrent_card_vs_cpu(arch, get_config, build_model, ServingEngine,
                               Request)
         torch.cuda.empty_cache()
+
+    phase("8. the launcher: python -m repro_torch.launch.serve --arch "
+          "qwen3-4b --stream --trace-out, reduced width, on the card")
+    run_launcher()
 
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
@@ -1064,6 +1608,7 @@ def main() -> int:
     tiny_ms = time_ms(lambda: tiny.add_(1), flush)
     print(f"flash at S = T = 16: kernel {f16_ms:.4f} ms, sdpa {fl16_ms:.4f} "
           f"ms; one 16-element add {tiny_ms:.4f} ms")
+    time_sampler(sampling)
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
                                 ("qwen3-4b", HEAD_SHAPES[0])):
@@ -1076,7 +1621,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
                   "paged_window.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:148",
-        "launches": launches, "max_abs_err": max_err, "max_err": max_err,
+        "launches": serve_launches["paged_window_attention"],
+        "max_abs_err": max_err, "max_err": max_err,
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": l_ms, "window_ms": w_ms,
         "window_plain_ms": wp_ms, "window_library_ms": wl_ms,

@@ -77,9 +77,11 @@ def init_mlp(gen, d_model: int, d_ff: int, act: str, dtype, device,
 
 # ---------------------------------------------------------------- rotary
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    # the base is filled on the device: a host tensor copied there would
+    # synchronise the stream in the middle of a step's launches
     exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -64,7 +64,15 @@ def _embed_tokens(p, cfg, tokens):
 
 def _logits(p, cfg, x):
     head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    out = x @ head
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] == 1:
+        # one row would take a matrix-vector product, which sums in
+        # another order than the matrix product of a batch: a request
+        # prefilled alone would emit logprobs an ulp off its co-batched
+        # run. Two rows keep a row's logits independent of its batch.
+        out = (rows.expand(2, -1) @ head)[:1].reshape(*x.shape[:-1], -1)
+    else:
+        out = x @ head
     vp = head.shape[-1]
     if vp != cfg.vocab_size:          # padded ids can never be sampled
         pad = torch.arange(vp, device=out.device) >= cfg.vocab_size

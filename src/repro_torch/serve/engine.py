@@ -44,8 +44,13 @@ current CUDA stream (PyTorch returns before the device finishes); the
 returned tick's ``commit()`` is the host sync (``.cpu()``) followed by
 the per-slot bookkeeping. Caches are updated in place.
 
+Sampled rows (temperature / top-k) draw from the reference's counter-
+based key streams (:mod:`.sampling`). Every host array a step sends to
+the card goes through pinned memory without a stream sync, so
+``dispatch_step`` returns while the device still computes.
+
 Not ported yet (raise, naming the ROADMAP.md slice): speculative decode,
-sampled (temperature > 0) rows, MoE and the cross-attention frontends.
+MoE and the cross-attention frontends.
 """
 from __future__ import annotations
 
@@ -74,7 +79,11 @@ class Request:
     prompt: list                    # token ids
     max_new_tokens: int = 8
     stop_tokens: tuple = ()         # EOS ids -> early exit
-    sampling: SamplingParams = GREEDY
+    priority: int = 0               # scheduler tier (higher = more urgent)
+    deadline_s: float | None = None  # absolute SLO deadline on the clock
+    sampling: SamplingParams = GREEDY   # greedy | temperature | top-k
+    speculation: int | None = None  # draft tokens/step; None = engine
+    #                                 default, 0 = opt out of speculation
     prefill_chunk: int | None = None  # per-request chunk width override
     #                                 (None = engine default)
     out_tokens: list = field(default_factory=list)
@@ -154,6 +163,9 @@ class ServingEngine:
                                       "decode' slice of ROADMAP.md")
         self.model = model
         self.params = params
+        # draft tokens per step: 0 until the speculative slice lands, so
+        # every request's speculation is capped to 0
+        self.spec_k = 0
         self.B = batch_size
         self.max_seq = max_seq
         self.clock = clock
@@ -244,7 +256,7 @@ class ServingEngine:
 
     # ------------------------------------------------------ device work
     def _dev(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        return sampling.stage(a, self.device)
 
     def _prefill_paged(self, tokens, last_idx, samp):
         """Batched prefill for the pool path: returns the first token per
@@ -258,7 +270,7 @@ class ServingEngine:
         if pad:
             pref = {key: F.pad(v, (0, 0, 0, 0, 0, pad))
                     for key, v in pref.items()}
-        nxt, logp = sampling.sample(logits[:, -1, :], *samp)
+        nxt, logp = sampling.sample_rows(logits[:, -1, :], samp)
         return nxt, logp, pref
 
     def _admit(self, tokens, last_idx, slots, samp):
@@ -273,7 +285,7 @@ class ServingEngine:
             for key, cache in self.caches.items():
                 row = pref[key][:, j]
                 cache[:, slot][tuple(slice(0, n) for n in row.shape)] = row
-        return sampling.sample(logits[:, -1, :], *samp)
+        return sampling.sample_rows(logits[:, -1, :], samp)
 
     def _write_block(self, pref, row: int, start: int, phys: int) -> None:
         """Copy one logical block of row ``row`` of the prefill KV (token
@@ -338,6 +350,15 @@ class ServingEngine:
     def active(self) -> int:
         return self.B - len(self.free_slots())
 
+    @property
+    def waiting(self) -> int:
+        """Preempted requests parked off-device, pending re-admission."""
+        return len(self._waiting)
+
+    def load(self) -> int:
+        """Occupied slots + preempted backlog — least-loaded balancing."""
+        return self.active + len(self._waiting)
+
     # --------------------------------------------------------- pool probes
     @staticmethod
     def _eff_prompt(req: Request) -> list:
@@ -377,11 +398,92 @@ class ServingEngine:
             return self.prefill_chunk
         return max(int(req.prefill_chunk), 0)
 
+    def pending_chunk_tokens(self) -> int:
+        """Pending prompt tokens the active slots will feed through
+        chunk windows on the next step — the continuation demand the
+        scheduler charges against its per-tick prefill budget before
+        admitting new prefills."""
+        tot = 0
+        for i, r in enumerate(self.slot_req):
+            if r is not None and self.slot_pending[i]:
+                tot += min(len(self.slot_pending[i]),
+                           max(self._chunk_for(r), 1))
+        if self.prefill_budget is not None:
+            tot = min(tot, self.prefill_budget)
+        return tot
+
+    def admission_costs(self, req: Request) -> tuple:
+        """``(blocks, prefill_tokens)`` admitting ``req`` right now would
+        cost — one prefix-match walk answers both. ``blocks`` is
+        :meth:`blocks_needed`'s figure; ``prefill_tokens`` is what the
+        admission call itself prefills: the first chunk (or the whole
+        prompt when monolithic), 0 for a shared admission, whose
+        un-shared suffix is chunk-step work on later ticks."""
+        eff = self._eff_prompt(req)
+        P = len(eff)
+        C = self._chunk_for(req)
+        first = min(P, C) if C else P
+        if not self.paged:
+            return 0, first
+        spec = self.pool.blocks_for(min(P + self._spec_window(req),
+                                        self.max_seq)) \
+            - self.pool.blocks_for(P)
+        if self.prefix_sharing:
+            _, m, need = self._match_cost(eff, C)
+            return need + spec, (0 if m >= self.block_size else first)
+        return self.pool.blocks_for(P) + spec, first
+
+    def admit_prefill_tokens(self, req: Request) -> int:
+        """Prompt tokens admitting ``req`` right now would run through
+        prefill in the admission call itself."""
+        return self.admission_costs(req)[1]
+
+    def _spec_window(self, req: Request) -> int:
+        """Write positions one speculative step may need past the
+        committed length: k proposals + the bonus token's site; 0 when
+        the engine or the request opts out."""
+        if not self.spec_k:
+            return 0
+        k = self.spec_k if req.speculation is None \
+            else min(req.speculation, self.spec_k)
+        return k + 1 if k > 0 else 0
+
+    def blocks_needed(self, req: Request) -> int:
+        """Pool blocks this request's admission requires right now: the
+        post-sharing cost (a resident prefix match is free; revived
+        cached blocks and a shared tail's imminent copy-on-write are
+        charged) plus the speculative watermark. A chunked admission
+        charges its whole prompt. 0 when not paged."""
+        return self.admission_costs(req)[0]
+
+    def blocks_worst_case(self, req: Request) -> int:
+        """Upper bound on the request's block demand, independent of
+        what is resident — the "can this ever be served" gate."""
+        if not self.paged:
+            return 0
+        return self.pool.blocks_for(len(self._eff_prompt(req)))
+
+    def blocks_available(self) -> int | None:
+        return self.pool.available if self.paged else None
+
     def _admit_ok(self, need: int, planned: int) -> bool:
         avail = self.pool.available - planned
         if need + self.reserve_blocks <= avail:
             return True
         return self.active == 0 and planned == 0 and need <= avail
+
+    def can_admit(self, req: Request, planned_blocks: int = 0, *,
+                  need: int | None = None) -> bool:
+        """Would admission succeed right now, with ``planned_blocks``
+        already promised to earlier picks? Stripe engines admit whenever
+        a slot is free; paged engines demand the post-sharing blocks plus
+        ``reserve_blocks`` of headroom (waived when idle). Pass ``need``
+        when :meth:`blocks_needed`'s answer is already at hand."""
+        if not self.paged:
+            return True
+        if need is None:
+            need = self.blocks_needed(req)
+        return self._admit_ok(need, planned_blocks)
 
     def memory_pressure(self) -> float:
         """Fraction of KV memory in use: pool occupancy when paged, slot
@@ -401,11 +503,10 @@ class ServingEngine:
                 **self.pool.stats()}
 
     # --------------------------------------------------------- sampling
-    @staticmethod
-    def _sampling_rows(reqs: list):
-        """Per-row sampling params (host arrays) for a prefill group; the
-        counter is the request's emission index. ``None`` rows (empty
-        slots) stay greedy — their draws are discarded."""
+    def _sampling_rows(self, reqs: list) -> sampling.Rows:
+        """Per-row sampling params for a prefill group, staged on the
+        device. The counter is the request's emission index. ``None``
+        rows (empty slots) stay greedy: their draws are discarded."""
         n = len(reqs)
         temps = np.zeros(n, np.float32)
         top_ks = np.zeros(n, np.int32)
@@ -419,13 +520,17 @@ class ServingEngine:
             top_ks[j] = sp.top_k
             seeds[j] = sp.seed
             ctrs[j] = len(r.out_tokens)
-        return temps, top_ks, seeds, ctrs
+        return sampling.Rows(temps, top_ks, seeds, ctrs, self.device)
 
     def _sampling_slots(self):
         """Per-slot sampling params for a decode step."""
         return self._sampling_rows(self.slot_req)
 
     # --------------------------------------------------------- admission
+    def add_request(self, req: Request) -> bool:
+        """Prefill into a free slot; False if the engine is full."""
+        return self.add_requests([req]) == 1
+
     def _sim_chains(self, eff: list, sim: set) -> None:
         """Record the prefix chains a plain (prefilled) admission will
         register, for in-batch match simulation."""
@@ -480,9 +585,6 @@ class ServingEngine:
                 raise ValueError(f"request {r.rid}: prompt needs "
                                  f"{self.pool.blocks_for(len(r.prompt))} "
                                  f"blocks > pool total {self.pool.total}")
-            if r.sampling is not None and not r.sampling.greedy:
-                raise NotImplementedError(f"request {r.rid}: "
-                                          f"{sampling.SAMPLED_LATER}")
         slots_avail = self.free_slots()
         cand = list(self._waiting) + list(reqs)
         take: list = []          # (req, slot, acquired-blocks | None, m)
@@ -973,7 +1075,7 @@ class ServingEngine:
             cache_len=self._dev(self.slot_len), block_table=table,
             paged_kernel=self.use_kernel, n_write=self._dev(n_write),
             last_idx=self._dev(last))
-        nxt, logp = sampling.sample(logits[:, 0, :], *samp)
+        nxt, logp = sampling.sample_rows(logits[:, 0, :], samp)
         self.metrics["decode_steps"] += 1
         self.metrics["chunk_steps"] += 1
         return _Tick(lambda: self._commit_chunk(active, n_fed, finished,
@@ -1071,7 +1173,7 @@ class ServingEngine:
             self.params, self._dev(tok), self.caches,
             self._dev(self.slot_len), block_table=table,
             paged_kernel=self.use_kernel)
-        nxt, logp = sampling.sample(logits[:, -1, :], *samp)
+        nxt, logp = sampling.sample_rows(logits[:, -1, :], samp)
         self.metrics["decode_steps"] += 1
         return _Tick(lambda: self._commit_decode(active, finished, nxt,
                                                  logp))

@@ -829,3 +829,115 @@ def test_stripe_attention_engine_on_card(cuda, name, chunk):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# ------------------------------------------------- sampler and serving
+SAMPLER_ROWS = [(t, k, s) for t in (0.0, 0.3, 1.0, 1.5) for k in (0, 1, 50)
+                for s in (0, 7, -1, 2**31 - 1)]
+
+
+@pytest.mark.parametrize("V", [1000, 151936])
+def test_sampler_card_matches_cpu(cuda, V):
+    """The same logits on the card and on the CPU: threefry bits and
+    uniforms bitwise equal, sampled / draft tokens identical on every row
+    of the (temperature, top-k, seed) grid; logprobs within 2e-5."""
+    import numpy as np
+
+    from repro_torch.serve import prng, sampling
+    g = torch.Generator().manual_seed(V)
+    temps, top_ks, seeds = (np.asarray(c, dt) for c, dt in zip(
+        zip(*SAMPLER_ROWS), (np.float32, np.int32, np.int32)))
+    ctrs = np.arange(len(SAMPLER_ROWS), dtype=np.int32)
+    k0, k1 = sampling.stream_keys(seeds, ctrs, sampling.TOKEN_STREAM)
+    bits = {d: prng.bits(torch.as_tensor(k0, device=d),
+                         torch.as_tensor(k1, device=d), V)
+            for d in ("cuda", "cpu")}
+    assert torch.equal(bits["cuda"].cpu(), bits["cpu"])
+    assert torch.equal(prng.uniform(bits["cuda"]).cpu().view(torch.int32),
+                       prng.uniform(bits["cpu"]).view(torch.int32))
+    lg = torch.randn((len(SAMPLER_ROWS), V), generator=g) * 3
+    out = {d: (sampling.sample(lg.to(d), temps, top_ks, seeds, ctrs),
+               sampling.draft_propose(lg.to(d), temps, top_ks, seeds, ctrs,
+                                      ctrs % 3))
+           for d in ("cuda", "cpu")}
+    (tok, lp), (dtok, _) = out["cuda"]
+    (ctok, clp), (cdtok, _) = out["cpu"]
+    assert tok.cpu().tolist() == ctok.tolist()
+    assert dtok.cpu().tolist() == cdtok.tolist()
+    torch.testing.assert_close(lp.cpu(), clp, atol=2e-5, rtol=2e-5)
+
+
+def _sampled_requests(cfg, n, max_new, seed):
+    from repro_torch.serve.sampling import SamplingParams
+    g = torch.Generator().manual_seed(seed)
+    return [Request(rid=i, prompt=torch.randint(2, cfg.vocab_size,
+                                                (9 + 11 * i,),
+                                                generator=g).tolist(),
+                    max_new_tokens=max_new,
+                    sampling=SamplingParams(temperature=0.7, top_k=50 * (i % 3),
+                                            seed=i) if i % 2
+                    else SamplingParams())
+            for i in range(n)]
+
+
+def test_dispatch_does_not_wait_for_the_device(cuda):
+    """With sampled rows in the batch, ``dispatch_step()`` returns while
+    the step runs: behind a 200 ms spin it returns before the spin ends
+    (nothing in it waited for the device), the stream is busy right
+    after it, and PyTorch's sync debug mode sees no synchronising call.
+    The reduced model's step (~400 launches) fits the device's launch
+    queue; a full-depth step would fill it behind the spin."""
+    import time
+    import warnings
+    cfg = get_config("qwen3-4b").reduced()
+    model = build_model(cfg, device="cuda")
+    eng = ServingEngine(model, model.init(0), batch_size=4, max_seq=128,
+                        use_kernel=True)
+    assert eng.add_requests(_sampled_requests(cfg, 4, 32, 5)) == 4
+    eng.step()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)           # ~200 ms at 1.98 GHz
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                tick = eng.dispatch_step()
+                host_s = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert not torch.cuda.current_stream().query()
+        tick.commit()
+        assert host_s < 0.1, host_s
+        assert not [w for w in caught if "called a synchronizing CUDA "
+                    "operation" in str(w.message)]
+
+
+def test_lm_service_on_card_counts_kernel_launches(cuda):
+    """A small LM service on the card (use_kernel, sampled and greedy
+    payloads) launches the paged-window kernel once per layer per step
+    and the flash kernel once per layer per prefill call; streams are
+    complete and the pool drains."""
+    from repro_torch.serve.service import make_lm_service
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                              n_kv_heads=2)
+    model = build_model(cfg, device="cuda")
+    svc = make_lm_service("lm", model, model.init(0), batch_size=4,
+                          max_seq=128, use_kernel=True, prefill_chunk=16)
+    svc.start()
+    pw, fl = pw_kernel.paged_window_attention, flash_kernel.flash_attention
+    before = (pw.launches, fl.launches)
+    rep = svc.replicas[0].handler
+    handles = [rep.submit({"prompt": r.prompt, "max_new_tokens": 6,
+                           **({"sampling": {"temperature": 0.7, "seed": i}}
+                              if i % 2 else {})})
+               for i, r in enumerate(_sampled_requests(cfg, 5, 6, 7))]
+    replies = [h.result() for h in handles]
+    assert all(len(r["tokens"]) == 6 for r in replies)
+    m = rep.scheduler.engine.metrics
+    assert pw.launches - before[0] == cfg.n_layers * m["decode_steps"]
+    assert fl.launches - before[1] == cfg.n_layers * m["prefill_batches"]
+    assert m["chunk_steps"] > 0
+    stats = rep.scheduler.engine.pool_stats()
+    assert stats["used"] == 0 and stats["logical_blocks"] == 0

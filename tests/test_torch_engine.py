@@ -22,6 +22,7 @@ from repro.configs.base import get_config as jax_config
 from repro.models.model import build_model as jax_build
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServingEngine as JaxEngine
+from repro.serve.sampling import SamplingParams as JaxSamplingParams
 from repro_torch.configs.base import get_config
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServingEngine
@@ -105,12 +106,18 @@ SCENARIOS = {"mixed": _mixed, "chunked": _chunked, "shared": _shared,
              "stripe": _stripe}
 
 
-def _serve(engine_cls, request_cls, model, params, sc, **kw):
+def _serve(engine_cls, request_cls, model, params, sc, samp_cls=None,
+           **kw):
+    """Serve a scenario; with ``samp_cls`` (either package's
+    SamplingParams) the requests cycle through ``SAMPLED`` knobs."""
     eng = engine_cls(model, params, use_kernel=True, **sc["engine"], **kw)
     news = sc["max_new"] if isinstance(sc["max_new"], list) \
         else [sc["max_new"]] * len(sc["prompts"])
-    reqs = [request_cls(rid=i, prompt=list(p), max_new_tokens=n)
-            for i, (p, n) in enumerate(zip(sc["prompts"], news))]
+    extra = [{} if samp_cls is None else
+             {"sampling": samp_cls(**SAMPLED[i % len(SAMPLED)])}
+             for i in range(len(news))]
+    reqs = [request_cls(rid=i, prompt=list(p), max_new_tokens=n, **x)
+            for i, (p, n, x) in enumerate(zip(sc["prompts"], news, extra))]
     if sc.get("step_between"):
         # the first request decodes a step before the second arrives
         assert eng.add_requests(reqs[:1]) == 1
@@ -121,6 +128,15 @@ def _serve(engine_cls, request_cls, model, params, sc, **kw):
         done = eng.run(list(reqs))
     assert len(done) == len(reqs)
     return eng, reqs
+
+
+# sampled knobs cycled over a scenario's requests: temperature with and
+# without top-k, a top-k of 1, greedy, and the extreme int32 seeds
+SAMPLED = [dict(temperature=0.8, top_k=8, seed=3),
+           dict(temperature=1.2, seed=-1),
+           dict(),
+           dict(temperature=0.5, top_k=1, seed=7),
+           dict(temperature=1.0, top_k=50, seed=2**31 - 1)]
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))
@@ -150,6 +166,27 @@ def test_engine_matches_jax(stack, name):
     if name == "stripe":
         assert not eng.paged and m["chunk_steps"] > 0
         assert m["kernel_windows"] == m["kernel_positions"] == 0
+
+
+@pytest.mark.parametrize("name", ["mixed", "chunked", "shared", "tight",
+                                  "stripe"])
+def test_sampled_engine_matches_jax(stack, name):
+    """Sampled rows (temperature, top-k, extreme seeds) beside greedy ones
+    emit the reference engine's streams on the paged layout (chunk
+    windows, prefix sharing, preemption) and on stripes."""
+    jmodel, jparams, model, params = stack
+    sc = SCENARIOS[name]()
+    jeng, jreqs = _serve(JaxEngine, JaxRequest, jmodel, jparams, sc,
+                         samp_cls=JaxSamplingParams)
+    eng, reqs = _serve(ServingEngine, Request, model, params, sc,
+                       samp_cls=SamplingParams, device="cpu")
+    for a, b in zip(jreqs, reqs):
+        assert a.out_tokens == b.out_tokens, (a.rid, a.out_tokens,
+                                              b.out_tokens)
+        np.testing.assert_allclose(b.out_logprobs, a.out_logprobs,
+                                   atol=2e-5, rtol=2e-5)
+    assert eng.pool_stats() == jeng.pool_stats()
+    assert eng.metrics == jeng.metrics
 
 
 def test_stripe_matches_paged_streams(stack):
@@ -228,10 +265,6 @@ def test_later_slices_raise(stack):
         ServingEngine(model, params, speculation=2, draft_model=model,
                       draft_params=params, **kw)
     eng = ServingEngine(model, params, **kw)
-    (r,) = _reqs([5], sampling=SamplingParams(temperature=0.8, seed=1))
-    with pytest.raises(NotImplementedError, match="sampled rows"):
-        eng.add_requests([r])
-    assert eng.active == 0
     with pytest.raises(ValueError, match="device"):
         ServingEngine(model, params, batch_size=1, max_seq=32)  # cuda
     mcfg = get_config("grok-1-314b").reduced()

@@ -93,6 +93,17 @@ def test_entry_points_default_to_cuda_without_fallback():
         init_params(cfg)                       # device="cuda" by default
 
 
+def test_launcher_defaults_to_cuda_without_fallback():
+    """``python -m repro_torch.launch.serve`` without ``--device`` needs a
+    card: here it fails instead of serving on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--requests", "1", "--max-new", "1"], env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "OK" not in r.stdout, r.stdout
+
+
 def _paged_args():
     q = torch.zeros((1, 1, 4, 32))
     pool = torch.zeros((2, 8, 2, 32))

@@ -26,9 +26,11 @@ from repro.configs.base import get_config as jax_config
 from repro.models.model import build_model as jax_build
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServingEngine as JaxEngine
+from repro.serve.sampling import SamplingParams as JaxSamplingParams
 from repro_torch.configs.base import get_config
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServingEngine
+from repro_torch.serve.sampling import SamplingParams
 from repro_torch.weights import params_from_numpy
 
 VARIANTS = {"rwkv": ("rwkv6-1.6b", {}),
@@ -141,10 +143,13 @@ def _prompts(cfg, lens, seed):
     return [rng.integers(2, cfg.vocab_size, n).tolist() for n in lens]
 
 
-def _serve(engine_cls, request_cls, model, params, prompts, **kw):
+def _serve(engine_cls, request_cls, model, params, prompts, samplings=(),
+           **kw):
     eng = engine_cls(model, params, **kw)
     reqs = [request_cls(rid=i, prompt=list(p), max_new_tokens=5)
             for i, p in enumerate(prompts)]
+    for r, samp in zip(reqs, samplings):
+        r.sampling = samp
     done = eng.run(list(reqs))
     assert len(done) == len(reqs)
     return eng, reqs
@@ -170,6 +175,28 @@ def test_engine_matches_jax(stack):
     assert eng.metrics == jeng.metrics
     assert eng.metrics["slot_reuses"] > 0
     assert eng.metrics["prefill_batches"] < eng.metrics["prefills"]
+
+
+def test_sampled_engine_matches_jax(stack):
+    """Sampled rows (temperature with and without top-k, a greedy row)
+    emit the reference engine's streams on the stripe layout."""
+    _, jmodel, jparams, model, params = stack
+    prompts = _prompts(model.cfg, [9, 4, 9, 70, 6], seed=5)
+    knobs = [dict(temperature=0.8, top_k=8, seed=3), dict(),
+             dict(temperature=1.2, seed=-1), dict(temperature=0.6, seed=4),
+             dict(temperature=1.0, top_k=2, seed=2**31 - 1)]
+    kw = dict(batch_size=3, max_seq=80)
+    jeng, jreqs = _serve(JaxEngine, JaxRequest, jmodel, jparams, prompts,
+                         [JaxSamplingParams(**k) for k in knobs], **kw)
+    eng, reqs = _serve(ServingEngine, Request, model, params, prompts,
+                       [SamplingParams(**k) for k in knobs], device="cpu",
+                       **kw)
+    for a, b in zip(jreqs, reqs):
+        assert a.out_tokens == b.out_tokens, (a.rid, a.out_tokens,
+                                              b.out_tokens)
+        np.testing.assert_allclose(b.out_logprobs, a.out_logprobs,
+                                   atol=2e-5, rtol=2e-5)
+    assert eng.metrics == jeng.metrics
 
 
 def test_mixed_length_matches_solo(stack):
