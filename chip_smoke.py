@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    changes no output bit; then at the edges of its 64-position KV
    splits (rows seeing 1, 63, 64, 65, 128 and all 512 positions) for bs
    in {8, 16, 64}, S in {1, 4, 64}, f32 and bf16, scratch block 0
-   poisoned. Then the two scan kernels, f32, random inputs
+   poisoned; then at the head dims 112 (Hq 64, Hkv 8) and 192 (Hq 96,
+   Hkv 8) for S 1, 5 and 64 at bs 16, f32 and bf16, and at the verify
+   shape (B 8, S 5, Hq 32, Hkv 8, hd 128, ragged bases). Then the two scan kernels, f32, random inputs
    (non-zero bonus u, decays w in (0.45, 0.95), varied dt, A and D, a
    random initial state; k and the WKV state scaled by 1/sqrt(hd) and C
    by 1/sqrt(N) so outputs are of order 1): ``wkv_scan`` at the
@@ -101,10 +103,40 @@ Phases (any failure exits non-zero; no result line is printed then):
 8. ``python -m repro_torch.launch.serve --arch qwen3-4b --stream
    --trace-out`` in a subprocess on the card (reduced width): ends with
    ``OK``.
+9. Speculative serve of full-width qwen3-4b (bf16, seed-0 weights, k =
+   4, ``use_kernel=True``): the draft is the target's bottom 4 layers
+   (block leaves sliced on the layer axis, embedding and head shared);
+   phase 4's 8 requests, 4 sampled (temperature 0.7, top-k 0 / 50), one
+   opted out (``speculation=0``); paged, then on stripes. Every request
+   completes, the cache drains, verify steps and proposals ran, the
+   paged / flash / decode kernels launch by ``expected_spec_launches``
+   (the target's and the draft's calls), and the serve's second run
+   (under the profiler) emits the same streams bit for bit. Printed:
+   acceptance, tokens per target step, tok/s, TTFT, blocks rolled back,
+   idle share; then a speculative tick's ``dispatch_step()`` at full
+   width under the sync debug mode (no synchronising call) and its host
+   time.
+9b. Speculative vs plain decode on the card, f32, full width, 4 layers:
+   greedy, a self-draft and a 2-layer draft, paged and stripes; token
+   streams equal the non-speculative engine's, logprobs within 1e-3; the
+   self-draft accepts; a speculating ``dispatch_step()`` synchronises
+   nothing.
+10. MoE: full-width grok-1-314b (d 6144, 48 / 8 heads of 128, 8 experts
+   top-2, moe_d_ff 32768, vocab 131,072) at 2 layers, bf16, seed-0
+   weights from ``init_params`` on the card, paged, ``use_kernel=True``:
+   phase 4's 8 greedy requests, one prefill call per admission, the
+   paged and flash (G 6) kernels by phase 4's rule, the pool drains,
+   tok/s and idle share; the MoE FFN's device time per decode step
+   beside its bound (every expert's weights read once); then 1 layer in
+   f32, the kernel path against the plain path: identical token
+   streams, logprobs within 1e-3.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
 of its serve beside its plain version and its bound from bytes and flops
+(the paged kernel also at the verify window, S 5, and at decode with hd
+112 and 192: ``verify_*``, ``hd112_*``, ``hd192_*``; flash also at
+grok-1-314b's prefill, 48 / 8 heads: ``grok_*``)
 (for the scans also at a 300-token prefill, with the latency floor of
 300 dependent steps, and WKV at the rwkv6 serve's co-batched prefill,
 B 2, T 64, each WKV shape with its launch plan): paged attention and
@@ -229,15 +261,16 @@ def print_sass_checks(libs, tool_dir):
 
 # ------------------------------------------------------------ kernel cases
 def window_case(S, dtype, bases, *, seed=0, device="cuda", bs=BS,
-                max_blocks=MAX_BLOCKS):
+                max_blocks=MAX_BLOCKS, heads=(HQ, HKV, HD)):
     """q / pool / table / base for one row per base length: each row owns
     distinct random blocks covering base + S tokens; table tails point
-    at scratch block 0."""
+    at scratch block 0. ``heads``: (Hq, Hkv, hd)."""
+    Hq, Hkv, hd = heads
     g = torch.Generator(device="cpu").manual_seed(seed)
     nb = len(bases) * max_blocks + 1
-    q = torch.randn((len(bases), S, HQ, HD), generator=g).to(device, dtype)
-    pk = torch.randn((nb, bs, HKV, HD), generator=g).to(device, dtype)
-    pv = torch.randn((nb, bs, HKV, HD), generator=g).to(device, dtype)
+    q = torch.randn((len(bases), S, Hq, hd), generator=g).to(device, dtype)
+    pk = torch.randn((nb, bs, Hkv, hd), generator=g).to(device, dtype)
+    pv = torch.randn((nb, bs, Hkv, hd), generator=g).to(device, dtype)
     free = (torch.randperm(nb - 1, generator=g) + 1).tolist()
     table = torch.zeros((len(bases), max_blocks), dtype=torch.int32)
     for b, base in enumerate(bases):
@@ -280,7 +313,38 @@ def check_kernel_vs_plain(window_attn):
     if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
         raise AssertionError("poisoning scratch block 0 changed the output")
     print("scratch block 0 poisoned with +-1e9: outputs bitwise unchanged")
-    return max(worst, check_split_edges(window_attn))
+    return max(worst, check_split_edges(window_attn),
+               check_config_head_dims(window_attn))
+
+
+# (Hq, Hkv, hd) of the configs whose head dim is off the power-of-two
+# grid: kimi-k2-1t-a32b (hd 112) and nemotron-4-340b (hd 192)
+ODD_HEADS = ((64, 8, 112), (96, 8, 192))
+VERIFY_S = 5                    # a verify window at k = 4
+
+
+def check_config_head_dims(window_attn):
+    """The kernel at hd 112 and 192 (run on its 128 / 192 instantiations,
+    padded dims zero) for S 1, 5 and 64 at bs 16, f32 and bf16 (bf16 at
+    S 64 takes the tensor-core route), ragged bases, scratch block 0
+    poisoned; then the verify shape at qwen3-4b's width: B 8, S 5, Hq
+    32, Hkv 8, hd 128 (20 packed rows: two CUDA-core row tiles)."""
+    worst = 0.0
+    cases = [(heads, S) for heads in ODD_HEADS for S in (1, VERIFY_S, 64)]
+    cases.append(((HQ, HKV, HD), VERIFY_S))
+    for heads, S in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            args = window_case(S, dt, ragged_bases(S), seed=heads[2] + S,
+                               heads=heads)
+            args[1][0], args[2][0] = 1e9, -1e9         # scratch block 0
+            out, lse = window_attn(*args)
+            ro, rl = window_attn(*args, force_ref=True)
+            torch.cuda.synchronize()
+            name = (f"paged Hq {heads[0]} Hkv {heads[1]} hd {heads[2]} S "
+                    f"{S:2d} {str(dt):14s}")
+            worst = max(worst, _report(name + " out", out, ro, dt),
+                        _report(name + " lse", lse, rl, dt))
+    return worst
 
 
 def check_split_edges(window_attn):
@@ -429,7 +493,7 @@ def check_flash_vs_plain(flash_attention, attention_bshd):
     print("flash on the model's (B,S,H,hd) views: bitwise equal to "
           "contiguous copies")
     for hd in (64, 112, 128, 192, 256):
-        for G in (1, 4, 5):
+        for G in (1, 4, 5, 6):
             for dt in (torch.float32, torch.bfloat16):
                 g = torch.Generator().manual_seed(hd + G)
                 q = torch.randn((1, 2 * G, 65, hd), generator=g).to("cuda",
@@ -796,9 +860,10 @@ def sdpa_on_gathered(q, pk, pv, table, base):
     running one SDPA call with the causal-in-window mask."""
     F = torch.nn.functional
     Bq, S = q.shape[:2]
-    T = table.shape[1] * BS
-    gk = pk[table.long()].reshape(Bq, T, HKV, HD).transpose(1, 2)
-    gv = pv[table.long()].reshape(Bq, T, HKV, HD).transpose(1, 2)
+    _, bs, Hkv, hd = pk.shape
+    T = table.shape[1] * bs
+    gk = pk[table.long()].reshape(Bq, T, Hkv, hd).transpose(1, 2)
+    gv = pv[table.long()].reshape(Bq, T, Hkv, hd).transpose(1, 2)
     qt = q.transpose(1, 2)
     i = base.long()[:, None] + torch.arange(S, device=q.device)[None]
     mask = torch.arange(T, device=q.device)[None, None] <= i[:, :, None]
@@ -830,18 +895,19 @@ def decode_bound(lens, Hq, Hkv, hd, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound(q, base, S, dtype):
+def bound(q, base, S, dtype, Hkv=HKV):
     """Least time for the work this input needs: the K/V bytes of every
     visible cached token read once, q read once, out / lse written once;
     flops 2 * 2 * hd per (query head, visible key) pair."""
     es = q.element_size()
+    Hq, hd = q.shape[2], q.shape[3]
     vis = [min(int(b) + S, MAX_BLOCKS * BS) for b in base.tolist()]
-    kv_bytes = sum(vis) * HKV * HD * 2 * es
-    io_bytes = 2 * q.numel() * es + q.numel() // HD * 4 \
+    kv_bytes = sum(vis) * Hkv * hd * 2 * es
+    io_bytes = 2 * q.numel() * es + q.numel() // hd * 4 \
         + B * (MAX_BLOCKS + 1) * 4
     pairs = sum(sum(min(b + w + 1, MAX_BLOCKS * BS) for w in range(S))
-                for b in base.tolist()) * HQ
-    flops = 4 * HD * pairs
+                for b in base.tolist()) * Hq
+    flops = 4 * hd * pairs
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1350,6 +1416,156 @@ def run_launcher():
     print(f"launcher: OK, trace of {n} events")
 
 
+# ------------------------------------------------- speculative serving
+SPEC_K = 4                      # draft tokens a verify window checks
+DRAFT_LAYERS = 4                # the draft: the target's bottom layers
+OPT_OUT = 4                     # the request that opts out (speculation 0)
+
+
+def _layers(tree, n):
+    """The first ``n`` layers of a tree of L-stacked tensors (views)."""
+    return {k: _layers(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
+
+
+def bottom_layers_draft(cfg, params, n, build_model):
+    """A draft cut from the target: its bottom ``n`` layers (block leaves
+    sliced on the layer axis), embedding, final norm and head shared."""
+    return (build_model(replace(cfg, n_layers=n), device="cuda"),
+            dict(params, blocks=_layers(params["blocks"], n)))
+
+
+def make_spec_requests(Request, SamplingParams, vocab, sampled=True):
+    """Phase 4's 8 requests; the odd ones sampled (temperature 0.7,
+    top-k 50 or 0), request OPT_OUT opted out of speculation."""
+    reqs = make_requests(Request, vocab)
+    for i, r in enumerate(reqs):
+        if sampled and i % 2:
+            r.sampling = SamplingParams(temperature=0.7,
+                                        top_k=50 if i % 4 == 1 else 0,
+                                        seed=i)
+    reqs[OPT_OUT].speculation = 0
+    return reqs
+
+
+def expected_spec_launches(m, draft, L_target, L_draft, paged):
+    """Launches a speculating serve owes each attention kernel: the
+    target's paged kernel once per layer per step (plain, chunk and
+    verify windows alike), its flash kernel once per layer per prefill
+    call and (stripes) its decode kernel once per layer per plain decode
+    step (chunk and verify windows are plain stripe windows); the
+    draft's flash kernel once per layer per admission prefill call and
+    its decode kernel once per layer per proposal step (its catch-up
+    windows are plain stripe windows)."""
+    plain = m["decode_steps"] - m["chunk_steps"] - m["verify_steps"]
+    return {
+        "paged_window_attention": L_target * m["decode_steps"] if paged
+        else 0,
+        "flash_attention": L_target * m["prefill_batches"]
+        + L_draft * draft.admit_calls,
+        "decode_attention": (0 if paged else L_target * plain)
+        + L_draft * (draft.steps_run - draft.ingest_steps)}
+
+
+def serve_spec(model, params, draft, dparams, reqs, paged, ServingEngine):
+    eng = ServingEngine(model, params, batch_size=B, max_seq=STRIPE_T,
+                        paged=paged, use_kernel=True, draft_model=draft,
+                        draft_params=dparams, speculation=SPEC_K)
+    done, wall = run_engine(eng, reqs)
+    return eng, done, wall
+
+
+def report_spec(eng, reqs, wall):
+    """Acceptance, tokens per target step, tok/s and TTFT of a serve.
+    Tokens per target step: every token after each request's first over
+    the target's steps (all rows of the batch together); a speculating
+    row's own yield is 1 + k x acceptance when no window was cut
+    short."""
+    m = eng.metrics
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    ttft = sorted(r.first_token_s - r.submitted_s for r in reqs)
+    acc = m["spec_accepted"] / max(m["spec_proposed"], 1)
+    per_step = (n_tok - len(reqs)) / max(m["decode_steps"], 1)
+    print(f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s; TTFT "
+          f"p50 {statistics.median(ttft):.3f} s, max {ttft[-1]:.3f} s; "
+          f"acceptance {m['spec_accepted']}/{m['spec_proposed']} = "
+          f"{acc:.3f}; {per_step:.3f} tokens per target step (all rows) "
+          f"over {m['decode_steps']} steps ({m['verify_steps']} verify, "
+          f"{m['chunk_steps']} chunk), a speculating row's "
+          f"{1 + SPEC_K * acc:.3f}; blocks rolled back "
+          f"{m['spec_blocks_rolled_back']}; draft calls "
+          f"{eng.draft.steps_run} ({eng.draft.ingest_steps} catch-up "
+          f"windows, {eng.draft.admit_calls} admission prefills)")
+
+
+def streams_equal(a, b, what, lp_tol=0.0):
+    """Token streams identical, logprobs within ``lp_tol`` (0: equal)."""
+    err = 0.0
+    for x, y in zip(a, b):
+        if x.out_tokens != y.out_tokens:
+            raise AssertionError(f"{what}, request {x.rid}: {x.out_tokens} "
+                                 f"!= {y.out_tokens}")
+        err = max([err] + [abs(p - q) for p, q in
+                           zip(x.out_logprobs, y.out_logprobs)])
+    if err > lp_tol:
+        raise AssertionError(f"{what}: logprobs differ by {err}")
+    return err
+
+
+def check_spec_dispatch(eng, label):
+    """``dispatch_step()`` of a speculative tick (draft catch-up, k draws,
+    verify, acceptance) under PyTorch's sync debug mode: no synchronising
+    call. Returns the median host ms."""
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        steps = eng.metrics["verify_steps"]
+        tick, h_ms, syncs = _dispatch_syncs(eng)
+        spec = eng.metrics["verify_steps"] == steps + 1
+        tick.commit()
+        host.append(h_ms)
+        print(f"dispatch_step, {label}, speculative tick {spec}: host "
+              f"{h_ms:.3f} ms; synchronising calls {len(syncs)}")
+        for s_ in syncs[:3]:
+            print("    sync:", s_[:160])
+        if syncs or not spec:
+            raise AssertionError("a speculative dispatch_step synchronised "
+                                 "the stream (or did not speculate)")
+    return statistics.median(host)
+
+
+def spec_decode_engine(model, params, draft, dparams, vocab):
+    """A speculating ``ServingEngine(B 8, max_seq 1024, use_kernel, k 4)``
+    past admission: 8 rows decoding, 4 sampled (temperature 0.7)."""
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.serve.sampling import SamplingParams
+    eng = ServingEngine(model, params, batch_size=B, max_seq=STRIPE_T,
+                        use_kernel=True, draft_model=draft,
+                        draft_params=dparams, speculation=SPEC_K)
+    g = torch.Generator().manual_seed(SEED + 6)
+    reqs = [Request(rid=i, prompt=torch.randint(2, vocab, (20 + 7 * i,),
+                                                generator=g).tolist(),
+                    max_new_tokens=96,
+                    sampling=SamplingParams(temperature=0.7,
+                                            top_k=50 if i % 4 == 1 else 0,
+                                            seed=i) if i % 2
+                    else SamplingParams()) for i in range(B)]
+    if eng.add_requests(reqs) != B:
+        raise AssertionError("the decode batch did not admit")
+    eng.step()
+    return eng
+
+
+def moe_bound_ms(cfg):
+    """The MoE FFN of one decode step's layer reads every expert's
+    weights once (B 8 top-2 tokens reach every expert): bytes over
+    HBM bandwidth."""
+    nmat = 3 if cfg.act in ("swiglu", "geglu") else 2
+    es = torch.finfo(cfg.dtype).bits // 8
+    nbytes = cfg.n_experts * nmat * cfg.d_model * cfg.moe_d_ff * es
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -1546,6 +1762,174 @@ def main() -> int:
           "qwen3-4b --stream --trace-out, reduced width, on the card")
     run_launcher()
 
+    phase("9. speculative serve of full-width qwen3-4b, bf16, k = 4, a "
+          f"{DRAFT_LAYERS}-layer draft, paged and stripes")
+    from repro_torch.models import moe
+    from repro_torch.serve.sampling import SamplingParams
+    model = build_model(cfg, device="cuda")
+    params = model.init(SEED)
+    draft, dparams = bottom_layers_draft(cfg, params, DRAFT_LAYERS,
+                                         build_model)
+    spec_fns = (pw_kernel.paged_window_attention,
+                flash_kernel.flash_attention, dec_kernel.decode_attention)
+    spec_launches = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "stripes"
+        print(f"--- {layout}")
+        runs = []
+
+        def run(paged=paged, runs=runs):
+            reqs = make_spec_requests(Request, SamplingParams,
+                                      cfg.vocab_size)
+            eng, done, wall = serve_spec(model, params, draft, dparams, reqs,
+                                         paged, ServingEngine)
+            check_outputs(reqs, done, cfg.vocab_size)
+            runs.append(reqs)
+            return eng, done, wall
+
+        for fn in spec_fns:
+            fn.launches = 0
+        eng, done, wall = run()
+        got = {fn.__name__: fn.launches for fn in spec_fns}
+        m, stats = eng.metrics, eng.pool_stats()
+        print("metrics:", json.dumps(m))
+        print("pool:", json.dumps(stats))
+        report_spec(eng, runs[0], wall)
+        want = expected_spec_launches(m, eng.draft, cfg.n_layers,
+                                      DRAFT_LAYERS, paged)
+        print(f"launches {json.dumps(got)} = rule {json.dumps(want)} "
+              f"(target {cfg.n_layers} layers, draft {DRAFT_LAYERS})")
+        ran = [n for n in want if paged or n != "paged_window_attention"]
+        if got != want or min(got[n] for n in ran) <= 0:
+            raise AssertionError(f"{layout}: launches {got} != {want}")
+        if m["verify_steps"] <= 0 or m["spec_proposed"] <= 0:
+            raise AssertionError(f"{layout}: no speculation ran")
+        if stats["paged"] and (stats["used"] or stats["logical_blocks"]) \
+                or not stats["paged"] and stats["active"]:
+            raise AssertionError(f"{layout}: the cache did not drain: "
+                                 f"{stats}")
+        for name, n in got.items():
+            spec_launches[name] = spec_launches.get(name, 0) + n
+        profile_serve(lambda: run()[::2])            # the second run
+        streams_equal(runs[0], runs[1], f"{layout}: two runs")
+        print(f"{layout}: two runs identical (tokens and logprobs), "
+              f"sampled rows included")
+        del eng
+    spec_host_ms = check_spec_dispatch(
+        spec_decode_engine(model, params, draft, dparams, cfg.vocab_size),
+        f"{cfg.n_layers} layers + a {DRAFT_LAYERS}-layer draft")
+    print(f"speculative dispatch_step median host {spec_host_ms:.3f} ms")
+    del model, params, draft, dparams
+    torch.cuda.empty_cache()
+
+    phase("9b. speculative vs plain decode on the card, full width, f32, "
+          "4 layers")
+    model32 = build_model(cfg32, device="cuda")
+    params32 = model32.init(SEED)
+    draft2 = bottom_layers_draft(cfg32, params32, 2, build_model)
+    for paged in (True, False):
+        layout = "paged" if paged else "stripes"
+        base = make_requests(Request, cfg32.vocab_size)
+        eng = ServingEngine(model32, params32, batch_size=B,
+                            max_seq=STRIPE_T, paged=paged, use_kernel=True)
+        check_outputs(base, run_engine(eng, base)[0], cfg32.vocab_size)
+        for tag, (dm, dp) in (("self-draft", (model32, params32)),
+                              ("2-layer draft", draft2)):
+            reqs = make_spec_requests(Request, SamplingParams,
+                                      cfg32.vocab_size, sampled=False)
+            eng, done, wall = serve_spec(model32, params32, dm, dp, reqs,
+                                         paged, ServingEngine)
+            check_outputs(reqs, done, cfg32.vocab_size)
+            err = streams_equal(reqs, base, f"{layout} {tag} vs plain",
+                                lp_tol=1e-3)
+            m = eng.metrics
+            print(f"{layout}, {tag}: token streams equal plain decode's; "
+                  f"max |logprob diff| {err:.3e} (tol 1e-3); acceptance "
+                  f"{m['spec_accepted']}/{m['spec_proposed']}, "
+                  f"{m['verify_steps']} verify steps")
+            if tag == "self-draft" and m["spec_accepted"] <= 0:
+                raise AssertionError("the self-draft accepted nothing")
+    check_spec_dispatch(spec_decode_engine(model32, params32, model32,
+                                           params32, cfg32.vocab_size),
+                        "4 layers f32, self-draft")
+    del model32, params32, draft2, eng
+    torch.cuda.empty_cache()
+
+    phase("10. MoE serve of full-width grok-1-314b, 2 layers, bf16, paged, "
+          "use_kernel=True")
+    gcfg = replace(get_config("grok-1-314b"), n_layers=2)
+    gmodel = build_model(gcfg, device="cuda")
+    t0 = time.perf_counter()
+    gparams = gmodel.init(SEED)
+    torch.cuda.synchronize()
+    print(f"d {gcfg.d_model}, {gcfg.n_heads} / {gcfg.n_kv_heads} heads of "
+          f"{gcfg.hd}, {gcfg.n_experts} experts top-{gcfg.top_k}, moe_d_ff "
+          f"{gcfg.moe_d_ff}, vocab {gcfg.vocab_size}: "
+          f"{sum(t.numel() for t in _leaves(gparams)) / 1e9:.3f} B params, "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(gparams)) / 1e9:.2f}"
+          f" GB, init {time.perf_counter() - t0:.1f} s")
+
+    def grok_serve():
+        eng = ServingEngine(gmodel, gparams, batch_size=B, max_seq=STRIPE_T,
+                            use_kernel=True)
+        reqs = make_requests(Request, gcfg.vocab_size)
+        done, wall = run_engine(eng, reqs)
+        check_outputs(reqs, done, gcfg.vocab_size)
+        return eng, reqs, wall
+
+    for fn in paged_fns:
+        fn.launches = 0
+    eng, reqs, wall = grok_serve()
+    moe_launches = {fn.__name__: fn.launches for fn in paged_fns}
+    m, stats = eng.metrics, eng.pool_stats()
+    print("metrics:", json.dumps(m))
+    print("pool:", json.dumps(stats))
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s")
+    check_launches(paged_fns, moe_launches, gcfg, m)
+    if not (m["prefill_batches"] == m["prefills"] == len(reqs)) \
+            or m["shared_admissions"] or m["chunk_steps"]:
+        raise AssertionError("MoE admission must prefill one request a "
+                             "call, share nothing and never chunk")
+    if stats["used"] or stats["logical_blocks"]:
+        raise AssertionError(f"pool did not drain: {stats}")
+    profile_serve(lambda: grok_serve()[::2])
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device="cuda")
+    p0 = {k: v[0] for k, v in gparams["blocks"]["moe"].items()}
+    x = torch.randn((B, 1, gcfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(7), device="cuda").to(gcfg.dtype)
+    moe_ms = time_ms(lambda: moe.moe_ffn(x, p0, gcfg), flush, iters=10,
+                     warmup=2)
+    moe_b_ms, moe_bytes = moe_bound_ms(gcfg)
+    print(f"MoE FFN at decode (B {B}, one layer): {moe_ms:.4f} ms device "
+          f"time, bound {moe_b_ms:.4f} ms ({moe_bytes / 1e9:.2f} GB of "
+          f"expert weights at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); per decode "
+          f"step ({gcfg.n_layers} layers) {moe_ms * gcfg.n_layers:.4f} ms, "
+          f"bound {moe_b_ms * gcfg.n_layers:.4f} ms")
+    del eng, gparams, gmodel, p0, x, flush
+    torch.cuda.empty_cache()
+    g32 = replace(gcfg, n_layers=1, dtype=torch.float32)
+    gmodel32 = build_model(g32, device="cuda")
+    gparams32 = gmodel32.init(SEED)
+    _, rk, dk, wk = serve(g32, gparams32, gmodel32, ServingEngine, Request,
+                          use_kernel=True)
+    _, rp, dp, wp = serve(g32, gparams32, gmodel32, ServingEngine, Request,
+                          use_kernel=False)
+    check_outputs(rk, dk, g32.vocab_size)
+    check_outputs(rp, dp, g32.vocab_size)
+    err = streams_equal(rk, rp, "grok 1 layer f32 kernel vs plain",
+                        lp_tol=1e-3)
+    print(f"grok-1-314b, 1 layer, f32: kernel path token streams identical "
+          f"to the plain path's; max |logprob diff| {err:.3e} (tol 1e-3); "
+          f"kernel run {wk:.3f} s, plain run {wp:.3f} s")
+    del gmodel32, gparams32
+    torch.cuda.empty_cache()
+    for counts in (spec_launches, moe_launches):
+        for name, n in counts.items():
+            serve_launches[name] = serve_launches.get(name, 0) + n
+    print("launches summed over the serves:", json.dumps(serve_launches))
+
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
@@ -1559,6 +1943,23 @@ def main() -> int:
         b_ms, b_by = bound(args[0], args[4], S, torch.bfloat16)
         timings[S] = (k_ms, p_ms, l_ms, b_ms, b_by)
         print(f"S={S:2d} bases {bases}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, sdpa on gathered KV {l_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})")
+    # the verify window (S 5, qwen3-4b's heads) and decode at the head
+    # dims off the power-of-two grid (B 8, each at the decode bases)
+    for key, S, heads in (("verify", VERIFY_S, (HQ, HKV, HD)),
+                          ("hd112", 1, ODD_HEADS[0]),
+                          ("hd192", 1, ODD_HEADS[1])):
+        args = window_case(S, torch.bfloat16, decode_bases, seed=11,
+                           heads=heads)
+        k_ms = time_ms(lambda: paged_window_attention(*args), flush)
+        p_ms = time_ms(lambda: paged_window_attention_ref(*args), flush)
+        l_ms = time_ms(sdpa_on_gathered(*args), flush)
+        b_ms, b_by = bound(args[0], args[4], S, torch.bfloat16,
+                           Hkv=heads[1])
+        timings[key] = (k_ms, p_ms, l_ms, b_ms, b_by)
+        print(f"{key}: S={S} Hq {heads[0]} Hkv {heads[1]} hd {heads[2]} "
+              f"bases {decode_bases}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, sdpa on gathered KV {l_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by})")
     scans = {}
@@ -1608,6 +2009,19 @@ def main() -> int:
     tiny_ms = time_ms(lambda: tiny.add_(1), flush)
     print(f"flash at S = T = 16: kernel {f16_ms:.4f} ms, sdpa {fl16_ms:.4f} "
           f"ms; one 16-element add {tiny_ms:.4f} ms")
+    # grok-1-314b's prefill: 48 query heads over 8 KV heads (G 6)
+    gq = torch.randn((1, PREFILL_T, 48, hd), generator=g).to(
+        "cuda", torch.bfloat16)
+    gqt = gq.transpose(1, 2).contiguous()
+    fg_ms = time_ms(lambda: attention_bshd(gq, k, v), flush)
+    fgp_ms = time_ms(lambda: attention_bshd(gq, k, v, force_ref=True), flush)
+    fgl_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        gqt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    fgb_ms, fgb_by = flash_bound(1, 48, Hkv, PREFILL_T, PREFILL_T, hd,
+                                 torch.bfloat16)
+    print(f"flash B 1 S = T = {PREFILL_T} Hq 48 Hkv {Hkv} hd {hd} (G 6) "
+          f"bf16: kernel {fg_ms:.4f} ms, plain {fgp_ms:.4f} ms, sdpa "
+          f"(causal) {fgl_ms:.4f} ms, bound {fgb_ms:.5f} ms ({fgb_by})")
     time_sampler(sampling)
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
@@ -1627,6 +2041,11 @@ def main() -> int:
         "bound_by": b_by, "library_ms": l_ms, "window_ms": w_ms,
         "window_plain_ms": wp_ms, "window_library_ms": wl_ms,
         "window_bound_ms": wb_ms, "window_bound_by": wb_by}]
+    for key in ("verify", "hd112", "hd192"):
+        k_ms, p_ms, l_ms, b_ms, b_by = timings[key]
+        rows[0].update({f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+                        f"{key}_library_ms": l_ms, f"{key}_bound_ms": b_ms,
+                        f"{key}_bound_by": b_by})
     for name, source, replaces, err in (
             ("wkv_scan", "rwkv_scan/csrc/wkv.cu", "rwkv_scan/kernel.py:29",
              wkv_err),
@@ -1663,7 +2082,9 @@ def main() -> int:
         cobatch_ms=ck_ms, cobatch_plain_ms=cp_ms, cobatch_bound_ms=cb_ms,
         cobatch_bound_by=cb_by)
     next(r for r in rows if r["name"] == "flash_attention").update(
-        s16_ms=f16_ms, s16_library_ms=fl16_ms, tiny_op_ms=tiny_ms)
+        s16_ms=f16_ms, s16_library_ms=fl16_ms, tiny_op_ms=tiny_ms,
+        grok_ms=fg_ms, grok_plain_ms=fgp_ms, grok_library_ms=fgl_ms,
+        grok_bound_ms=fgb_ms, grok_bound_by=fgb_by)
     q_ms, qp_ms, qb_ms, qb_by, ql_ms, qf_ms = dec_times["qwen3-4b"]
     next(r for r in rows if r["name"] == "decode_attention").update(
         floor_ms=dec_times["hymba-1.5b"][5], qwen3_ms=q_ms,

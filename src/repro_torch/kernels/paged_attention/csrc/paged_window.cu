@@ -14,6 +14,15 @@
 // (num_blocks, bs, Hkv, hd); block_table (B, max_blocks) int32;
 // base_lens (B,) int32. Query head h reads KV head h / G, G = Hq / Hkv.
 //
+// Head dims: any hd <= 256 that is a multiple of 8 (so a row of the
+// pool is whole 16-byte chunks in f32 and bf16: 224 B at hd 112 in
+// bf16, 384 B at hd 192). The kernels are instantiated on the padded
+// head dim HD (32, 64, 128, 192 or 256, the smallest >= hd); loads of
+// the chunks past hd are zero-filled in shared memory, so the padded
+// dims add nothing to a score or an output, and stores stop at hd.
+// Global rows are addressed with the true hd; the split partials keep
+// the padded stride.
+//
 // Design: split-KV (flash-decoding) inside the kernel. The host plan
 // (`kernel.py::plan`, a function of shapes only: base_lens is never read
 // on the host) cuts the table into splits of `split_blocks` whole blocks
@@ -147,10 +156,12 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ base_lens, T* __restrict__ out,
                        float* __restrict__ lse, float* __restrict__ part_o,
                        float* __restrict__ part_lse, int S, int Hq, int Hkv,
-                       int bs, int max_blocks, int window, int tile_blocks,
-                       int split_blocks, int n_splits, float scale) {
+                       int hd, int bs, int max_blocks, int window,
+                       int tile_blocks, int split_blocks, int n_splits,
+                       float scale) {
   using L = Layout<T, HD>;
   constexpr int EV = L::EV, CPR = L::CPR, LD = L::LD, EPL = L::EPL;
+  const int cpr = hd / EV;  // chunks of a row that hold data
   extern __shared__ uint4 smem_u4[];
   const int G = Hq / Hkv;
   const int R = S * G;
@@ -185,9 +196,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < qrows * HD; e += kThreads) {
     const int r = e / HD;
     const int pr = r0 + r;
-    qs[e] = pr < R ? to_f32(q[(((size_t)b * S + pr / G) * Hq + kvh * G +
-                               pr % G) * HD + (e - r * HD)])
-                   : 0.f;
+    const int d = e - r * HD;
+    qs[e] = pr < R && d < hd
+                ? to_f32(q[(((size_t)b * S + pr / G) * Hq + kvh * G + pr % G) *
+                               hd +
+                           d])
+                : 0.f;
   }
 
   const int* trow = table + (size_t)b * max_blocks;
@@ -203,13 +217,13 @@ __global__ void __launch_bounds__(kThreads)
       const int t = rem / CPR;
       const int c = rem - t * CPR;
       const int p = first + t;
-      const bool ok = p >= lo && p < hi;
+      const bool ok = p >= lo && p < hi && c < cpr;
       const T* pool = kv ? pool_v : pool_k;
       const T* src = pool;
       if (ok) {
         const int blk = p / bs;
         src = pool + (((size_t)trow[blk] * bs + (p - blk * bs)) * Hkv + kvh) *
-                         HD +
+                         hd +
               c * EV;
       }
       cp_async16((kv ? vd : kd) + t * LD + c * EV, src, ok);
@@ -289,7 +303,8 @@ __global__ void __launch_bounds__(kThreads)
     if (n_splits == 1) {
 #pragma unroll
       for (int d = 0; d < EPL; ++d)
-        out[row * HD + lane * EPL + d] = from_f32<T>(acc[i][d] / ls);
+        if (lane * EPL + d < hd)
+          out[row * hd + lane * EPL + d] = from_f32<T>(acc[i][d] / ls);
       if (lane == 0) lse[row] = m_safe + logf(ls);
     } else {
       const size_t prow = row * n_splits + split;
@@ -312,7 +327,8 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
                        const float* __restrict__ part_lse,
                        const int* __restrict__ base_lens, T* __restrict__ out,
                        float* __restrict__ lse, int rows, int S, int Hq,
-                       int kv_len, int window, int split_len, int n_splits) {
+                       int hd, int kv_len, int window, int split_len,
+                       int n_splits) {
   constexpr int EPL = HD / 32;
   const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -343,8 +359,9 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
   const bool empty = s_end == s_first;
 #pragma unroll
   for (int d = 0; d < EPL; ++d)
-    out[(size_t)row * HD + lane * EPL + d] =
-        from_f32<T>(empty ? 0.f : acc[d] / den);
+    if (lane * EPL + d < hd)
+      out[(size_t)row * hd + lane * EPL + d] =
+          from_f32<T>(empty ? 0.f : acc[d] / den);
   if (lane == 0) lse[row] = empty ? logf(1e-30f) : mx + logf(den);
 }
 
@@ -380,12 +397,13 @@ __global__ void __launch_bounds__(kMmaThreads)
                      bf16* __restrict__ out, float* __restrict__ lse,
                      float* __restrict__ part_o,
                      float* __restrict__ part_lse, int S, int Hq, int Hkv,
-                     int bs, int max_blocks, int window, int split_len,
-                     int n_splits, float scale_log2) {
+                     int hd, int bs, int max_blocks, int window,
+                     int split_len, int n_splits, float scale_log2) {
   using namespace hopper;
   using C = MmaCfg<HD>;
   constexpr int BK = C::BK;
   constexpr int CPR = C::CPR;
+  const int cpr = hd / 8;  // chunks of a row that hold data
   constexpr int NT = BK / 8;
   constexpr int DT = HD / 8;
   extern __shared__ uint4 smem_u4[];
@@ -424,9 +442,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int r = e / CPR;
     const int c = e - r * CPR;
     const int pr = r0 + r;
-    const bool ok = pr < R;
+    const bool ok = pr < R && c < cpr;
     const bf16* src =
-        ok ? q + (((size_t)b * S + pr / G) * Hq + kvh * G + pr % G) * HD +
+        ok ? q + (((size_t)b * S + pr / G) * Hq + kvh * G + pr % G) * hd +
                  c * 8
            : q;
     cp_async16(qs + swz(r, c, CPR), src, ok);
@@ -441,13 +459,13 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int t = rem / CPR;
       const int c = rem - t * CPR;
       const int p = first + t;
-      const bool ok = p >= lo && p < hi;
+      const bool ok = p >= lo && p < hi && c < cpr;
       const bf16* pool = kv ? pool_v : pool_k;
       const bf16* src = pool;
       if (ok) {
         const int blk = p / bs;
         src = pool + (((size_t)trow[blk] * bs + (p - blk * bs)) * Hkv + kvh) *
-                         HD +
+                         hd +
               c * 8;
       }
       cp_async16((kv ? vst : kst) + buf * C::TILE + swz(t, c, CPR), src, ok);
@@ -514,9 +532,11 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (n_splits == 1) {
 #pragma unroll
       for (int j = 0; j < DT; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + row * HD + j * 8 +
-                                           tig * 2) =
-            __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+        if (j * 8 < hd)
+          *reinterpret_cast<__nv_bfloat162*>(out + row * hd + j * 8 +
+                                             tig * 2) =
+              __floats2bfloat162_rn(o[j][2 * i] * inv,
+                                    o[j][2 * i + 1] * inv);
       if (tig == 0) lse[row] = row_lse;
     } else {
       const size_t prow = row * n_splits + split;
@@ -532,14 +552,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 template <typename T, int HD>
 cudaError_t launch_merge(const float* part_o, const float* part_lse,
                          const int* base_lens, T* out, float* lse, int B,
-                         int S, int Hq, int bs, int max_blocks, int window,
-                         int split_blocks, int n_splits,
+                         int S, int Hq, int hd, int bs, int max_blocks,
+                         int window, int split_blocks, int n_splits,
                          cudaStream_t stream) {
   if (n_splits == 1) return cudaSuccess;
   const int rows = B * S * Hq;
   paged_merge_kernel<T, HD>
       <<<(rows + kMergeWarps - 1) / kMergeWarps, 32 * kMergeWarps, 0,
-         stream>>>(part_o, part_lse, base_lens, out, lse, rows, S, Hq,
+         stream>>>(part_o, part_lse, base_lens, out, lse, rows, S, Hq, hd,
                    max_blocks * bs, window, split_blocks * bs, n_splits);
   return cudaGetLastError();
 }
@@ -548,7 +568,7 @@ template <typename T, int HD>
 cudaError_t launch_hd(const T* q, const T* pool_k, const T* pool_v,
                       const int* table, const int* base_lens, T* out,
                       float* lse, float* part_o, float* part_lse, int B,
-                      int S, int Hq, int Hkv, int bs, int max_blocks,
+                      int S, int Hq, int Hkv, int hd, int bs, int max_blocks,
                       int window, int tile_blocks, int split_blocks,
                       int n_splits, int mma, cudaStream_t stream) {
   const int R = S * (Hq / Hkv);
@@ -563,8 +583,8 @@ cudaError_t launch_hd(const T* q, const T* pool_k, const T* pool_v,
       const dim3 grid(Hkv, B, n_splits * ((R + kMmaRows - 1) / kMmaRows));
       paged_mma_kernel<HD><<<grid, kMmaThreads, C::SMEM, stream>>>(
           q, pool_k, pool_v, table, base_lens, out, lse, part_o, part_lse,
-          S, Hq, Hkv, bs, max_blocks, window, split_blocks * bs, n_splits,
-          1.4426950408889634f / sqrtf((float)HD));
+          S, Hq, Hkv, hd, bs, max_blocks, window, split_blocks * bs,
+          n_splits, 1.4426950408889634f / sqrtf((float)hd));
     } else {
       return cudaErrorInvalidValue;  // tensor cores take bf16, hd >= 64
     }
@@ -580,13 +600,13 @@ cudaError_t launch_hd(const T* q, const T* pool_k, const T* pool_v,
     const dim3 grid(Hkv, B, n_splits * ((R + kRowTile - 1) / kRowTile));
     paged_split_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
         q, pool_k, pool_v, table, base_lens, out, lse, part_o, part_lse, S,
-        Hq, Hkv, bs, max_blocks, window, tile_blocks, split_blocks, n_splits,
-        1.0f / sqrtf((float)HD));
+        Hq, Hkv, hd, bs, max_blocks, window, tile_blocks, split_blocks,
+        n_splits, 1.0f / sqrtf((float)hd));
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_merge<T, HD>(part_o, part_lse, base_lens, out, lse, B, S,
-                             Hq, bs, max_blocks, window, split_blocks,
+                             Hq, hd, bs, max_blocks, window, split_blocks,
                              n_splits, stream);
 }
 
@@ -602,12 +622,17 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
     return launch_hd<T, HD_>(                                               \
         static_cast<const T*>(q), static_cast<const T*>(pool_k),            \
         static_cast<const T*>(pool_v), table, base_lens, static_cast<T*>(out), \
-        lse, part_o, part_lse, B, S, Hq, Hkv, bs, max_blocks, window,       \
+        lse, part_o, part_lse, B, S, Hq, Hkv, hd, bs, max_blocks, window,   \
         tile_blocks, split_blocks, n_splits, mma, stream)
-  switch (hd) {
+  if (hd <= 0 || hd > 256 || hd % 8) return cudaErrorInvalidValue;
+  // the padded head dim: kernel.py::padded_head_dim
+  const int hdp = hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128
+                : hd <= 192 ? 192 : 256;
+  switch (hdp) {
     PW_LAUNCH(32);
     PW_LAUNCH(64);
     PW_LAUNCH(128);
+    PW_LAUNCH(192);
     PW_LAUNCH(256);
     default:
       return cudaErrorInvalidValue;
@@ -621,8 +646,9 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
 // dtype: 0 = float32, 1 = bfloat16 (q, pool_k, pool_v and out alike).
 // tile_blocks, split_blocks, n_splits and mma (1: the tensor-core
 // kernel, bf16 with hd >= 64 only) come from the host plan; with
-// n_splits > 1, part_o (B,S,Hq,n_splits,hd) and part_lse (B,S,Hq,
-// n_splits) are f32 scratch and the merge kernel follows.
+// n_splits > 1, part_o (B,S,Hq,n_splits,hdp) with hdp the padded head
+// dim and part_lse (B,S,Hq,n_splits) are f32 scratch and the merge
+// kernel follows. hd: a multiple of 8 up to 256.
 extern "C" int paged_window_attention(
     const void* q, const void* pool_k, const void* pool_v, const int* table,
     const int* base_lens, void* out, float* lse, float* part_o,

@@ -25,7 +25,10 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_window.cu"
-HEAD_DIMS = (32, 64, 128, 256)
+# the head dims the kernels are instantiated on: a head dim hd (a
+# multiple of 8 up to 256) runs on the smallest of them >= hd, its
+# padded dims zero in shared memory
+HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 227 * 1024         # dynamic shared memory a CTA may use
 ROW_TILE = 16                   # packed query rows per CUDA-core CTA
@@ -36,6 +39,16 @@ SPLIT_POSITIONS = 64            # KV positions of a decode split
 # part_lse; B, S, Hq, Hkv, hd, bs, max_blocks, window, tile_blocks,
 # split_blocks, n_splits, mma, dtype; stream
 ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+
+
+def padded_head_dim(hd: int) -> int:
+    """The instantiated head dim that runs ``hd``; raises for a head dim
+    the kernel does not take (not a multiple of 8, or above 256: a pool
+    row must be whole 16-byte chunks in f32 and bf16)."""
+    if hd <= 0 or hd % 8 or hd > HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {hd}: a multiple of 8 up to "
+                         f"{HEAD_DIMS[-1]}")
+    return next(h for h in HEAD_DIMS if h >= hd)
 
 
 class Plan(NamedTuple):
@@ -51,16 +64,19 @@ def smem_bytes(hd: int, itemsize: int, tile_positions: int, stages: int,
                qrows: int) -> int:
     """The CUDA-core kernel's shared memory: ``qrows`` f32 query rows,
     then ``stages`` stages of K and of V rows in the pool's dtype, each
-    row padded by one 16-byte chunk."""
-    return 4 * qrows * hd \
-        + itemsize * 2 * stages * tile_positions * (hd + 16 // itemsize)
+    row of the padded head dim padded by one 16-byte chunk."""
+    hdp = padded_head_dim(hd)
+    return 4 * qrows * hdp \
+        + itemsize * 2 * stages * tile_positions * (hdp + 16 // itemsize)
 
 
 def mma_smem_bytes(hd: int) -> int:
     """The tensor-core kernel's: a bf16 tile of MMA_ROWS query rows and
-    two stages of K and of V tiles (64 positions, 32 at hd > 128)."""
-    bk = 64 if hd <= 128 else 32
-    return 2 * (MMA_ROWS * hd + 4 * bk * hd)
+    two stages of K and of V tiles (64 positions, 32 above a padded head
+    dim of 128), at the padded head dim."""
+    hdp = padded_head_dim(hd)
+    bk = 64 if hdp <= 128 else 32
+    return 2 * (MMA_ROWS * hdp + 4 * bk * hdp)
 
 
 def plan(S: int, Hq: int, Hkv: int, hd: int, bs: int, max_blocks: int,
@@ -71,9 +87,10 @@ def plan(S: int, Hq: int, Hkv: int, hd: int, bs: int, max_blocks: int,
     split the whole table. bf16 windows of S >= 16 (hd >= 64) take the
     tensor-core kernel; the others the CUDA-core one, whose staged tile
     is those blocks, fewer where two stages would not fit (one stage
-    when a split is one tile). Raises if one block does not fit."""
+    when a split is one tile). Shared memory is sized at the padded head
+    dim. Raises if one block does not fit."""
     R = S * (Hq // Hkv)
-    mma = itemsize == 2 and S >= MMA_MIN_S and hd >= 64
+    mma = itemsize == 2 and S >= MMA_MIN_S and padded_head_dim(hd) >= 64
     stages = 1 if S == 1 else 2
     qrows = min(R, ROW_TILE)
     tile_blocks = max(1, SPLIT_POSITIONS // bs)
@@ -145,8 +162,9 @@ def _check(q, pool_k, pool_v, block_table, base_lens):
                          f"{tuple(pool_k.shape)}, pool_v {tuple(pool_v.shape)}")
     B, S, Hq, hd = q.shape
     _, bs, Hkv, hd_kv = pool_k.shape
-    if hd != hd_kv or hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} (pool {hd_kv}): one of {HEAD_DIMS}")
+    if hd != hd_kv:
+        raise ValueError(f"head dim {hd} != pool head dim {hd_kv}")
+    padded_head_dim(hd)
     if Hq % Hkv:
         raise ValueError(f"Hq {Hq} not a multiple of Hkv {Hkv}")
     if block_table.dim() != 2 or block_table.shape[0] != B \
@@ -181,8 +199,8 @@ def paged_window_attention(q, pool_k, pool_v, block_table, base_lens, *,
                          f"the grid takes at most 65535")
     part_o = part_lse = None
     if p.n_splits > 1:
-        part_o = torch.empty((B, S, Hq, p.n_splits, hd), dtype=torch.float32,
-                             device=q.device)
+        part_o = torch.empty((B, S, Hq, p.n_splits, padded_head_dim(hd)),
+                             dtype=torch.float32, device=q.device)
         part_lse = torch.empty((B, S, Hq, p.n_splits), dtype=torch.float32,
                                device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

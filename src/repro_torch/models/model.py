@@ -1,4 +1,4 @@
-"""Model factory for the dense, rwkv and hybrid decoder families.
+"""Model factory for the dense, MoE, rwkv and hybrid decoder families.
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods take the
 params tree explicitly, as in the JAX reference:

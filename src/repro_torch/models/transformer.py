@@ -1,4 +1,5 @@
-"""Backbone blocks + the loop over layers (dense, rwkv and hybrid kinds).
+"""Backbone blocks + the loop over layers (dense, moe, rwkv and hybrid
+kinds).
 
 A block apply function is ``(x, p, cfg, mode, cache, extras) -> (x,
 new_cache)``. Block params are stacked with a leading L axis and the
@@ -8,12 +9,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, layers, rwkv6, ssm
+from repro_torch.models import attention, layers, moe, rwkv6, ssm
 
 
 def init_block(gen, cfg, *, kind: str, device, lead: tuple = ()):
     """One block's params, or ``lead`` stacked blocks drawn at once."""
-    if kind not in ("dense", "rwkv", "hybrid"):
+    if kind not in ("dense", "moe", "rwkv", "hybrid"):
         _unported(kind)
     d, dtype = cfg.d_model, cfg.dtype
 
@@ -31,9 +32,12 @@ def init_block(gen, cfg, *, kind: str, device, lead: tuple = ()):
         "ln1": ones(),
         "attn": attention.init_attention(gen, cfg, device, lead=lead),
         "ln2": ones(),
-        "ffn": layers.init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, device,
-                               lead),
     }
+    if kind == "moe":
+        p["moe"] = moe.init_moe(gen, cfg, device, lead=lead)
+    else:
+        p["ffn"] = layers.init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, device,
+                                   lead)
     if kind == "hybrid":
         p["ssm"] = ssm.init_ssm(gen, cfg, device, lead=lead)
         p["ln_attn_out"] = ones()
@@ -41,8 +45,7 @@ def init_block(gen, cfg, *, kind: str, device, lead: tuple = ()):
     return p
 
 
-_LATER = {"moe": "the 'MoE' slice of ROADMAP.md",
-          "decoder_x": "the 'frontends' slice of ROADMAP.md"}
+_LATER = {"decoder_x": "the 'frontends' slice of ROADMAP.md"}
 
 
 def _unported(kind: str):
@@ -71,8 +74,9 @@ def _layer(tree, l: int):
 
 def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
     """Returns (x, new_cache). extras: dict with positions / cache_len /
-    block_table / paged_kernel / n_write as applicable."""
-    if kind not in ("dense", "rwkv", "hybrid"):
+    block_table / paged_kernel / n_write as applicable. The MoE FFN's
+    aux loss (a training term) is dropped."""
+    if kind not in ("dense", "moe", "rwkv", "hybrid"):
         _unported(kind)
     extras = extras or {}
     eps = cfg.norm_eps
@@ -114,7 +118,10 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
     else:
         x = x + attn_out
     h = layers.rmsnorm(x, p["ln2"], eps)
-    x = x + layers.mlp(h, p["ffn"], cfg.act)
+    if kind == "moe":
+        x = x + moe.moe_ffn(h, p["moe"], cfg)[0]
+    else:
+        x = x + layers.mlp(h, p["ffn"], cfg.act)
     return x, (new_cache if mode != "train" else None)
 
 

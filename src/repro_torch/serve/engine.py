@@ -36,8 +36,24 @@ On the paged layout:
   through chunk windows (multi-token steps) in which decode slots ride
   with their single next token.
 
-Pure-attention prompts are right-padded to power-of-two buckets; pad
-positions are never attended and pad tail blocks are never allocated.
+With ``speculation=k`` (and a draft model) the engine decodes
+**speculatively**: each step a :class:`~repro_torch.serve.spec.DraftRunner`
+proposes k tokens per slot and the target verifies them in ONE
+multi-token step (``model.verify_step``), committing the accepted prefix
+plus a bonus / correction token. Paged slots are granted their window
+blocks up front (the **watermark**; copy-on-write where shared, degraded
+under pressure) and rolled back to the committed length afterwards;
+greedy streams are bit-identical to non-speculative decode. The draft's
+proposals stay on the device: the verify window is the host's first
+column concatenated with the proposal tensor, so ``dispatch_step``
+waits for nothing and only the tick's commit reads the results.
+
+Dense (non-MoE) pure-attention prompts are right-padded to power-of-two
+buckets; pad positions are never attended and pad tail blocks are never
+allocated. MoE targets prefill one row a call at its exact length
+(capacity routing shares per-expert slots across a call's tokens, so
+pad tokens or co-batched rows could displace a request's own), never
+share prefixes, never chunk and never speculate.
 
 Device work is launched by :meth:`ServingEngine.dispatch_step` on the
 current CUDA stream (PyTorch returns before the device finishes); the
@@ -49,8 +65,8 @@ based key streams (:mod:`.sampling`). Every host array a step sends to
 the card goes through pinned memory without a stream sync, so
 ``dispatch_step`` returns while the device still computes.
 
-Not ported yet (raise, naming the ROADMAP.md slice): speculative decode,
-MoE and the cross-attention frontends.
+Not ported yet (raise, naming the ROADMAP.md slice): the
+cross-attention frontends.
 """
 from __future__ import annotations
 
@@ -66,7 +82,8 @@ from repro_torch.models.transformer import block_kind
 from repro_torch.serve import sampling
 from repro_torch.serve.blocks import BlockPool
 from repro_torch.serve.sampling import GREEDY, SamplingParams
-from repro_torch.serve.telemetry import NOOP, PID_POOL, PID_REQUESTS
+from repro_torch.serve.spec import DraftRunner
+from repro_torch.serve.telemetry import NOOP, PID_LOOP, PID_POOL, PID_REQUESTS
 
 _MIN_BUCKET = 8
 # default chunk for chunked prefill (tokens per slot per chunk step)
@@ -150,22 +167,12 @@ class ServingEngine:
         if self.device.type != model.device.type:
             raise ValueError(f"engine device {self.device} != model device "
                              f"{model.device}")
-        kind = block_kind(model.cfg)
-        if kind == "moe" or getattr(model.cfg, "n_experts", 0):
-            raise NotImplementedError(f"{model.cfg.name}: MoE serving is the "
-                                      "'MoE' slice of ROADMAP.md")
-        if kind == "decoder_x":
+        if block_kind(model.cfg) == "decoder_x":
             raise NotImplementedError(f"{model.cfg.name}: cross-attention "
                                       "serving is the 'frontends' slice of "
                                       "ROADMAP.md")
-        if speculation or draft_model is not None or draft_params is not None:
-            raise NotImplementedError("speculative decode: the 'speculative "
-                                      "decode' slice of ROADMAP.md")
         self.model = model
         self.params = params
-        # draft tokens per step: 0 until the speculative slice lands, so
-        # every request's speculation is capped to 0
-        self.spec_k = 0
         self.B = batch_size
         self.max_seq = max_seq
         self.clock = clock
@@ -173,15 +180,23 @@ class ServingEngine:
         self.tracer = NOOP if tracer is None else tracer
         leaves = sorted(model.init_cache(1, _MIN_BUCKET))
         pure_attn = set(leaves) <= {"k", "v"}
+        # MoE routing shares one per-expert capacity over a call's (rows x
+        # tokens), so pad tokens / co-batched rows can displace a request's
+        # own tokens: MoE prompts prefill one row a call, exact length
+        is_moe = bool(getattr(model.cfg, "n_experts", 0))
         # pure-attention caches tolerate right-padded prompts (pad KV is
         # masked, then overwritten); recurrent state does not
-        self._paddable = pure_attn
+        self._paddable = pure_attn and not is_moe
+        self._solo_prefill = is_moe
         # recurrent state is O(1) in sequence length: paging buys nothing
         self.paged = pure_attn if paged is None else bool(paged)
         if self.paged and not pure_attn:
             raise ValueError("paged KV requires a pure-attention {k, v} "
                              f"cache; got leaves {leaves}")
-        self.prefix_sharing = bool(prefix_sharing) and self.paged
+        # a shared admission's catch-up tokens decode co-batched, which is
+        # bit-exact for dense / GQA but not for MoE (the capacity caveat)
+        self.prefix_sharing = bool(prefix_sharing) and self.paged \
+            and not is_moe
         self.use_kernel = bool(use_kernel)
         if prefill_chunk is not None and prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
@@ -201,6 +216,27 @@ class ServingEngine:
             self.prefill_chunk = 0
         # per-step cap on pending prompt tokens fed across slots
         self.prefill_budget = prefill_budget
+        # speculative draft-and-verify: pure-attention targets only (the
+        # verify window needs the {k, v} scatter) and never MoE (the
+        # window co-batches k + 1 tokens through shared expert capacity)
+        self.spec_k = int(speculation)
+        if self.spec_k:
+            if draft_model is None or draft_params is None:
+                raise ValueError("speculation requires a draft model")
+            if not pure_attn:
+                raise ValueError("speculation requires a pure-attention "
+                                 f"{{k, v}} cache; got {leaves}")
+            if is_moe:
+                raise ValueError("speculation unsupported for MoE targets "
+                                 "(expert-capacity caveat)")
+            if draft_model.device.type != self.device.type:
+                raise ValueError(f"draft model device {draft_model.device} "
+                                 f"!= engine device {self.device}")
+            self.draft = DraftRunner(draft_model, draft_params,
+                                     batch_size=batch_size, max_seq=max_seq,
+                                     tracer=self.tracer)
+        else:
+            self.draft = None
         self.slot_len = np.zeros(batch_size, np.int32)   # tokens in cache
         self.slot_req: list = [None] * batch_size
         # prompt tokens an admission still owes the model (chunk windows
@@ -242,8 +278,6 @@ class ServingEngine:
                         "cow_copies": 0, "cow_parks": 0,
                         "prefill_tokens_computed": 0,
                         "prefill_tokens_shared": 0,
-                        # speculative counters keep the reference's names;
-                        # they stay 0 until the speculative slice lands
                         "verify_steps": 0, "draft_steps": 0,
                         "spec_proposed": 0, "spec_accepted": 0,
                         "spec_blocks_rolled_back": 0,
@@ -507,6 +541,11 @@ class ServingEngine:
         """Per-row sampling params for a prefill group, staged on the
         device. The counter is the request's emission index. ``None``
         rows (empty slots) stay greedy: their draws are discarded."""
+        return sampling.Rows(*self._sampling_arrays(reqs), self.device)
+
+    @staticmethod
+    def _sampling_arrays(reqs: list):
+        """(temps, top_ks, seeds, ctrs) host arrays for ``reqs``."""
         n = len(reqs)
         temps = np.zeros(n, np.float32)
         top_ks = np.zeros(n, np.int32)
@@ -520,7 +559,7 @@ class ServingEngine:
             top_ks[j] = sp.top_k
             seeds[j] = sp.seed
             ctrs[j] = len(r.out_tokens)
-        return sampling.Rows(temps, top_ks, seeds, ctrs, self.device)
+        return temps, top_ks, seeds, ctrs
 
     def _sampling_slots(self):
         """Per-slot sampling params for a decode step."""
@@ -663,13 +702,19 @@ class ServingEngine:
         # chunk (n0 tokens); the remainder becomes the slot's pending queue.
         plain = [(r, s) for r, s, acq, _ in take if acq is None]
         groups: dict = {}
-        for req, slot in plain:
+        for n, (req, slot) in enumerate(plain):
             P = len(self._eff_prompt(req))
             C = self._chunk_for(req)
             n0 = min(P, C) if C else P           # first-chunk token count
-            width = _bucket(n0, self.max_seq) if self._paddable else n0
-            groups.setdefault(width, []).append((req, slot, n0))
-        for width, members in groups.items():
+            if self._solo_prefill:
+                key = (n,)                       # one row per prefill call
+            elif self._paddable:
+                key = _bucket(n0, self.max_seq)
+            else:
+                key = n0                         # exact-length co-batching
+            groups.setdefault(key, []).append((req, slot, n0))
+        for key, members in groups.items():
+            width = key if isinstance(key, int) else members[0][2]
             toks = np.zeros((len(members), width), np.int32)
             last = np.zeros(len(members), np.int32)
             for j, (req, slot, n0) in enumerate(members):
@@ -720,6 +765,19 @@ class ServingEngine:
             if acquired is None:
                 continue
             self._admit_shared(req, slot, acquired, matched)
+        if self.draft is not None:
+            # the draft caches every admitted prompt too (its stripes are
+            # per slot, shared admissions included), skipping slots that
+            # retired at admission, and everything but the newest
+            # committed token, which draws the first proposal
+            members = []
+            for req, slot, _, _ in take:
+                if self.slot_req[slot] is not req:
+                    continue
+                eff = self._eff_prompt(req)
+                members.append((slot, eff[:-1] if req.out_tokens else eff))
+            if members:
+                self.draft.admit(members)
         return len(take) - n_from_waiting
 
     def _extend_match(self, eff: list, slot: int, blocks: list,
@@ -899,6 +957,8 @@ class ServingEngine:
         self.slot_reg[slot] = False
         self.slot_reg_pos[slot] = 0
         self._release_blocks(slot)
+        if self.draft is not None:
+            self.draft.reset(slot)
 
     def _retire(self, slot: int, *, cancelled: bool = False) -> None:
         req = self.slot_req[slot]
@@ -951,9 +1011,12 @@ class ServingEngine:
         """Make positions ``[len, len + width)`` of slot ``i`` safe to
         write: **copy-on-write** a shared tail before any write would land
         in it, drop stale prefix-index entries for in-place writes, and
-        allocate blocks through the window's last position. Returns how
-        many positions were secured: ``width``, fewer when the pool ran
-        out mid-window, or 0 — the slot must park."""
+        allocate blocks through the window's last position (the
+        speculative **watermark**: ``width = n_spec + 1`` for a
+        speculating slot, a chunk for a chunk window, 1 otherwise).
+        Returns how many positions were secured: ``width``, fewer when
+        the pool ran out mid-window (the slot speculates or chunks less),
+        or 0 — the slot must park."""
         L = int(self.slot_len[i])
         bs = self.block_size
         first_bi = L // bs
@@ -996,10 +1059,11 @@ class ServingEngine:
 
     def _grow_or_park(self, active: list, want: dict | None = None) -> dict:
         """Make every active slot's write site(s) safe — ``want[i]``
-        positions (a chunk window), one otherwise. Slots the pool cannot
-        serve at all park; if nobody can advance, preempt newest
-        admissions until the oldest can. Returns {slot: positions
-        secured} (parked slots are removed from ``active``)."""
+        positions (a speculating slot's watermark or a chunk window), one
+        otherwise. Slots the pool cannot serve at all park; slots it can
+        only partly serve speculate or chunk less; if nobody can advance,
+        preempt newest admissions until the oldest can. Returns {slot:
+        positions secured} (parked slots are removed from ``active``)."""
         secured: dict = {}
         parked = []
         for i in list(active):
@@ -1037,6 +1101,123 @@ class ServingEngine:
                                     tid=self.slot_req[i].rid,
                                     args={"slot": i})
         return secured
+
+    def _rollback(self, i: int) -> None:
+        """Speculative rollback: return pool blocks past the committed
+        length. Every freed block was allocated for this slot's watermark
+        and is sole-owned (the window was made writable, copied out of
+        any sharing, before the verify scatter), so no co-holder's chain
+        is ever rolled back."""
+        keep = self.pool.blocks_for(max(int(self.slot_len[i]), 1))
+        extra = self.slot_blocks[i][keep:]
+        if extra:
+            self.pool.free(extra, owner=i)
+            del self.slot_blocks[i][keep:]
+            self.block_table[i, keep:] = 0
+            self.metrics["spec_blocks_rolled_back"] += len(extra)
+
+    def _spec_step(self, active: list, n_spec, finished: list) -> _Tick:
+        """Dispatch one draft-and-verify step. ``n_spec[i]`` proposals for
+        each speculating slot (0 for riders: pending catch-up, opted-out
+        or watermark-degraded slots, which feed one real token through
+        the same verify batch and advance by one, exactly the plain
+        step). The window's tokens are the host's first column and the
+        draft's proposal tensor, joined on the device; nothing is read
+        back before the tick's commit, which commits each row's accepted
+        prefix + bonus token, rolls the pool back to the committed
+        watermark, and advances the draft."""
+        k = self.spec_k
+        temps, top_ks, seeds, ctrs = self._sampling_arrays(self.slot_req)
+        rows = [i for i in active if n_spec[i] > 0]
+        # the draft only needs each row's UNCACHED committed suffix
+        tails = [None] * self.B
+        totals = np.zeros(self.B, np.int64)
+        for i in rows:
+            r = self.slot_req[i]
+            dl, P = int(self.draft.len[i]), len(r.prompt)
+            tails[i] = (r.prompt[dl:] + r.out_tokens) if dl < P \
+                else r.out_tokens[dl - P:]
+            totals[i] = P + len(r.out_tokens)
+        proposed, dprobs = self.draft.propose(tails, rows, k, temps, top_ks,
+                                              seeds, ctrs)
+        self.metrics["draft_steps"] = self.draft.steps_run
+        first = np.zeros((self.B, 1), np.int32)
+        n_write = np.zeros(self.B, np.int32)
+        for i in active:
+            r = self.slot_req[i]
+            first[i, 0] = self.slot_pending[i][0] if self.slot_pending[i] \
+                else r.out_tokens[-1]
+            n_write[i] = n_spec[i] + 1
+        toks = torch.cat([self._dev(first), proposed], dim=1)
+        if self.paged and self.use_kernel:
+            self.metrics["kernel_windows"] += 1
+            self.metrics["kernel_positions"] += int(
+                sum(n_write[i] for i in active))
+        table = self._dev(self.block_table) if self.paged else None
+        logits, _ = self.model.verify_step(
+            self.params, toks, self.caches, self._dev(self.slot_len),
+            block_table=table, paged_kernel=self.use_kernel,
+            n_write=self._dev(n_write) if self.paged else None)
+        a, out_toks, lps = sampling.speculative_accept(
+            logits, dprobs, proposed, n_spec, temps, top_ks, seeds, ctrs)
+        self.metrics["decode_steps"] += 1
+        self.metrics["verify_steps"] += 1
+        return _Tick(lambda: self._commit_spec(active, n_spec, finished,
+                                               totals, a, out_toks, lps))
+
+    def _commit_spec(self, active, n_spec, finished, totals, a, out_toks,
+                     lps) -> list:
+        a, out_toks, lps = _host(a), _host(out_toks), _host(lps)
+        k = self.spec_k
+        win_proposed = win_accepted = 0     # this verify window's totals
+        for i in active:
+            r = self.slot_req[i]
+            if self.slot_pending[i]:
+                # catch-up rider: the fed token was a prompt token; its
+                # successor only counts once the suffix is exhausted
+                self.slot_len[i] += 1
+                self.slot_pending[i].pop(0)
+                self._register_chunk_progress(
+                    i, final=not self.slot_pending[i])
+                if self.paged:
+                    self._rollback(i)
+                if self.slot_pending[i]:
+                    continue
+                commit = [int(out_toks[i, 0])]
+                lpc = [float(lps[i, 0])]
+            else:
+                ai = int(min(a[i], n_spec[i]))
+                self.slot_len[i] += ai + 1
+                commit = [int(t) for t in out_toks[i, :ai + 1]]
+                lpc = [float(x) for x in lps[i, :ai + 1]]
+                if n_spec[i] > 0:
+                    self.metrics["spec_proposed"] += int(n_spec[i])
+                    self.metrics["spec_accepted"] += ai
+                    win_proposed += int(n_spec[i])
+                    win_accepted += ai
+                    # draft cache valid through the accepted prefix; it
+                    # only ever cached through proposal k - 1
+                    self.draft.commit(i, int(totals[i]) + min(ai, k - 1))
+                if self.paged:
+                    self._rollback(i)
+            room = r.max_new_tokens - len(r.out_tokens)
+            commit = commit[:room]
+            for t_idx, t in enumerate(commit):
+                if t in r.stop_tokens:       # stop inside the window
+                    commit = commit[:t_idx + 1]
+                    break
+            r.out_tokens.extend(commit)
+            r.out_logprobs.extend(lpc[:len(commit)])
+            if commit:
+                self._note_first_token(r)
+            if self._is_done(r):
+                finished.append(r)
+                self._retire(i)
+        if win_proposed and self.tracer.enabled:
+            self.tracer.counter("speculation",
+                                {"proposed": win_proposed,
+                                 "accepted": win_accepted}, pid=PID_LOOP)
+        return finished
 
     def _chunk_step(self, active: list, chunk_want: dict,
                     finished: list) -> _Tick:
@@ -1110,10 +1291,12 @@ class ServingEngine:
 
     def dispatch_step(self) -> _Tick:
         """Dispatch one decode step over all active slots (each at its own
-        length) — a chunk-window step when any slot owes more than one
-        pending prompt token. Parked slots ride the batch but emit
-        nothing. Host-side planning (capacity retires, chunk budgeting,
-        block growth) happens here, then the device work is *launched*;
+        length) — a draft-and-verify step when the engine speculates and
+        any slot has room to, a chunk-window step when any slot owes more
+        than one pending prompt token. Parked slots ride the batch but
+        emit nothing. Host-side planning (capacity retires, chunk
+        budgeting, speculative windows, block growth) happens here, then
+        the device work is *launched*;
         the returned :class:`_Tick`'s ``commit()`` syncs on the result and
         applies the per-slot bookkeeping. Between dispatch and commit the
         engine's slot state must not be mutated."""
@@ -1142,12 +1325,35 @@ class ServingEngine:
                 budget -= c
             chunk_want[i] = c
         chunking = any(c > 1 for c in chunk_want.values())
+        # plan speculative windows before securing write sites, so the
+        # watermark blocks are granted in the same pass. A chunk tick
+        # skips speculation: the window belongs to the chunks, and
+        # speculation resumes the moment the prompts drain.
+        n_spec = np.zeros(self.B, np.int32)
+        if self.spec_k and not chunking:
+            for i in active:
+                r = self.slot_req[i]
+                if self.slot_pending[i]:
+                    continue                  # catch-up rides plain
+                k = self._spec_window(r) - 1
+                if k <= 0:
+                    continue
+                n_spec[i] = max(0, min(
+                    k, self.max_seq - 1 - int(self.slot_len[i]),
+                    r.max_new_tokens - len(r.out_tokens) - 1))
         if self.paged:
-            want = {i: chunk_want.get(i, 1) for i in active} \
-                if chunking else None
+            if chunking:
+                want = {i: chunk_want.get(i, 1) for i in active}
+            elif n_spec.any():
+                want = {i: int(n_spec[i]) + 1 for i in active}
+            else:
+                want = None
             secured = self._grow_or_park(active, want)
             for i in active:
-                # a degraded chunk just feeds fewer tokens this step
+                # pool pressure degrades the window (possibly to 0: the
+                # slot rides non-speculatively); a degraded chunk just
+                # feeds fewer tokens this step
+                n_spec[i] = min(n_spec[i], secured[i] - 1)
                 if i in chunk_want:
                     chunk_want[i] = min(chunk_want[i], secured[i])
             chunking = any(chunk_want.get(i, 0) > 1 for i in active)
@@ -1155,6 +1361,8 @@ class ServingEngine:
             self._finished_at_admit = []
         if not active:
             return _Tick(lambda: finished)
+        if self.spec_k and any(n_spec[i] > 0 for i in active):
+            return self._spec_step(active, n_spec, finished)
         if chunking:
             return self._chunk_step(active, chunk_want, finished)
         tok = np.zeros((self.B, 1), np.int32)

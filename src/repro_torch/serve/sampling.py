@@ -21,7 +21,10 @@ memory and never waits for the device between its launches.
 
 :func:`draft_propose` and :func:`speculative_accept` are the pure
 draft-and-verify functions of the reference (acceptance sampling with
-the residual correction); the engine does not call them yet.
+the residual correction). Proposals stay on the device: both take and
+return device tensors, so a speculative round never reads a token back
+to the host before its commit. A batch without a sampled row skips the
+random draws (their results would be discarded by the greedy select).
 """
 from __future__ import annotations
 
@@ -151,15 +154,19 @@ def draft_propose(logits, temps, top_ks, seeds, ctrs, pos):
     emission counter ``ctrs``: logits (B, V) -> (tokens (B,) int32,
     probs (B, V) f32 — the shaped distribution each token was drawn
     from). The key stream is disjoint from the token draws and the
-    accept / residual draws, and unique per (request, round, position)."""
+    accept / residual draws, and unique per (request, round, position).
+    ``temps`` / ``top_ks`` / ``seeds`` / ``ctrs`` / ``pos`` are host
+    arrays (or CPU tensors)."""
     dev = logits.device
     logits = logits.float()
     temps_t, top_ks_t, max_k = _device_rows(temps, top_ks, dev)
     shaped = _shaped(logits, temps_t, top_ks_t, max_k)
-    k = prng.fold_in(stream_keys(seeds, ctrs, DRAFT_STREAM),
-                     _host(pos, np.int64))
-    drawn = prng.categorical(*_keys_on(k, dev), shaped)
-    tok = torch.where(temps_t > 0.0, drawn, torch.argmax(logits, dim=-1))
+    tok = torch.argmax(logits, dim=-1)
+    if (_host(temps, np.float32) > 0.0).any():
+        k = prng.fold_in(stream_keys(seeds, ctrs, DRAFT_STREAM),
+                         _host(pos, np.int64))
+        drawn = prng.categorical(*_keys_on(k, dev), shaped)
+        tok = torch.where(temps_t > 0.0, drawn, tok)
     return tok.to(torch.int32), torch.softmax(shaped, dim=-1)
 
 
@@ -169,8 +176,9 @@ def speculative_accept(target_logits, draft_probs, proposed, n_spec,
 
     target_logits (B, S, V) from the multi-token verify step;
     draft_probs (B, S-1, V) shaped draft distributions; proposed
-    (B, S-1) draft tokens; n_spec (B,) proposals actually speculated per
-    row (a rider, n_spec 0, gets one token-stream draw back). Returns
+    (B, S-1) draft tokens (a device tensor is used where it lies, a host
+    array staged); n_spec (B,) proposals actually speculated per row (a
+    rider, n_spec 0, gets one token-stream draw back). Returns
     (accepted (B,) int32, tokens (B, S) int32, logprobs (B, S) f32): row
     b commits ``tokens[b, :accepted[b]+1]``. Greedy rows accept while
     the proposal equals the target argmax; sampled rows accept ``d_j``
@@ -181,38 +189,49 @@ def speculative_accept(target_logits, draft_probs, proposed, n_spec,
     B, S, V = tl.shape
     k = S - 1
     dprobs = draft_probs.float().to(dev)
-    proposed = stage(_host(proposed, np.int64), dev)
+    if isinstance(proposed, torch.Tensor) and proposed.device == dev:
+        proposed = proposed.long()
+    else:
+        proposed = stage(_host(proposed, np.int64), dev)
     n_spec = stage(_host(n_spec, np.int64), dev)
+    sampled = bool((_host(temps, np.float32) > 0.0).any())
     temps_t, top_ks_t, max_k = _device_rows(temps, top_ks, dev)
-    greedy = temps_t <= 0.0
-    rider = n_spec == 0
     tgt_argmax = torch.argmax(tl, dim=-1)                          # (B, S)
-    shaped = _shaped(tl.reshape(B * S, V), temps_t.repeat_interleave(S),
-                     top_ks_t.repeat_interleave(S), max_k).reshape(B, S, V)
-    p = torch.softmax(shaped, dim=-1)
     j = torch.arange(k, device=dev)
-    q_at = dprobs.gather(-1, proposed[..., None])[..., 0]
-    p_at = p[:, :k].gather(-1, proposed[..., None])[..., 0]
-    acc = stream_keys(seeds, ctrs, ACCEPT_STREAM)
-    u = prng.uniform(prng.bits(*_keys_on(acc, dev), k))
-    ok = torch.where(greedy[:, None], proposed == tgt_argmax[:, :k],
-                     u * q_at <= p_at) & (j[None] < n_spec[:, None])
+    ok = proposed == tgt_argmax[:, :k]
+    if sampled:
+        greedy = temps_t <= 0.0
+        shaped = _shaped(tl.reshape(B * S, V), temps_t.repeat_interleave(S),
+                         top_ks_t.repeat_interleave(S),
+                         max_k).reshape(B, S, V)
+        p = torch.softmax(shaped, dim=-1)
+        q_at = dprobs.gather(-1, proposed[..., None])[..., 0]
+        p_at = p[:, :k].gather(-1, proposed[..., None])[..., 0]
+        acc = stream_keys(seeds, ctrs, ACCEPT_STREAM)
+        u = prng.uniform(prng.bits(*_keys_on(acc, dev), k))
+        ok = torch.where(greedy[:, None], ok, u * q_at <= p_at)
+    ok &= j[None] < n_spec[:, None]
     a = torch.cumprod(ok.to(torch.int64), dim=-1).sum(-1)          # (B,)
     rows = torch.arange(B, device=dev)
-    p_a = p[rows, a]
-    rejected = a < n_spec
-    q_a = dprobs[rows, torch.clamp_max(a, k - 1)]
-    resid = torch.clamp_min(p_a - q_a, 0.0)
-    norm = resid.sum(-1)
-    resid = torch.where((rejected & (norm > 0.0))[:, None],
-                        resid / torch.clamp_min(norm, 1e-20)[:, None], p_a)
-    bonus_sampled = prng.categorical(
-        *_keys_on(prng.fold_in(acc, k), dev),
-        torch.log(torch.clamp_min(resid, 1e-30)))
-    rider_draw = prng.categorical(
-        *_keys_on(stream_keys(seeds, ctrs, TOKEN_STREAM), dev), shaped[:, 0])
-    bonus = torch.where(greedy, tgt_argmax[rows, a],
-                        torch.where(rider, rider_draw, bonus_sampled))
+    bonus = tgt_argmax[rows, a]
+    if sampled:
+        p_a = p[rows, a]
+        rejected = a < n_spec
+        q_a = dprobs[rows, torch.clamp_max(a, k - 1)]
+        resid = torch.clamp_min(p_a - q_a, 0.0)
+        norm = resid.sum(-1)
+        resid = torch.where((rejected & (norm > 0.0))[:, None],
+                            resid / torch.clamp_min(norm, 1e-20)[:, None],
+                            p_a)
+        bonus_sampled = prng.categorical(
+            *_keys_on(prng.fold_in(acc, k), dev),
+            torch.log(torch.clamp_min(resid, 1e-30)))
+        rider_draw = prng.categorical(
+            *_keys_on(stream_keys(seeds, ctrs, TOKEN_STREAM), dev),
+            shaped[:, 0])
+        bonus = torch.where(greedy, bonus,
+                            torch.where(n_spec == 0, rider_draw,
+                                        bonus_sampled))
     pos = torch.arange(S, device=dev)[None]
     ext = torch.cat([proposed, proposed[:, -1:]], dim=1)
     tokens = torch.where(pos < a[:, None], ext,

@@ -201,9 +201,11 @@ def make_lm_service(name: str, model, params, *, n_replicas: int = 1,
     CUDA paged-window kernel, read in place (its plain version on CPU
     tensors). ``"sampling"`` payloads carry per-request
     temperature/top_k/seed, and the reply streams per-token logprobs.
-    ``plan`` (sharded serving) and ``draft_model``/``draft_params``/
-    ``speculation`` (speculative decode) are later slices of ROADMAP.md
-    and raise.
+    ``draft_model``/``draft_params``/``speculation`` arm every replica
+    for speculative draft-and-verify decode (each replica's engine owns
+    its own draft runner; a ``"speculation"`` payload key opts a request
+    out or down). ``plan`` (sharded serving) is a later slice of
+    ROADMAP.md and raises.
     ``prefill_chunk`` sets each engine's chunked-prefill width (None =
     the engine default for chunkable families; 0 = monolithic
     admission; requests override per-call with a ``"prefill_chunk"``

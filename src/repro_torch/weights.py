@@ -5,8 +5,10 @@ builds, converted leaf-wise to numpy (bfloat16 leaves as ``ml_dtypes``
 arrays are fine), and returns the port's params tree: ``embed``,
 ``lm_head``, ``final_norm`` and ``blocks/...`` with a leading L axis —
 ``{ln1, ln2, attn/{w_q, w_kv, w_o, q_norm, k_norm}, ffn/{w_in, w_gate,
-w_out}}`` for dense, plus ``ssm/...`` and ``ln_attn_out`` /
-``ln_ssm_out`` for hybrid, ``{ln1, ln2, tmix/..., cmix/...}`` for rwkv.
+w_out}}`` for dense, ``moe/{router (f32), w_in, w_gate, w_out}`` with
+the expert axis after L in place of ``ffn`` for MoE, plus ``ssm/...``
+and ``ln_attn_out`` / ``ln_ssm_out`` for hybrid, ``{ln1, ln2, tmix/...,
+cmix/...}`` for rwkv.
 Leaves keep their names and shapes: ``w_kv`` stays one ``(d,
 2*Hkv*hd)`` matrix that ``attention.qkv`` splits into k / v exactly as
 the reference does.
@@ -48,7 +50,8 @@ def params_from_numpy(tree, cfg, device, dtype=None):
     ``device``. Leaves that follow ``cfg.dtype`` are cast to ``dtype``
     (default ``cfg.dtype``); the others keep the dtype the port's own
     ``init_params`` gives them (f32 where the reference keeps f32:
-    ``decay_base``, ``bonus_u``, ``A_log``, ``D``, ``dt_bias``). Every
+    ``decay_base``, ``bonus_u``, ``A_log``, ``D``, ``dt_bias``, the MoE
+``router``). Every
     leaf maps to exactly one port tensor of the same shape; a missing,
     extra or misshapen leaf raises ``ValueError``."""
     want = _flatten(init_params(replace(cfg, dtype=_PROBE), device="meta"))

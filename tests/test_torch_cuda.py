@@ -174,10 +174,45 @@ def test_kernel_rejects_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="int32"):
         pw_kernel.paged_window_attention(q, pk, pv, table.long(), base)
     with pytest.raises(ValueError, match="head dim"):
-        pw_kernel.paged_window_attention(q[..., :48].contiguous(),
-                                         pk[..., :48].contiguous(),
-                                         pv[..., :48].contiguous(), table,
+        pw_kernel.paged_window_attention(q[..., :44].contiguous(),
+                                         pk[..., :44].contiguous(),
+                                         pv[..., :44].contiguous(), table,
                                          base)
+
+
+# head dims of the configs off the power-of-two grid (kimi-k2 112,
+# nemotron-4-340b 192), on the CUDA-core route (f32; bf16 below S 16) and
+# the tensor-core route (bf16, S 64), at the grid's ragged bases
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 5, 64])
+@pytest.mark.parametrize("bs", [8, 16, 64])
+@pytest.mark.parametrize("hd", [112, 192, 48])
+def test_kernel_at_config_head_dims(cuda, hd, bs, S, dt):
+    max_blocks = -(-512 // bs)
+    Hq = 64 if hd == 112 else 96
+    args = _case(8, S, Hq, 8, hd, bs, max_blocks, dt, seed=hd + S + bs)
+    args[1][0], args[2][0] = 1e9, -1e9          # scratch block 0
+    before = pw_kernel.paged_window_attention.launches
+    out, lse = paged_window_attention(*args)
+    assert pw_kernel.paged_window_attention.launches == before + 1
+    ro, rl = paged_window_attention(*args, force_ref=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ro.float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+    torch.testing.assert_close(lse, rl, atol=TOL[dt], rtol=TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_verify_shape(cuda, dt):
+    """A speculative verify window at qwen3-4b's width: B 8, S = k + 1 =
+    5, Hq 32, Hkv 8 (R = 20 packed rows: two CUDA-core row tiles)."""
+    args = _case(8, 5, 32, 8, 128, 16, 64, dt, seed=55)
+    out, lse = paged_window_attention(*args)
+    ro, rl = paged_window_attention(*args, force_ref=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ro.float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+    torch.testing.assert_close(lse, rl, atol=TOL[dt], rtol=TOL[dt])
 
 
 def test_engine_kernel_vs_gather_on_card(cuda):
@@ -941,3 +976,164 @@ def test_lm_service_on_card_counts_kernel_launches(cuda):
     assert m["chunk_steps"] > 0
     stats = rep.scheduler.engine.pool_stats()
     assert stats["used"] == 0 and stats["logical_blocks"] == 0
+
+
+# ---------------------------------------- speculative and MoE serving
+def spec_launches(m, draft, L_target, L_draft, paged):
+    """Launches a speculating engine owes each attention kernel: the
+    target's paged kernel once per layer per step (plain, chunk and
+    verify alike), its flash kernel once per layer per prefill call,
+    its decode kernel once per layer per plain stripe decode step; the
+    draft's flash kernel once per layer per admission prefill call and
+    its decode kernel once per layer per proposal step (its catch-up
+    windows stay plain torch)."""
+    plain = m["decode_steps"] - m["chunk_steps"] - m["verify_steps"]
+    return {
+        "paged_window_attention": L_target * m["decode_steps"] if paged
+        else 0,
+        "flash_attention": L_target * m["prefill_batches"]
+        + L_draft * draft.admit_calls,
+        "decode_attention": (0 if paged else L_target * plain)
+        + L_draft * (draft.steps_run - draft.ingest_steps)}
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "stripes"])
+def test_speculating_engine_on_card(cuda, paged):
+    """Reduced GQA qwen3-4b (f32) speculating with k = 3 on the card, a
+    1-layer draft cut from the target: every kernel launches by the
+    rule above, the streams equal the non-speculative engine's on the
+    card (logprobs within 1e-3: the verify window's kernel plan sums in
+    another order than the decode step's), and the pool drains."""
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(),
+                              n_kv_heads=2)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    draft = build_model(dcfg, device="cuda")
+    dparams = dict(params, blocks=_to_layers(params["blocks"], 1))
+    g = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (40, 7, 23, 5, 12)]
+    fns = (pw_kernel.paged_window_attention, flash_kernel.flash_attention,
+           decode_kernel.decode_attention)
+    streams = {}
+    for k in (3, 0):
+        before = {fn.__name__: fn.launches for fn in fns}
+        eng = ServingEngine(model, params, batch_size=4, max_seq=128,
+                            paged=paged, prefill_chunk=16, use_kernel=True,
+                            draft_model=draft if k else None,
+                            draft_params=dparams if k else None,
+                            speculation=k)
+        reqs = [Request(rid=i, prompt=list(p), max_new_tokens=9,
+                        speculation=0 if i == 1 else None)
+                for i, p in enumerate(prompts)]
+        assert len(eng.run(list(reqs))) == len(prompts)
+        streams[k] = reqs
+        if k:
+            m = eng.metrics
+            assert m["verify_steps"] > 0 and m["spec_proposed"] > 0
+            want = spec_launches(m, eng.draft, cfg.n_layers, 1, paged)
+            got = {fn.__name__: fn.launches - before[fn.__name__]
+                   for fn in fns}
+            assert got == want
+        if paged:
+            assert eng.pool_stats()["used"] == 0
+    for a, b in zip(streams[3], streams[0]):
+        assert a.out_tokens == b.out_tokens, a.rid
+        torch.testing.assert_close(torch.tensor(a.out_logprobs),
+                                   torch.tensor(b.out_logprobs),
+                                   atol=1e-3, rtol=1e-3)
+
+
+def test_speculating_dispatch_does_not_wait_for_the_device(cuda):
+    """A speculative tick (draft catch-up, k draws, verify, acceptance)
+    is launched without a synchronising call: the proposals stay on the
+    device. With sampled rows PyTorch's sync debug mode sees no
+    synchronising call; an all-greedy tick (k 2, no random draws: a
+    sampled draw adds ~200 launches, and k of them fill the device's
+    launch queue behind a long spin) returns behind a 200 ms spin before
+    the spin ends."""
+    import time
+    import warnings
+    cfg = get_config("qwen3-4b").reduced()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    for sampled in (True, False):
+        eng = ServingEngine(model, params, batch_size=4, max_seq=128,
+                            use_kernel=True, draft_model=model,
+                            draft_params=params,
+                            speculation=3 if sampled else 2)
+        reqs = _sampled_requests(cfg, 4, 40, 9)
+        if not sampled:
+            for r in reqs:
+                r.sampling = reqs[0].sampling          # greedy
+        assert eng.add_requests(reqs) == 4
+        eng.step()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            if not sampled:
+                torch.cuda._sleep(400_000_000)       # ~200 ms at 1.98 GHz
+            steps = eng.metrics["verify_steps"]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    t0 = time.perf_counter()
+                    tick = eng.dispatch_step()
+                    host_s = time.perf_counter() - t0
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            assert eng.metrics["verify_steps"] == steps + 1
+            if not sampled:
+                assert not torch.cuda.current_stream().query()
+                assert host_s < 0.1, host_s
+            tick.commit()
+            assert not [w for w in caught if "called a synchronizing CUDA "
+                        "operation" in str(w.message)]
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "stripes"])
+def test_moe_engine_on_card(cuda, paged):
+    """Reduced grok-1-314b (f32, 4 experts, top-2) on the card: solo
+    prefills, the paged kernel once per layer per step, the flash kernel
+    once per layer per prefill call (the decode kernel per stripe decode
+    step), and the CPU engine's streams on the same weights (logprobs
+    within 1e-4)."""
+    cfg = get_config("grok-1-314b").reduced()
+    params = build_model(cfg, device="cuda").init(0)
+    g = torch.Generator().manual_seed(10)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (40, 7, 23, 5, 12)]
+    fns = (pw_kernel.paged_window_attention, flash_kernel.flash_attention,
+           decode_kernel.decode_attention)
+    streams = {}
+    for device in ("cuda", "cpu"):
+        before = {fn.__name__: fn.launches for fn in fns}
+        eng = ServingEngine(build_model(cfg, device=device),
+                            params if device == "cuda"
+                            else _to(params, "cpu"), batch_size=4,
+                            max_seq=128, paged=paged, use_kernel=True,
+                            device=device)
+        reqs = [Request(rid=i, prompt=list(p), max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        assert len(eng.run(list(reqs))) == len(prompts)
+        m = eng.metrics
+        assert m["prefill_batches"] == m["prefills"] == len(prompts)
+        got = {fn.__name__: fn.launches - before[fn.__name__] for fn in fns}
+        L = cfg.n_layers if device == "cuda" else 0
+        assert got == {
+            "paged_window_attention": L * m["decode_steps"] if paged else 0,
+            "flash_attention": L * m["prefill_batches"],
+            "decode_attention": 0 if paged else L * m["decode_steps"]}
+        streams[device] = reqs
+    for a, b in zip(streams["cuda"], streams["cpu"]):
+        assert a.out_tokens == b.out_tokens, a.rid
+        torch.testing.assert_close(torch.tensor(a.out_logprobs),
+                                   torch.tensor(b.out_logprobs),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def _to_layers(tree, n):
+    """The first ``n`` layers of a tree of L-stacked tensors."""
+    return {k: _to_layers(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}

@@ -259,17 +259,24 @@ def test_dispatch_then_commit_is_step(stack):
 
 
 def test_later_slices_raise(stack):
+    """The frontends still raise; speculation and MoE serve now, with the
+    reference's ValueErrors (no draft; an MoE target speculating)."""
     _, _, model, params = stack
     kw = dict(batch_size=1, max_seq=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative decode"):
-        ServingEngine(model, params, speculation=2, draft_model=model,
-                      draft_params=params, **kw)
+    spec = ServingEngine(model, params, speculation=2, draft_model=model,
+                         draft_params=params, **kw)
+    assert spec.spec_k == 2 and spec.draft is not None
+    with pytest.raises(ValueError, match="draft model"):
+        ServingEngine(model, params, speculation=2, **kw)
     eng = ServingEngine(model, params, **kw)
     with pytest.raises(ValueError, match="device"):
         ServingEngine(model, params, batch_size=1, max_seq=32)  # cuda
-    mcfg = get_config("grok-1-314b").reduced()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServingEngine(build_model(mcfg, device="cpu"), params, **kw)
+    mmodel = build_model(get_config("grok-1-314b").reduced(), device="cpu")
+    mparams = mmodel.init(0)
+    assert ServingEngine(mmodel, mparams, **kw)._solo_prefill
+    with pytest.raises(ValueError, match="MoE"):
+        ServingEngine(mmodel, mparams, speculation=2, draft_model=mmodel,
+                      draft_params=mparams, **kw)
     wcfg = get_config("whisper-tiny").reduced()
     with pytest.raises(NotImplementedError, match="frontends"):
         ServingEngine(build_model(wcfg, device="cpu"), params, **kw)

@@ -333,3 +333,46 @@ def test_split_and_merge_matches_the_plain_versions(B, S, Hq, Hkv, hd, bs,
     for ref_o, ref_l in ((ro.numpy(), rl.numpy()), (go, gl)):
         _close(out, ref_o, TOL["f32"])
         _close(lse, ref_l, TOL["f32"])
+
+
+# ------------------------------------- head dims of the configs (112, 192)
+# kimi-k2-1t-a32b (hd 112) and nemotron-4-340b (hd 192): the kernel runs
+# them on its 128 / 192 instantiations with the padded dims zero
+SERVED_HEAD_DIMS = (112, 192)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("hd", SERVED_HEAD_DIMS)
+def test_plain_window_at_config_head_dims_matches_jax(hd, S, dt):
+    (jq, jk, jv, jt, jb), (q, pk, pv, table, base) = _both(
+        _window_case(2, S, 4, 2, hd, 8, 4, seed=hd), dt)
+    out, lse = paged_window_attention(q, pk, pv, table, base)
+    ko, kl = jax_window(jq, jk, jv, jt, jb)
+    go, gl = gathered_window_ref(jq, jk, jv, jt, jb)
+    for ref_o, ref_l in ((ko, kl), (go, gl)):
+        _close(out, ref_o, TOL[dt])
+        _close(lse, ref_l, TOL[dt])
+
+
+@pytest.mark.parametrize("bs", [8, 16, 64])
+@pytest.mark.parametrize("hd", SERVED_HEAD_DIMS)
+def test_plan_fits_config_head_dims(hd, bs):
+    """Decode, verify (S 5) and chunk windows at hd 112 / 192 plan within
+    the shared memory a CTA may use, on both routes, sized at the padded
+    head dim (128 / 192); head dims off the multiple-of-8 grid or above
+    256 raise."""
+    assert pw_kernel.padded_head_dim(hd) == {112: 128, 192: 192}[hd]
+    for S in (1, 5, 16, 64):
+        for itemsize in (2, 4):
+            p = pw_kernel.plan(S, 64, 8, hd, bs, 1024 // bs, itemsize)
+            assert p.smem <= pw_kernel.SMEM_LIMIT
+            assert p.mma == (itemsize == 2 and S >= pw_kernel.MMA_MIN_S)
+            if not p.mma:
+                assert p.smem == pw_kernel.smem_bytes(
+                    hd, itemsize, p.tile_blocks * bs,
+                    1 if p.split_blocks == p.tile_blocks else 2,
+                    min(S * 8, pw_kernel.ROW_TILE))
+    for bad in (44, 100, 260):
+        with pytest.raises(ValueError, match="head dim"):
+            pw_kernel.padded_head_dim(bad)

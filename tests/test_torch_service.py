@@ -168,15 +168,25 @@ def test_bad_speculation_payload_is_a_request_error(stack):
 
 # --------------------------------------------------- port-only behaviour
 def test_later_slice_knobs_raise(stack):
-    """Sharded plans and speculative decode are later slices: the service
-    raises for them as the engine does; the replicas default to the
-    card."""
+    """Sharded plans are a later slice: the service raises for them.
+    Speculation arms every replica's engine with its own draft runner,
+    and a self-drafted service replies with the plain service's tokens.
+    The replicas default to the card."""
     cfg, model, params = stack
     with pytest.raises(NotImplementedError, match="sharding"):
         _svc(model, params, plan=object())
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _svc(model, params, draft_model=model, draft_params=params,
-             speculation=2)
+    spec = _svc(model, params, name="lm_spec2", n_replicas=2, batch_size=2,
+                max_seq=32, draft_model=model, draft_params=params,
+                speculation=2)
+    plain = _svc(model, params, name="lm_plain", n_replicas=1,
+                 batch_size=2, max_seq=32)
+    engines = [r.handler.scheduler.engine for r in spec.replicas]
+    assert all(e.spec_k == 2 and e.draft is not None for e in engines)
+    assert engines[0].draft is not engines[1].draft
+    payload = {"prompt": [5, 6, 7, 8], "max_new_tokens": 6}
+    out = spec.replicas[0].handler(dict(payload))
+    assert out["tokens"] == plain.replicas[0].handler(dict(payload))["tokens"]
+    assert engines[0].metrics["verify_steps"] > 0
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="device"):
             make_lm_service("lm", model, params)

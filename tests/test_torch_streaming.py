@@ -8,9 +8,9 @@ arrival pattern changes whether a chunk window or a prefill computes a
 prompt's last logits, as the reference's test allows) — not to the
 reference's async run, whose
 async-vs-sync exactness fails on the reference side by a 1.4e-6 logprob
-difference between two XLA programs (ROADMAP.md Queue 3). Speculative
-decode is a later slice and has no grid entry here. Every threaded wait
-is bounded, then asserted complete.
+difference between two XLA programs (ROADMAP.md Queue 3). The
+speculative entry is a self-draft engine (k = 3), as in the reference's
+grid. Every threaded wait is bounded, then asserted complete.
 """
 import asyncio
 import threading
@@ -84,6 +84,7 @@ GRID = {
     "shared_prefix": ({}, None),
     "chunked": ({"prefill_chunk": 8}, [21, 30, 17, 26, 19]),
     "stripes": ({"paged": False}, [5, 9, 7, 12, 6]),
+    "speculative": ("SPEC", [5, 9, 7, 12, 6]),
 }
 
 
@@ -94,6 +95,9 @@ def test_async_streams_bit_identical_to_sync_drain(stack, config):
     and sampled."""
     cfg, model, params = stack
     kw, lens = GRID[config]
+    if kw == "SPEC":
+        kw = {"draft_model": model, "draft_params": params,
+              "speculation": 3}
     if config == "shared_prefix":
         stem = _prompts(cfg, [20], seed=7)[0]
         tails = _prompts(cfg, [3, 5, 2, 4], seed=8)
