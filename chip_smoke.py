@@ -40,7 +40,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    364 (q offset), ragged S = 37 and a 128 sliding window, and on the
    model's strided (B,S,H,hd) views (bitwise equal to contiguous ones),
    and at every head dim {64, 112, 128, 192, 256} and group size {1, 4,
-   5} over S 65 < T 300, causal and with a 24 sliding window;
+   5} over S 65 < T 300, causal and with a 24 sliding window; then
+   non-causal (``causal=False``) at the sentence encoder's shapes (B 8
+   and 16, 12 / 12 heads of 64, S = T = 24, the model's strided views)
+   and at S 37 < T 300, f32 within 3e-5 and bf16 within 3e-2;
    decode at B 8 over a 1024 stripe with ragged per-row lengths (1 and T
    among them) and one window, out and lse, the stripe read through
    strides bitwise equal to the contiguous layout, a scalar length equal
@@ -130,13 +133,29 @@ Phases (any failure exits non-zero; no result line is printed then):
    beside its bound (every expert's weights read once); then 1 layer in
    f32, the kernel path against the plain path: identical token
    streams, logprobs within 1e-3.
+11. The paper's CV parser (f32, random weights from seeded generators):
+   the cluster of ``examples/serve_parallel_pipeline.py``'s
+   ``build_deployment`` on the port — tika, bert, the five Bi-LSTM-LAN
+   NER services with 2 replicas each (the second a backup) behind
+   balancers, ``cv_parser`` with the thread dispatcher, under the
+   Supervisor — parses ``make_corpus(40, seed=1)`` after one warm-up
+   parse: every document returns all 5 fields; the flash kernel
+   launches exactly once per encoder layer per parse (4 x 40) and no
+   other kernel launches; the fields equal the sequential dispatcher's
+   and those of the port on the CPU with the same weights, label for
+   label (a difference prints the logit margins). Printed: p50 / p95 of
+   every stage's time beside the paper's 700 ms, the dispatch speedup,
+   and one parse's device busy time, idle share and top device ops
+   under ``torch.profiler``.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
 of its serve beside its plain version and its bound from bytes and flops
 (the paged kernel also at the verify window, S 5, and at decode with hd
 112 and 192: ``verify_*``, ``hd112_*``, ``hd192_*``; flash also at
-grok-1-314b's prefill, 48 / 8 heads: ``grok_*``)
+grok-1-314b's prefill, 48 / 8 heads: ``grok_*``; and non-causal at
+the sentence encoder's shape, f32, S = T = 24, B 8: ``encoder_*``, B 16:
+``encoder_b16_*``)
 (for the scans also at a 300-token prefill, with the latency floor of
 300 dependent steps, and WKV at the rwkv6 serve's co-batched prefill,
 B 2, T 64, each WKV shape with its launch plan): paged attention and
@@ -189,6 +208,12 @@ PREFILL_T = 300                 # scan prefill shape: the longest prompt
 HEAD_SHAPES = ((32, 8, 128), (25, 5, 64))
 STRIPE_T = 1024                 # the serves' max_seq
 COBATCH_WKV = (2, 64, 32, 64)   # the rwkv6 serve's two 64-token prompts
+# the CV parser's sentence encoder: 12 heads of 64, MAX_SENT_LEN 24
+# positions, sentence batches bucketed to 8 or 16
+ENC_H, ENC_HD, ENC_S, ENC_BATCHES = 12, 64, 24, (8, 16)
+NON_CAUSAL_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+CV_DOCS = 40
+PAPER_PARSE_MS = 700            # the paper's "less than 700 ms" a CV
 
 
 def phase(name):
@@ -452,11 +477,11 @@ def check_scan_vs_plain(name, op, case, shapes):
 
 
 # ------------------------------------------------ flash / decode kernel cases
-def _report(name, out, ref, dt):
+def _report(name, out, ref, dt, tol=TOL):
     err = (out.float() - ref.float()).abs().max().item()
-    print(f"{name}: max |kernel - plain| {err:.3e} (tol {TOL[dt]})")
-    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dt],
-                               rtol=TOL[dt])
+    print(f"{name}: max |kernel - plain| {err:.3e} (tol {tol[dt]})")
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol[dt],
+                               rtol=tol[dt])
     return err
 
 
@@ -508,6 +533,45 @@ def check_flash_vs_plain(flash_attention, attention_bshd):
                     worst = max(worst, _report(
                         f"flash hd {hd:3d} G {G} {str(dt):14s} S 65 T 300 "
                         f"window {win:2d}", out, ref, dt))
+    return max(worst, check_flash_non_causal(flash_attention,
+                                             attention_bshd))
+
+
+def encoder_qkv(Bq, S, dt, seed):
+    """q, k, v at the sentence encoder's attention (12 / 12 heads of 64)
+    as the model hands them over: (B,S,H,hd) views of its projections."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((Bq, S, ENC_H, ENC_HD), generator=g).to("cuda", dt)
+    kv = torch.randn((Bq, S, 2, ENC_H, ENC_HD), generator=g).to("cuda", dt)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def check_flash_non_causal(flash_attention, attention_bshd):
+    """The flash kernel with ``causal=False`` against its plain version:
+    at the sentence encoder's shapes (B 8 and 16, S = T = 24, one
+    part-filled KV tile), on the model's (B,S,H,hd) views, and at a
+    ragged S 37 < T 300; f32 within 3e-5, bf16 3e-2."""
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for Bq in ENC_BATCHES:
+            q, k, v = encoder_qkv(Bq, ENC_S, dt, seed=Bq)
+            out = attention_bshd(q, k, v, causal=False)
+            ref = attention_bshd(q, k, v, causal=False, force_ref=True)
+            torch.cuda.synchronize()
+            worst = max(worst, _report(
+                f"flash non-causal B {Bq:2d} Hq {ENC_H} Hkv {ENC_H} hd "
+                f"{ENC_HD} {str(dt):14s} S = T = {ENC_S} (model views)",
+                out, ref, dt, NON_CAUSAL_TOL))
+        g = torch.Generator().manual_seed(37)
+        q = torch.randn((2, ENC_H, 37, ENC_HD), generator=g).to("cuda", dt)
+        k, v = (torch.randn((2, ENC_H, 300, ENC_HD), generator=g)
+                .to("cuda", dt) for _ in range(2))
+        out = flash_attention(q, k, v, causal=False)
+        ref = flash_attention(q, k, v, causal=False, force_ref=True)
+        torch.cuda.synchronize()
+        worst = max(worst, _report(
+            f"flash non-causal B 2 Hq {ENC_H} Hkv {ENC_H} hd {ENC_HD} "
+            f"{str(dt):14s} S 37 T 300", out, ref, dt, NON_CAUSAL_TOL))
     return worst
 
 
@@ -773,21 +837,27 @@ def recurrent_card_vs_cpu(arch, get_config, build_model, ServingEngine,
         raise AssertionError(f"{arch}: logprobs differ by {lp_err}")
 
 
+def device_rows(prof):
+    """(self device time in us, event) of every device-side event
+    (kernels, copies), longest first: the CPU ops that launch them carry
+    the same time again."""
+    from torch.autograd import DeviceType
+    return sorted(((e.self_device_time_total, e)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[0])
+
+
 def profile_serve(run):
     """Where the time of a serve goes: ``run()`` (returning the engine
     and its wall time) again under torch.profiler (its overhead
     included), device time summed over kernels against the wall time,
     the top kernels, and the port's own kernels below them."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng, wall = run()
-    # device-side events only (kernels, copies): the CPU ops that launch
-    # them carry the same time again
-    rows = sorted(((e.self_device_time_total, e) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[0])
+    rows = device_rows(prof)
     busy_ms = sum(t for t, _ in rows) / 1e3
     steps = eng.metrics["decode_steps"]
     if not rows:
@@ -873,13 +943,14 @@ def sdpa_on_gathered(q, pk, pv, table, base):
                                                   enable_gqa=True)
 
 
-def flash_bound(Bq, Hq, Hkv, S, T, hd, dtype):
-    """q, k, v read once and out written once; causal flops 4 * B * Hq *
-    S * T * hd / 2 at the input type's peak."""
+def flash_bound(Bq, Hq, Hkv, S, T, hd, dtype, causal=True):
+    """q, k, v read once and out written once; flops 4 * B * Hq * S * T
+    * hd, halved when causal, at the input type's peak."""
     es = torch.finfo(dtype).bits // 8
     nbytes = es * Bq * hd * (2 * S * Hq + 2 * T * Hkv)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * Bq * Hq * S * T * hd / 2 / PEAK_FLOPS[dtype] * 1e3
+    t_ops = 4 * Bq * Hq * S * T * hd / (2 if causal else 1) \
+        / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -942,8 +1013,12 @@ def step_floor_ms(T):
 
 
 def _to(tree, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A tree of dicts and lists of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 # --------------------------------------------------------------- sampling
@@ -1556,6 +1631,140 @@ def spec_decode_engine(model, params, draft, dparams, vocab):
     return eng
 
 
+# ------------------------------------------------------------ the CV parser
+def build_cv_deployment(n_replicas=2):
+    """The paper's cluster as ``examples/serve_parallel_pipeline.py``'s
+    ``build_deployment`` stands it up, on the port and the card: tika and
+    bert, the five NER services with ``n_replicas`` replicas each (the
+    last a backup) behind a balancer, and ``cv_parser`` with the thread
+    dispatcher, under a Supervisor; no fault injection (a failed parse
+    would fail the smoke). Returns (supervisor, parser, the cv_parser
+    service, startup order)."""
+    import random
+    from repro_torch.core import router
+    from repro_torch.core.balancer import deploy
+    from repro_torch.core.parallel import ParallelDispatcher
+    from repro_torch.core.pipeline import CVParser, NERModel
+    from repro_torch.core.services import Replica, Service
+    from repro_torch.core.supervisor import Supervisor
+    sup = Supervisor()
+    sup.add(Service("tika", replicas=[Replica("tika/0", lambda p: p)],
+                    priority=0))
+    sup.add(Service("bert", replicas=[Replica("bert/0", lambda p: p)],
+                    priority=1, depends_on=("tika",)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    services = {}
+    for name in router.ROUTES:
+        ner = NERModel.create(name, gen, device="cuda")
+        reps = [Replica(f"{name}/{r}", ner,
+                        backup=(r == n_replicas - 1 and n_replicas > 1))
+                for r in range(n_replicas)]
+        svc = Service(name, replicas=reps, priority=2, depends_on=("bert",))
+        deploy(svc, max_fails=3, fail_timeout=2.0)
+        services[name] = sup.add(svc)
+    parser = CVParser.create(
+        SEED + 1, services=services, device="cuda",
+        dispatcher=ParallelDispatcher(mode="thread", max_workers=16,
+                                      rng=random.Random(7)))
+    cv = sup.add(Service("cv_parser", replicas=[Replica("cv/0",
+                                                        parser.parse)],
+                         priority=3, depends_on=tuple(services)))
+    return sup, parser, cv, sup.start_all()
+
+
+def cv_parser_on(parser, device, mode):
+    """``parser``'s weights copied to ``device``, each NER model behind a
+    one-replica service, with a ``mode`` dispatcher."""
+    from repro_torch.core.parallel import ParallelDispatcher
+    from repro_torch.core.pipeline import NERModel
+    from repro_torch.core.services import Replica, Service
+    services = {}
+    for name, svc in parser.services.items():
+        ner = svc.replicas[0].handler
+        own = NERModel(ner.name, ner.cfg, _to(ner.params, device),
+                       ner.tokenizer)
+        services[name] = Service(name, replicas=[Replica(f"{name}/0", own)])
+        services[name].start()
+    return replace(parser, services=services,
+                   encoder_params=_to(parser.encoder_params, device),
+                   classifier_params=_to(parser.classifier_params,
+                                             device),
+                   dispatcher=ParallelDispatcher(mode=mode))
+
+
+def cv_margins(parser, other, doc):
+    """Where two parsers of the same weights part on ``doc``: the largest
+    difference of their section logits and of each service's NER logits
+    over the document's sentences, beside the smallest top-2 margin."""
+    from repro_torch.core.pipeline import MAX_SENT_LEN
+    from repro_torch.models import bert_encoder, bilstm_lan
+    tok = parser.tokenizer
+    ids = np.array([tok.pad(tok.encode(s.tokens), MAX_SENT_LEN)
+                    for s in doc.sentences], np.int32)
+    out = []
+
+    def part(name, a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        top2 = a.topk(2, dim=-1).values
+        out.append(f"{name}: max |diff| {(a - b).abs().max().item():.3e}, "
+                   f"min margin {(top2[..., 0] - top2[..., 1]).min():.3e}")
+
+    logits = []
+    for p in (parser, other):
+        t = torch.from_numpy(ids).to(p.encoder_params["embed"].device)
+        emb = bert_encoder.encode_sentences(p.encoder_params, p.encoder_cfg,
+                                            t, t != 0)
+        logits.append(bert_encoder.classify_sections(p.classifier_params,
+                                                     emb))
+    part("sections", *logits)
+    for name in parser.services:
+        ners = [p.services[name].replicas[0].handler for p in (parser, other)]
+        part(name, *(bilstm_lan.forward(
+            n.params, n.cfg,
+            torch.from_numpy(ids).to(n.params["embed"].device))
+            for n in ners))
+    return "; ".join(out)
+
+
+def check_cv_fields(got, want, docs, parser, other, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            raise AssertionError(
+                f"{what}: document {i} fields differ "
+                f"({cv_margins(parser, other, docs[i])})")
+    print(f"{what}: fields equal on all {len(docs)} documents, label for "
+          f"label")
+
+
+def pct(vals, q):
+    """The q-quantile of ``vals`` (nearest rank)."""
+    vals = sorted(vals)
+    return vals[max(0, math.ceil(q * len(vals)) - 1)]
+
+
+def profile_parse(parse, doc):
+    """One parse under torch.profiler: device busy time against the wall,
+    the idle share, the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        parse(doc)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    if not rows:
+        raise AssertionError("profiler recorded no device time in a parse")
+    busy_ms = sum(t for t, _ in rows) / 1e3
+    print(f"profiled parse ({len(doc.sentences)} sentences): wall "
+          f"{wall_ms:.2f} ms, device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}), {sum(e.count for _, e in rows)} "
+          f"device ops")
+    for t, e in rows[:10]:
+        print(f"  {t / 1e3:9.4f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
 def moe_bound_ms(cfg):
     """The MoE FFN of one decode step's layer reads every expert's
     weights once (B 8 top-2 tokens reach every expert): bytes over
@@ -1930,6 +2139,92 @@ def main() -> int:
             serve_launches[name] = serve_launches.get(name, 0) + n
     print("launches summed over the serves:", json.dumps(serve_launches))
 
+    phase("11. the CV parser on the card, f32: cv_parser -> sentence "
+          "encoder (flash, causal=False) -> sections -> 5 NER services x 2 "
+          "replicas, thread dispatch")
+    from repro_torch.core import cvdata, router
+    from repro_torch.core.parallel import ParallelDispatcher
+    from repro_torch.models import bert_encoder
+    t0 = time.perf_counter()
+    sup, parser, cv, order = build_cv_deployment()
+    torch.cuda.synchronize()
+    n_enc = sum(t.numel() for t in _leaves(parser.encoder_params))
+    n_ner = sum(t.numel() for svc in parser.services.values()
+                for t in _leaves(svc.replicas[0].handler.params))
+    n_clf = bert_encoder.classifier_n_params(parser.classifier_params)
+    print(f"startup order: {' -> '.join(order)}; encoder "
+          f"{n_enc / 1e6:.2f} M params, classifier {n_clf:,}, 5 NER models "
+          f"{n_ner / 1e6:.2f} M, all f32: "
+          f"{4 * (n_enc + n_clf + n_ner) / 1e9:.3f} GB; create "
+          f"{time.perf_counter() - t0:.2f} s")
+    if n_clf != 154_604:
+        raise AssertionError(f"classifier has {n_clf} params, not 154,604")
+    docs = cvdata.make_corpus(CV_DOCS, seed=1)
+    buckets = {}
+    for d in docs:
+        n = len(d.sentences)
+        b = max(8, 1 << (n - 1).bit_length())
+        buckets[b] = buckets.get(b, 0) + 1
+    print(f"{CV_DOCS} documents, {sum(len(d.sentences) for d in docs)} "
+          f"sentences; encoder batches {json.dumps(buckets)}")
+    t0 = time.perf_counter()
+    cv(docs[0])                                      # warm-up
+    torch.cuda.synchronize()
+    print(f"warm-up parse {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    kernel_fns = (pw_kernel.paged_window_attention,
+                  flash_kernel.flash_attention, dec_kernel.decode_attention,
+                  wkv_kernel.wkv_scan, ssm_kernel.ssm_scan)
+    for fn in kernel_fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = [cv(d) for d in docs]
+    cv_wall = time.perf_counter() - t0
+    cv_launches = {fn.__name__: fn.launches for fn in kernel_fns}
+    print("launches over the parses:", json.dumps(cv_launches))
+    want = {fn.__name__: 0 for fn in kernel_fns}
+    want["flash_attention"] = parser.encoder_cfg.n_layers * len(docs)
+    if cv_launches != want:
+        raise AssertionError(f"launches {cv_launches} != {want}: flash once "
+                             f"per encoder layer per parse, nothing else")
+    for i, o in enumerate(outs):
+        if set(o["fields"]) != set(router.ROUTES):
+            raise AssertionError(f"document {i}: fields {sorted(o['fields'])}")
+    fields = [o["fields"] for o in outs]
+    print(f"{CV_DOCS} parses in {cv_wall:.3f} s "
+          f"({CV_DOCS / cv_wall:.1f} CVs/s); entities found: "
+          + json.dumps({k: sum(len(f[k]) for f in fields)
+                        for k in router.ROUTES}))
+    print(f"stage timings over {CV_DOCS} parses (ms, p50 / p95), "
+          f"{card}:")
+    for key in ("tika", "bert", "sectioning", "parallel_services", "total"):
+        vals = [o["timings"][key] * 1e3 for o in outs]
+        print(f"  {key:18s} {pct(vals, 0.5):9.3f} / {pct(vals, 0.95):9.3f}")
+    speedups = [o["dispatch"].speedup for o in outs]
+    print(f"  dispatch speedup (sum of service times / fan-out wall) p50 "
+          f"{pct(speedups, 0.5):.3f}, p95 {pct(speedups, 0.95):.3f}")
+    total_p50 = pct([o["timings"]["total"] * 1e3 for o in outs], 0.5)
+    print(f"  total p50 {total_p50:.3f} ms beside the paper's < "
+          f"{PAPER_PARSE_MS} ms a CV (a recorded comparison, not a gate)")
+    seq = replace(parser, dispatcher=ParallelDispatcher(mode="sequential"))
+    seq_outs = [seq.parse(d) for d in docs]
+    check_cv_fields([o["fields"] for o in seq_outs], fields, docs, parser,
+                    parser, "sequential vs thread dispatch, card")
+    for key in ("parallel_services", "total"):
+        vals = [o["timings"][key] * 1e3 for o in seq_outs]
+        print(f"  sequential dispatch {key:18s} p50 {pct(vals, 0.5):9.3f} "
+              f"/ p95 {pct(vals, 0.95):9.3f} ms")
+    cpu = cv_parser_on(parser, "cpu", "sequential")
+    check_cv_fields([cpu.parse(d)["fields"] for d in docs], fields, docs,
+                    parser, cpu, "card vs the port on the CPU, same weights")
+    profile_parse(parser.parse, max(docs, key=lambda d: len(d.sentences)))
+    profile_parse(parser.parse, docs[0])
+    parser.dispatcher.shutdown()
+    sup.stop_all()
+    for name, n in cv_launches.items():
+        serve_launches[name] = serve_launches.get(name, 0) + n
+    del sup, parser, cv, seq, seq_outs, cpu
+    torch.cuda.empty_cache()
+
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
@@ -2022,6 +2317,23 @@ def main() -> int:
     print(f"flash B 1 S = T = {PREFILL_T} Hq 48 Hkv {Hkv} hd {hd} (G 6) "
           f"bf16: kernel {fg_ms:.4f} ms, plain {fgp_ms:.4f} ms, sdpa "
           f"(causal) {fgl_ms:.4f} ms, bound {fgb_ms:.5f} ms ({fgb_by})")
+    # the sentence encoder's attention: non-causal, f32, S = T = 24, at
+    # both sentence-batch buckets, on the model's (B,S,H,hd) views
+    enc_times = {}
+    for Bq in ENC_BATCHES:
+        q, k, v = encoder_qkv(Bq, ENC_S, torch.float32, seed=21)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        e_ms = time_ms(lambda: attention_bshd(q, k, v, causal=False), flush)
+        ep_ms = time_ms(lambda: attention_bshd(q, k, v, causal=False,
+                                               force_ref=True), flush)
+        el_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                        flush)
+        eb_ms, eb_by = flash_bound(Bq, ENC_H, ENC_H, ENC_S, ENC_S, ENC_HD,
+                                   torch.float32, causal=False)
+        enc_times[Bq] = (e_ms, ep_ms, eb_ms, eb_by, el_ms)
+        print(f"flash non-causal B {Bq} S = T = {ENC_S} Hq = Hkv = {ENC_H} "
+              f"hd {ENC_HD} f32: kernel {e_ms:.4f} ms, plain {ep_ms:.4f} "
+              f"ms, sdpa {el_ms:.4f} ms, bound {eb_ms:.5f} ms ({eb_by})")
     time_sampler(sampling)
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
@@ -2084,7 +2396,11 @@ def main() -> int:
     next(r for r in rows if r["name"] == "flash_attention").update(
         s16_ms=f16_ms, s16_library_ms=fl16_ms, tiny_op_ms=tiny_ms,
         grok_ms=fg_ms, grok_plain_ms=fgp_ms, grok_library_ms=fgl_ms,
-        grok_bound_ms=fgb_ms, grok_bound_by=fgb_by)
+        grok_bound_ms=fgb_ms, grok_bound_by=fgb_by,
+        **{f"encoder{tag}_{key}": val
+           for tag, Bq in (("", 8), ("_b16", 16))
+           for key, val in zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms"), enc_times[Bq])})
     q_ms, qp_ms, qb_ms, qb_by, ql_ms, qf_ms = dec_times["qwen3-4b"]
     next(r for r in rows if r["name"] == "decode_attention").update(
         floor_ms=dec_times["hymba-1.5b"][5], qwen3_ms=q_ms,
@@ -2099,8 +2415,8 @@ def main() -> int:
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v)
         else:
             yield v

@@ -35,6 +35,12 @@ def _launcher():
     return fn
 
 
+def build():
+    """Build and load the library now, not at the first launch (a caller
+    whose first launch may come from a worker thread)."""
+    _launcher()
+
+
 def check_strided(name, t):
     """The kernels take any strides but the last, which must be 1, and
     index in 32-bit elements."""

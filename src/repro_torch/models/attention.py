@@ -68,10 +68,11 @@ def qkv(x, p, cfg, positions=None):
             positions = torch.arange(S, device=x.device)[None, :]
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope != "none":
+    elif cfg.rope not in ("none", "learned"):
+        # "learned": the caller adds its position table to the embedding
         raise NotImplementedError(
-            f"rope={cfg.rope!r}: mrope / learned positions are the "
-            "'frontends' slice of ROADMAP.md")
+            f"rope={cfg.rope!r}: mrope is the 'frontends' slice of "
+            "ROADMAP.md")
     return q, k, v
 
 

@@ -862,8 +862,11 @@ def test_stripe_attention_engine_on_card(cuda, name, chunk):
 
 
 def _to(tree, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 # ------------------------------------------------- sampler and serving
@@ -1137,3 +1140,70 @@ def _to_layers(tree, n):
     """The first ``n`` layers of a tree of L-stacked tensors."""
     return {k: _to_layers(v, n) if isinstance(v, dict) else v[:n]
             for k, v in tree.items()}
+
+
+# ------------------------------------------------------------ CV parser
+# the sentence encoder's attention: B x S x T (12 / 12 heads of 64, at
+# its sentence-batch buckets and S = T = 24, one part-filled KV tile),
+# and a ragged S < T
+ENCODER_FLASH = [(8, 24, 24), (16, 24, 24), (2, 37, 300)]
+NON_CAUSAL_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T", ENCODER_FLASH)
+def test_flash_non_causal_at_encoder_shapes(cuda, dt, B, S, T):
+    """``causal=False`` on the model's (B,S,H,hd) views against the plain
+    version: f32 within 3e-5, bf16 within 3e-2."""
+    g = torch.Generator().manual_seed(B + S + T)
+    q = torch.randn((B, S, 12, 64), generator=g).to("cuda", dt)
+    kv = torch.randn((B, T, 2, 12, 64), generator=g).to("cuda", dt)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    before = flash_kernel.flash_attention.launches
+    out = attention_bshd(q, k, v, causal=False)
+    assert flash_kernel.flash_attention.launches == before + 1
+    ref = attention_bshd(q, k, v, causal=False, force_ref=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=NON_CAUSAL_TOL[dt],
+                               rtol=NON_CAUSAL_TOL[dt])
+
+
+def test_cv_parser_on_card_matches_cpu(cuda):
+    """``CVParser.create`` on the card (thread dispatch) against the port
+    on the CPU with the same weights (sequential): fields equal label for
+    label on ``make_corpus(8, seed=1)``, and the flash kernel launched
+    once per encoder layer per parse, nothing else."""
+    from repro_torch.core import cvdata
+    from repro_torch.core.parallel import ParallelDispatcher
+    from repro_torch.core.pipeline import CVParser, NERModel
+    from repro_torch.core.services import Replica, Service
+
+    parser = CVParser.create(0)
+    assert parser.encoder_params["embed"].is_cuda
+    services = {}
+    for name, svc in parser.services.items():
+        ner = svc.replicas[0].handler
+        assert ner.params["embed"].is_cuda
+        services[name] = Service(name, replicas=[Replica(name, NERModel(
+            name, ner.cfg, _to(ner.params, "cpu"), ner.tokenizer))])
+        services[name].start()
+    cpu = dataclasses.replace(
+        parser, services=services,
+        encoder_params=_to(parser.encoder_params, "cpu"),
+        classifier_params=_to(parser.classifier_params, "cpu"),
+        dispatcher=ParallelDispatcher(mode="sequential"))
+    docs = cvdata.make_corpus(8, seed=1)
+    fns = (pw_kernel.paged_window_attention, flash_kernel.flash_attention,
+           decode_kernel.decode_attention, wkv_kernel.wkv_scan,
+           ssm_kernel.ssm_scan)
+    before = {fn.__name__: fn.launches for fn in fns}
+    outs = [parser.parse(d) for d in docs]
+    got = {fn.__name__: fn.launches - before[fn.__name__] for fn in fns}
+    want = dict.fromkeys(got, 0)
+    want["flash_attention"] = parser.encoder_cfg.n_layers * len(docs)
+    assert got == want
+    for d, o in zip(docs, outs):
+        assert o["fields"] == cpu.parse(d)["fields"]
+        assert o["dispatch"].mode == "thread"
+    parser.dispatcher.shutdown()
