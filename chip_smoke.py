@@ -43,7 +43,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    5} over S 65 < T 300, causal and with a 24 sliding window; then
    non-causal (``causal=False``) at the sentence encoder's shapes (B 8
    and 16, 12 / 12 heads of 64, S = T = 24, the model's strided views)
-   and at S 37 < T 300, f32 within 3e-5 and bf16 within 3e-2;
+   and at S 37 < T 300, f32 within 3e-5 and bf16 within 3e-2; then at
+   the frontends' shapes: non-causal at whisper-tiny's encoder (B 4, 6 /
+   6 heads of 64, S = T = 1500, not a multiple of the tiles) and
+   cross-attention (S 1 and 16 < T = 1500), f32 within 3e-5, bf16 3e-2;
+   causal at qwen2-vl-2b's prefill (B 4, 12 / 2 heads of 128, S = T =
+   320), and decode at both frontends' stripes (6 / 6 of 64 over 128, 12
+   / 2 of 128 over 512, B 4, ragged lengths), f32 1e-4, bf16 3e-2;
    decode at B 8 over a 1024 stripe with ragged per-row lengths (1 and T
    among them) and one window, out and lse, the stripe read through
    strides bitwise equal to the contiguous layout, a scalar length equal
@@ -147,6 +153,29 @@ Phases (any failure exits non-zero; no result line is printed then):
    every stage's time beside the paper's 700 ms, the dispatch speedup,
    and one parse's device busy time, idle share and top device ops
    under ``torch.profiler``.
+12. The frontends at full width, bf16, random weights from seed 0:
+   whisper-tiny (4 encoder + 4 decoder layers, d 384, 6 heads of 64,
+   vocab 51,865, 1500 frames) and qwen2-vl-2b (28 layers, d 1536, 12 / 2
+   heads of 128, vocab 151,936, a 256-patch prefix with M-RoPE ids). B 4
+   rows of seeded frames or patch embeds with text of 5 / 16 / 33 / 64
+   (whisper) or 5 / 17 / 33 / 64 tokens (qwen2-vl) right-padded with
+   ``last_idx``; one ``prefill``, its cache moved into ``init_cache(4,
+   128)`` or ``init_cache(4, 512)`` stripes, then 16 greedy
+   ``decode_step`` calls at per-row lengths. Launches counted from 0 over
+   the prefill and over the decode steps, exactly: flash 12 at whisper's
+   prefill (encoder, self, cross) and 4 a step (cross-attention), 28 at
+   qwen2-vl's; the decode kernel once per layer a step; nothing else.
+   Logits finite, tokens inside the unpadded vocabulary. Printed: prefill
+   ms, ms a decode step, tokens/s, then the run under ``torch.profiler``.
+12b. The frontends in f32 at full width (qwen2-vl-2b cut to 4 layers),
+   seed-0 weights: the port on the card against the port on the CPU
+   (prefill logits within 1e-3, 8 greedy tokens identical, logprobs
+   within 1e-3; the top-2 margins printed on a difference); qwen2-vl's
+   paged decode through the paged kernel (block size 16, a hand-built
+   block table) against its stripe decode (tokens identical, logprobs
+   within 1e-3, 4 paged launches a step); a 4-token ``verify_step``
+   window on stripes against 4 ``decode_step`` calls (logits within
+   1e-3), both configs.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
@@ -155,7 +184,10 @@ of its serve beside its plain version and its bound from bytes and flops
 112 and 192: ``verify_*``, ``hd112_*``, ``hd192_*``; flash also at
 grok-1-314b's prefill, 48 / 8 heads: ``grok_*``; and non-causal at
 the sentence encoder's shape, f32, S = T = 24, B 8: ``encoder_*``, B 16:
-``encoder_b16_*``)
+``encoder_b16_*``; and bf16 at whisper-tiny's encoder, S = T = 1500:
+``whisper_enc_*``, its cross-attention decode, S 1 against T 1500, beside
+the decode kernel on the same inputs: ``whisper_xattn_decode_*``, and
+qwen2-vl-2b's prefill, B 4, S = T = 320: ``qwen2vl_prefill_*``)
 (for the scans also at a 300-token prefill, with the latency floor of
 300 dependent steps, and WKV at the rwkv6 serve's co-batched prefill,
 B 2, T 64, each WKV shape with its launch plan): paged attention and
@@ -168,8 +200,10 @@ the flash row its time and SDPA's at S = T = 16 and that of one tiny
 elementwise kernel (what a launch costs this timing before any work),
 the scan rows their prefill numbers (``prefill_*``), the WKV row also
 its co-batched prefill numbers (``cobatch_*``), the decode row its
-qwen3-4b numbers (``qwen3_*``) and floors (``floor_ms``,
-``qwen3_floor_ms``). The sampler's device and host time per sampled and
+qwen3-4b numbers (``qwen3_*``), its numbers at the frontends' stripes
+(``whisper_*``: B 4 over 128, 6 / 6 heads of 64; ``qwen2vl_*``: B 4 over
+512, 12 / 2 heads of 128; phase 12's last lengths) and floors
+(``floor_ms``, ``qwen3_floor_ms``). The sampler's device and host time per sampled and
 all-greedy step at B 8, V 151,936 is printed beside them.
 ``scaled_dot_product_attention`` is the yardstick of the attention
 kernels (on the gathered KV, causal, or with a length mask; the port
@@ -187,6 +221,7 @@ import time
 from dataclasses import replace
 from functools import partial
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -575,11 +610,11 @@ def check_flash_non_causal(flash_attention, attention_bshd):
     return worst
 
 
-def stripe_case(Bq, Hq, Hkv, hd, dt, seed):
+def stripe_case(Bq, Hq, Hkv, hd, dt, seed, T=STRIPE_T):
     """q (B,Hq,hd) and a (B,T,Hkv,hd) K / V stripe pair on the card."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((Bq, Hq, hd), generator=g).to("cuda", dt)
-    k, v = (torch.randn((Bq, STRIPE_T, Hkv, hd), generator=g).to("cuda", dt)
+    k, v = (torch.randn((Bq, T, Hkv, hd), generator=g).to("cuda", dt)
             for _ in range(2))
     return q, k, v
 
@@ -897,19 +932,20 @@ def time_ms(fn, flush, iters=30, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def time_decode(decode_attention, flush, Hq, Hkv, hd, lens):
-    """The decode kernel at B 8 over a 1024 stripe read in place (bf16)
-    at a serve's lengths: kernel, plain version, SDPA with a length mask
-    on the contiguous (B,Hkv,T,hd) copy, the bound; then the kernel with
-    every row of length 1 (its floor). Returns (kernel, plain, bound,
-    bound by, sdpa, floor)."""
+def time_decode(decode_attention, flush, Hq, Hkv, hd, lens, T=STRIPE_T):
+    """The decode kernel at B = len(lens) over a T stripe read in place
+    (bf16) at a serve's lengths: kernel, plain version, SDPA with a
+    length mask on the contiguous (B,Hkv,T,hd) copy, the bound; then the
+    kernel with every row of length 1 (its floor). Returns (kernel,
+    plain, bound, bound by, sdpa, floor)."""
     F = torch.nn.functional
-    q, k_st, v_st = stripe_case(B, Hq, Hkv, hd, torch.bfloat16, seed=13)
+    q, k_st, v_st = stripe_case(len(lens), Hq, Hkv, hd, torch.bfloat16,
+                                seed=13, T=T)
     k, v = k_st.transpose(1, 2), v_st.transpose(1, 2)   # stripe, in place
     n = torch.tensor(lens, dtype=torch.int32, device="cuda")
     ones = torch.ones_like(n)
     kc, vc = k.contiguous(), v.contiguous()
-    mask = (torch.arange(STRIPE_T, device="cuda")[None] < n[:, None].long()
+    mask = (torch.arange(T, device="cuda")[None] < n[:, None].long()
             )[:, None, None, :]                           # (B,1,1,T)
     d_ms = time_ms(lambda: decode_attention(q, k, v, n), flush)
     dp_ms = time_ms(lambda: decode_attention(q, k, v, n, force_ref=True),
@@ -918,7 +954,7 @@ def time_decode(decode_attention, flush, Hq, Hkv, hd, lens):
         q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), flush)
     df_ms = time_ms(lambda: decode_attention(q, k, v, ones), flush)
     db_ms, db_by = decode_bound(lens, Hq, Hkv, hd, torch.bfloat16)
-    print(f"decode B {B} T {STRIPE_T} Hq {Hq} Hkv {Hkv} hd {hd} bf16, "
+    print(f"decode B {len(lens)} T {T} Hq {Hq} Hkv {Hkv} hd {hd} bf16, "
           f"lengths {lens}: kernel {d_ms:.4f} ms, plain {dp_ms:.4f} ms, "
           f"sdpa (length mask) {dl_ms:.4f} ms, bound {db_ms:.5f} ms "
           f"({db_by}); every length 1: kernel {df_ms:.4f} ms")
@@ -1775,6 +1811,385 @@ def moe_bound_ms(cfg):
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
+# ------------------------------------------------------------ the frontends
+FRONT_B = 4                     # rows of a frontend run
+FRONT_STEPS = 16                # greedy decode steps of phase 12
+CHECK_STEPS = 8                 # decode steps of phase 12b's comparisons
+WINDOW_S = 4                    # phase 12b's verify window
+FRONT_BS = 16                   # block size of qwen2-vl's paged pool
+# (Hq, Hkv, hd): whisper-tiny's self- and cross-attention, qwen2-vl-2b's
+WHISPER_HEADS, QWEN2VL_HEADS = (6, 6, 64), (12, 2, 128)
+N_FRAMES, N_PATCHES = 1500, 256
+# text prompt lengths (right-padded to the longest) and stripe capacity
+FRONT_RUNS = {"whisper-tiny": ((5, 16, 33, 64), 128),
+              "qwen2-vl-2b": ((5, 17, 33, 64), 512)}
+QWEN2VL_T = N_PATCHES + 64      # qwen2-vl's prefill: patches + text
+
+
+def _frontend_qkv(Bq, S, T, heads, dt, seed):
+    """q (B,S,Hq,hd) and k / v (B,T,Hkv,hd) on the card as the model hands
+    them to flash: views of one K / V projection."""
+    Hq, Hkv, hd = heads
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((Bq, S, Hq, hd), generator=g).to("cuda", dt)
+    kv = torch.randn((Bq, T, 2, Hkv, hd), generator=g).to("cuda", dt)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def check_frontend_kernels(attention_bshd, decode_attention):
+    """The kernels at the frontends' shapes against their plain versions:
+    flash non-causal at whisper-tiny's encoder (B 4, S = T = 1500, 6 / 6
+    heads of 64) and cross-attention (S 1 and 16 < T = 1500), f32 within
+    3e-5, bf16 3e-2; flash causal at qwen2-vl-2b's prefill (B 4, S = T =
+    320, 12 / 2 heads of 128, G 6); decode at both frontends' stripes
+    (whisper B 4 over 128, qwen2-vl B 4 over 512, ragged lengths with 1
+    and T among them), out and lse, f32 1e-4, bf16 3e-2. Returns the
+    largest error of flash and of decode."""
+    worst = dec_worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for S in (N_FRAMES, 1, 16):
+            q, k, v = _frontend_qkv(FRONT_B, S, N_FRAMES, WHISPER_HEADS, dt,
+                                    seed=S)
+            out = attention_bshd(q, k, v, causal=False)
+            ref = attention_bshd(q, k, v, causal=False, force_ref=True)
+            torch.cuda.synchronize()
+            worst = max(worst, _report(
+                f"flash non-causal B {FRONT_B} Hq 6 Hkv 6 hd 64 "
+                f"{str(dt):14s} S {S:4d} T {N_FRAMES} (whisper-tiny)",
+                out, ref, dt, NON_CAUSAL_TOL))
+        q, k, v = _frontend_qkv(FRONT_B, QWEN2VL_T, QWEN2VL_T, QWEN2VL_HEADS,
+                                dt, seed=7)
+        out = attention_bshd(q, k, v)
+        ref = attention_bshd(q, k, v, force_ref=True)
+        torch.cuda.synchronize()
+        worst = max(worst, _report(
+            f"flash causal B {FRONT_B} Hq 12 Hkv 2 hd 128 {str(dt):14s} "
+            f"S = T = {QWEN2VL_T} (qwen2-vl-2b)", out, ref, dt))
+        for heads, T, lens in ((WHISPER_HEADS, 128, [1, 128, 37, 80]),
+                               (QWEN2VL_HEADS, 512, [261, 512, 1, 336])):
+            Hq, Hkv, hd = heads
+            g = torch.Generator().manual_seed(T + hd)
+            q = torch.randn((FRONT_B, Hq, hd), generator=g).to("cuda", dt)
+            k, v = (torch.randn((FRONT_B, T, Hkv, hd), generator=g)
+                    .to("cuda", dt).transpose(1, 2) for _ in range(2))
+            n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out, lse = decode_attention(q, k, v, n)
+            ro, rl = decode_attention(q, k, v, n, force_ref=True)
+            torch.cuda.synchronize()
+            name = f"decode B {FRONT_B} T {T} Hq {Hq} Hkv {Hkv} hd {hd} " \
+                   f"{str(dt):14s} lengths {lens}"
+            dec_worst = max(dec_worst, _report(name + " out", out, ro, dt),
+                            _report(name + " lse", lse, rl, dt))
+    return worst, dec_worst
+
+
+def frontend_inputs(cfg, seed, device="cuda"):
+    """FRONT_B rows of seeded text, right-padded (pad id 0) to the longest
+    of the config's prompt lengths, each row's last text index, and the
+    frontend's seeded frames (B, 1500, d) or patch embeds (B, 256, d), all
+    on ``device``; frames / patches in cfg.dtype."""
+    lens, _ = FRONT_RUNS[cfg.name]
+    g = torch.Generator(device=device).manual_seed(seed)
+    S = max(lens)
+    toks = torch.randint(2, cfg.vocab_size, (FRONT_B, S), generator=g,
+                         device=device, dtype=torch.int32)
+    last = torch.tensor(lens, device=device) - 1
+    toks = toks * (torch.arange(S, device=device)[None] <= last[:, None])
+    batch = {"tokens": toks}
+    n, key = (cfg.n_frames, "frames") if cfg.frontend == "audio" \
+        else (cfg.n_patches, "patch_embeds")
+    batch[key] = torch.randn((FRONT_B, n, cfg.d_model), generator=g,
+                             device=device).to(cfg.dtype)
+    return batch, last
+
+
+def frontend_prefill(model, params, batch, last):
+    """One prefill of right-padded rows: (logits (B,1,V), fresh cache,
+    each row's cached length, seconds)."""
+    sync(model.device)
+    t0 = time.perf_counter()
+    logits, kv = model.prefill(params, batch, last_idx=last)
+    sync(model.device)
+    prefix = model.cfg.n_patches if model.cfg.frontend == "vision" else 0
+    return logits, kv, (last + 1 + prefix).to(torch.int32), \
+        time.perf_counter() - t0
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def stripes_from(model, kv, cap):
+    """``init_cache(B, cap)`` stripes holding a prefill's cache."""
+    cache = model.init_cache(FRONT_B, cap)
+    S = kv["k"].shape[2]
+    for key, t in kv.items():
+        if key in ("k", "v"):
+            cache[key][:, :, :S] = t
+        else:
+            cache[key].copy_(t)
+    return cache
+
+
+def pool_from(model, kv, cap):
+    """A paged pool (block size FRONT_BS) holding a prefill's K / V and a
+    hand-built block table: row b owns blocks b * cap / bs + 1 onwards,
+    in reverse order; block 0 is scratch."""
+    per_row = cap // FRONT_BS
+    pool = model.init_paged_cache(FRONT_B * per_row + 1, FRONT_BS)
+    table = torch.stack([torch.arange(per_row, 0, -1) + b * per_row
+                         for b in range(FRONT_B)]).to(model.device,
+                                                      torch.int32)
+    S = kv["k"].shape[2]
+    pos = torch.arange(S, device=model.device)
+    for b in range(FRONT_B):
+        blocks = table[b].long()[pos // FRONT_BS]
+        for key in ("k", "v"):
+            pool[key][:, blocks, pos % FRONT_BS] = kv[key][:, b]
+    return pool, table
+
+
+def greedy_decode(model, params, logits, cache, n, steps, **kw):
+    """``steps`` greedy decode steps from a prefill's logits at per-row
+    lengths ``n``: (tokens (B, steps), their logprobs, every step's
+    logits (B, steps, V), the top-2 margin of each choice, seconds)."""
+    toks, lps, outs, margins = [], [], [], []
+    cur = logits[:, -1]
+    sync(model.device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lp = torch.log_softmax(cur.float(), dim=-1)
+        top = torch.topk(cur.float(), 2, dim=-1).values
+        tok = lp.argmax(dim=-1)
+        toks.append(tok)
+        lps.append(lp.gather(1, tok[:, None])[:, 0])
+        margins.append(top[:, 0] - top[:, 1])
+        cur = model.decode_step(params, tok[:, None].to(torch.int32), cache,
+                                n, **kw)[0][:, -1]
+        outs.append(cur)
+        n = n + 1
+    sync(model.device)
+    return (torch.stack(toks, 1), torch.stack(lps, 1), torch.stack(outs, 1),
+            torch.stack(margins, 1), time.perf_counter() - t0)
+
+
+def check_frontend_tokens(cfg, toks, lps, logits):
+    if not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    if logits.shape[-1] != -(-cfg.vocab_size // 128) * 128:
+        raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)}")
+    if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"{cfg.name}: a token out of the vocabulary")
+    if not (torch.isfinite(lps).all() and (lps <= 0).all()):
+        raise AssertionError(f"{cfg.name}: bad logprobs")
+
+
+def frontend_serve(name, get_config, build_model, kernel_fns):
+    """Phase 12 for one config: full width, bf16, seed-0 weights; one
+    prefill of FRONT_B right-padded rows with the frontend's input, its
+    cache moved into ``init_cache(B, cap)`` stripes, FRONT_STEPS greedy
+    decode steps at per-row lengths. Kernel launches are counted from 0
+    over the prefill and over the decode steps, and must be exactly: flash
+    once per attention layer at the prefill (whisper: 4 encoder + 4 self
+    + 4 cross) and once per cross-attention layer a decode step, the
+    decode kernel once per layer a decode step, the others never. Then
+    the same run under torch.profiler. Returns ({name: launches}, the
+    rows' valid lengths at the last step, the stripe capacity)."""
+    cfg = get_config(name)
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    lens, cap = FRONT_RUNS[name]
+    print(f"--- {name}: {cfg.n_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder layers, {cfg.n_frames} "
+             "frames" if cfg.encoder_layers else
+             f", {cfg.n_patches} patches (M-RoPE)")
+          + f", d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, vocab {cfg.vocab_size}: "
+          f"{sum(t.numel() for t in leaves) / 1e9:.3f} B params, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} "
+          f"GB, init {time.perf_counter() - t0:.1f} s; text {list(lens)}, "
+          f"B {FRONT_B}, stripes of {cap}")
+    batch, last = frontend_inputs(cfg, SEED, model.device)
+    L = cfg.n_layers
+    cross = cfg.cross_attention
+    want_prefill = {"flash_attention": L + (cfg.encoder_layers + L
+                                            if cross else 0)}
+    want_step = {"decode_attention": L, "flash_attention": L if cross else 0}
+
+    def run():
+        for fn in kernel_fns:
+            fn.launches = 0
+        logits, kv, n, t_pre = frontend_prefill(model, params, batch, last)
+        pre = {fn.__name__: fn.launches for fn in kernel_fns}
+        for fn in kernel_fns:
+            fn.launches = 0
+        out = greedy_decode(model, params, logits, stripes_from(model, kv,
+                                                                cap),
+                            n, FRONT_STEPS)
+        dec = {fn.__name__: fn.launches for fn in kernel_fns}
+        return logits, n, out, pre, dec, t_pre
+
+    run()                                            # warm-up
+    logits, n, (toks, lps, outs, _, t_dec), pre, dec, t_pre = run()
+    check_frontend_tokens(cfg, toks, lps, logits)
+    check_frontend_tokens(cfg, toks, lps, outs)
+    for what, got, per in (("prefill", pre, want_prefill),
+                           ("decode", dec, {k: FRONT_STEPS * v
+                                            for k, v in want_step.items()})):
+        want = {fn.__name__: per.get(fn.__name__, 0) for fn in kernel_fns}
+        print(f"{what} launches {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"{name} {what} launches {got} != {want}")
+    n_tok = FRONT_B * FRONT_STEPS
+    print(f"prefill {t_pre * 1e3:.2f} ms; {FRONT_STEPS} decode steps "
+          f"{t_dec * 1e3:.2f} ms ({t_dec / FRONT_STEPS * 1e3:.3f} ms a step, "
+          f"{n_tok / t_dec:.1f} tok/s); first tokens "
+          f"{toks[:, :4].tolist()}")
+
+    def profiled():
+        t0 = time.perf_counter()
+        run()
+        return SimpleNamespace(metrics={"decode_steps": FRONT_STEPS}), \
+            time.perf_counter() - t0
+
+    profile_serve(profiled)
+    launches = {k: pre[k] + dec[k] for k in pre}
+    del params, model
+    torch.cuda.empty_cache()
+    return launches, (n + FRONT_STEPS).tolist(), cap
+
+
+def frontend_checks(name, get_config, build_model, paged_fn):
+    """Phase 12b for one config, f32, full width (qwen2-vl-2b cut to 4
+    layers), seed-0 weights: the port on the card against the port on
+    the CPU (prefill logits within 1e-3, CHECK_STEPS greedy tokens
+    identical, logprobs within 1e-3; the top-2 margins printed on a
+    difference); qwen2-vl's paged decode through the paged kernel (a
+    hand-built block table) against its stripe decode (tokens identical,
+    logprobs within 1e-3, the kernel once per layer a step); a verify
+    window of WINDOW_S tokens on stripes against as many decode steps
+    (logits within 1e-3)."""
+    cfg = replace(get_config(name), dtype=torch.float32)
+    if cfg.frontend == "vision":
+        cfg = replace(cfg, n_layers=4)
+    lens, cap = FRONT_RUNS[name]
+    card = build_model(cfg, device="cuda")
+    params = card.init(SEED)
+    batch, last = frontend_inputs(cfg, SEED + 1, card.device)
+    logits, kv, n, _ = frontend_prefill(card, params, batch, last)
+    toks, lps, outs, margins, _ = greedy_decode(
+        card, params, logits, stripes_from(card, kv, cap), n, CHECK_STEPS)
+    host = build_model(cfg, device="cpu")
+    hparams = _to(params, "cpu")
+    hlogits, hkv, hn, _ = frontend_prefill(host, hparams, _to(batch, "cpu"),
+                                           last.cpu())
+    htoks, hlps, _, hmargins, _ = greedy_decode(
+        host, hparams, hlogits, stripes_from(host, hkv, cap), hn,
+        CHECK_STEPS)
+    err = (logits.cpu() - hlogits).abs().max().item()
+    lp_err = (lps.cpu() - hlps).abs().max().item()
+    print(f"{name} ({cfg.n_layers} layers, f32), card vs CPU: prefill "
+          f"logits max |diff| {err:.3e} (tol 1e-3); {CHECK_STEPS} greedy "
+          f"tokens {'identical' if torch.equal(toks.cpu(), htoks) else 'DIFFER'}"
+          f"; logprobs max |diff| {lp_err:.3e} (tol 1e-3)")
+    if not torch.equal(toks.cpu(), htoks):
+        print(f"top-2 logit margins, card: {margins.tolist()}; CPU: "
+              f"{hmargins.tolist()}")
+        raise AssertionError(f"{name}: card tokens {toks.tolist()} != CPU "
+                             f"{htoks.tolist()}")
+    if err > 1e-3 or lp_err > 1e-3:
+        raise AssertionError(f"{name}: card vs CPU differ by {err} / "
+                             f"{lp_err}")
+    del host, hparams, hkv
+    if cfg.frontend == "vision":
+        pool, table = pool_from(card, kv, cap)
+        paged_fn.launches = 0
+        ptoks, plps, _, _, _ = greedy_decode(
+            card, params, logits, pool, n, CHECK_STEPS, block_table=table,
+            paged_kernel=True)
+        p_err = (plps - lps).abs().max().item()
+        print(f"{name} paged (bs {FRONT_BS}, paged kernel) vs stripes: "
+              f"tokens {'identical' if torch.equal(ptoks, toks) else 'DIFFER'}"
+              f", logprobs max |diff| {p_err:.3e} (tol 1e-3); paged kernel "
+              f"launches {paged_fn.launches} = {cfg.n_layers} x "
+              f"{CHECK_STEPS}")
+        if not torch.equal(ptoks, toks) or p_err > 1e-3:
+            raise AssertionError(f"{name}: paged decode differs from "
+                                 f"stripes")
+        if paged_fn.launches != cfg.n_layers * CHECK_STEPS:
+            raise AssertionError(f"paged kernel launched "
+                                 f"{paged_fn.launches} times")
+        del pool
+    wl, _ = card.verify_step(params, toks[:, :WINDOW_S].to(torch.int32),
+                             stripes_from(card, kv, cap), n)
+    w_err = (wl - outs[:, :WINDOW_S]).abs().max().item()
+    print(f"{name} verify window S {WINDOW_S} vs {WINDOW_S} decode steps: "
+          f"logits max |diff| {w_err:.3e} (tol 1e-3)")
+    if w_err > 1e-3:
+        raise AssertionError(f"{name}: window differs by {w_err}")
+    del card, params, kv
+    torch.cuda.empty_cache()
+    return max(err, lp_err, w_err)
+
+
+def time_frontends(attention_bshd, decode_attention, flush, front_lens):
+    """bf16 timing rows at the frontends' shapes, each beside its plain
+    version, one SDPA call and its bound: flash at whisper-tiny's encoder
+    (B 4, S = T = 1500, non-causal), at its cross-attention decode (S 1
+    against T 1500 in the cache's contiguous layout, beside the decode
+    kernel on the same inputs with every length T, which computes the
+    same function) and at qwen2-vl-2b's prefill (B 4, S = T = 320,
+    causal, G 6); the decode kernel at both frontends' stripes at phase
+    12's final lengths. Returns the flash row's and the decode row's
+    extra keys."""
+    F = torch.nn.functional
+    dt = torch.bfloat16
+    flash, dec = {}, {}
+    for key, S, heads, causal in (
+            ("whisper_enc", N_FRAMES, WHISPER_HEADS, False),
+            ("whisper_xattn_decode", 1, WHISPER_HEADS, False),
+            ("qwen2vl_prefill", QWEN2VL_T, QWEN2VL_HEADS, True)):
+        T = QWEN2VL_T if causal else N_FRAMES
+        q, k, v = _frontend_qkv(FRONT_B, S, T, heads, dt, seed=31)
+        if S == 1:
+            k, v = k.contiguous(), v.contiguous()
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        k_ms = time_ms(lambda: attention_bshd(q, k, v, causal=causal), flush)
+        p_ms = time_ms(lambda: attention_bshd(q, k, v, causal=causal,
+                                              force_ref=True), flush)
+        l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), flush)
+        b_ms, b_by = flash_bound(FRONT_B, heads[0], heads[1], S, T, heads[2],
+                                 dt, causal=causal)
+        flash.update({f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+                      f"{key}_library_ms": l_ms, f"{key}_bound_ms": b_ms,
+                      f"{key}_bound_by": b_by})
+        line = f"flash {key}: B {FRONT_B} S {S} T {T} Hq {heads[0]} Hkv " \
+               f"{heads[1]} hd {heads[2]} bf16 " \
+               f"{'causal' if causal else 'non-causal'}: kernel " \
+               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, " \
+               f"bound {b_ms:.5f} ms ({b_by})"
+        if S == 1:
+            n = torch.full((FRONT_B,), T, dtype=torch.int32, device="cuda")
+            d_ms = time_ms(lambda: decode_attention(
+                q[:, 0], k.transpose(1, 2), v.transpose(1, 2), n), flush)
+            flash[f"{key}_decode_kernel_ms"] = d_ms
+            line += f"; the decode kernel on the same inputs {d_ms:.4f} ms"
+        print(line)
+    for key, heads, arch in (("whisper", WHISPER_HEADS, "whisper-tiny"),
+                             ("qwen2vl", QWEN2VL_HEADS, "qwen2-vl-2b")):
+        lens, cap = front_lens[arch]
+        times = time_decode(decode_attention, flush, *heads, lens, T=cap)
+        dec.update({f"{key}_{name}": val for name, val in zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "floor_ms"), times)})
+    return flash, dec
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -1832,6 +2247,10 @@ def main() -> int:
     dec_err = max(check_decode_vs_plain(decode_attention,
                                         sharded_decode_attention),
                   check_decode_split_edges(decode_attention))
+    front_flash_err, front_dec_err = check_frontend_kernels(attention_bshd,
+                                                            decode_attention)
+    flash_err = max(flash_err, front_flash_err)
+    dec_err = max(dec_err, front_dec_err)
     check_sampler(sampling, prng)
 
     phase("4. serve full-width qwen3-4b, bf16, use_kernel=True")
@@ -2225,6 +2644,24 @@ def main() -> int:
     del sup, parser, cv, seq, seq_outs, cpu
     torch.cuda.empty_cache()
 
+    phase("12. the frontends at full width, bf16: whisper-tiny (encoder + "
+          "cross-attention decoder) and qwen2-vl-2b (M-RoPE vision prefix), "
+          f"prefill + {FRONT_STEPS} greedy decode steps on stripes")
+    front_lens = {}
+    for name in FRONT_RUNS:
+        launches, lens, cap = frontend_serve(name, get_config, build_model,
+                                             kernel_fns)
+        front_lens[name] = (lens, cap)
+        for key, n in launches.items():
+            serve_launches[key] = serve_launches.get(key, 0) + n
+    print("launches summed over the serves:", json.dumps(serve_launches))
+
+    phase("12b. the frontends, f32, full width (qwen2-vl-2b at 4 layers): "
+          "card vs CPU, paged vs stripes, window vs decode steps")
+    for name in FRONT_RUNS:
+        frontend_checks(name, get_config, build_model,
+                        pw_kernel.paged_window_attention)
+
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
@@ -2334,6 +2771,8 @@ def main() -> int:
         print(f"flash non-causal B {Bq} S = T = {ENC_S} Hq = Hkv = {ENC_H} "
               f"hd {ENC_HD} f32: kernel {e_ms:.4f} ms, plain {ep_ms:.4f} "
               f"ms, sdpa {el_ms:.4f} ms, bound {eb_ms:.5f} ms ({eb_by})")
+    front_flash, front_dec = time_frontends(attention_bshd, decode_attention,
+                                            flush, front_lens)
     time_sampler(sampling)
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
@@ -2400,12 +2839,12 @@ def main() -> int:
         **{f"encoder{tag}_{key}": val
            for tag, Bq in (("", 8), ("_b16", 16))
            for key, val in zip(("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms"), enc_times[Bq])})
+                                "library_ms"), enc_times[Bq])}, **front_flash)
     q_ms, qp_ms, qb_ms, qb_by, ql_ms, qf_ms = dec_times["qwen3-4b"]
     next(r for r in rows if r["name"] == "decode_attention").update(
         floor_ms=dec_times["hymba-1.5b"][5], qwen3_ms=q_ms,
         qwen3_plain_ms=qp_ms, qwen3_bound_ms=qb_ms, qwen3_bound_by=qb_by,
-        qwen3_library_ms=ql_ms, qwen3_floor_ms=qf_ms)
+        qwen3_library_ms=ql_ms, qwen3_floor_ms=qf_ms, **front_dec)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

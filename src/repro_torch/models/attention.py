@@ -1,6 +1,7 @@
 """GQA attention: causal (optionally sliding-window) attention for
 prefill, and single-token / multi-token-window decode against the paged
-KV block pool or the fixed per-slot stripe cache.
+KV block pool or the fixed per-slot stripe cache; cross-attention to
+precomputed encoder K / V (whisper's decoder), unmasked.
 
 On CUDA tensors the hot paths take the hand-written CUDA kernels, the
 sites where the reference means its Pallas kernels to run on a TPU: prefill
@@ -53,8 +54,9 @@ def init_attention(gen, cfg, device, dtype=None, lead: tuple = ()):
     return p
 
 
-def qkv(x, p, cfg, positions=None):
-    """Project to q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with rope + qk_norm."""
+def qkv(x, p, cfg, positions=None, mrope_positions=None):
+    """Project to q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with rope + qk_norm;
+    mrope takes its (B, 3, S) ids from ``mrope_positions``."""
     B, S, _ = x.shape
     hd = cfg.hd
     q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, hd)
@@ -68,11 +70,10 @@ def qkv(x, p, cfg, positions=None):
             positions = torch.arange(S, device=x.device)[None, :]
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope not in ("none", "learned"):
-        # "learned": the caller adds its position table to the embedding
-        raise NotImplementedError(
-            f"rope={cfg.rope!r}: mrope is the 'frontends' slice of "
-            "ROADMAP.md")
+    elif cfg.rope == "mrope":
+        q = layers.apply_mrope(q, mrope_positions, cfg.rope_theta)
+        k = layers.apply_mrope(k, mrope_positions, cfg.rope_theta)
+    # "learned" / "none": the caller adds its positions to the embedding
     return q, k, v
 
 
@@ -313,8 +314,9 @@ def stripe_decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len, *,
 
 
 def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
-                    positions=None, causal=True, sliding_window=None,
-                    block_table=None, paged_kernel=False, n_write=None):
+                    positions=None, mrope_positions=None, causal=True,
+                    sliding_window=None, block_table=None,
+                    paged_kernel=False, n_write=None):
     """Full attention sub-block incl. output proj. Returns (out, new_cache).
 
     In prefill/train mode ``cache`` is unused and prefill returns this
@@ -331,7 +333,8 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
         if S > 1:
             idx = idx.reshape(-1)
             pos = idx[:, None] + torch.arange(S, device=x.device)[None, :]
-            q, k, v = qkv(x, p, cfg, positions=pos)
+            q, k, v = qkv(x, p, cfg, positions=pos,
+                          mrope_positions=mrope_positions)
             if block_table is None:
                 o, k_cache, v_cache = stripe_verify_attention(
                     q, cache["k"], cache["v"], k, v, idx, sliding_window=win)
@@ -344,7 +347,8 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
                     sliding_window=win, use_kernel=paged_kernel)
         else:
             pos = idx if positions is None else positions
-            q, k, v = qkv(x, p, cfg, positions=pos.reshape(-1, 1))
+            q, k, v = qkv(x, p, cfg, positions=pos.reshape(-1, 1),
+                          mrope_positions=mrope_positions)
             if block_table is None:
                 o, k_cache, v_cache = stripe_decode_attention(
                     q, cache["k"], cache["v"], k, v, idx, sliding_window=win)
@@ -354,7 +358,40 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
                     idx.reshape(-1), sliding_window=win,
                     use_kernel=paged_kernel)
         return o @ p["w_o"], {"k": k_cache, "v": v_cache}
-    q, k, v = qkv(x, p, cfg, positions=positions)
+    q, k, v = qkv(x, p, cfg, positions=positions,
+                  mrope_positions=mrope_positions)
     o = causal_attention(q, k, v, sliding_window=win, causal=causal)
     new_cache = {"k": k, "v": v} if mode == "prefill" else None
     return o @ p["w_o"], new_cache
+
+
+# ------------------------------------------------------------- cross-attn
+def init_cross_attention(gen, cfg, device, dtype=None, lead: tuple = ()):
+    d, hd = cfg.d_model, cfg.hd
+    dtype = dtype or cfg.dtype
+    return {
+        "w_q": layers.dense_init(gen, d, cfg.n_heads * hd, dtype, device,
+                                 lead),
+        "w_kv": layers.dense_init(gen, d, 2 * cfg.n_kv_heads * hd, dtype,
+                                  device, lead),
+        "w_o": layers.dense_init(gen, cfg.n_heads * hd, d, dtype, device,
+                                 lead),
+    }
+
+
+def cross_attention_block(x, enc_kv, p, cfg):
+    """x (B,S,d) attends to precomputed encoder K/V (B,T,Hkv,hd): no
+    rope, no qk_norm, no mask (the flash kernel, non-causal, on CUDA
+    tensors)."""
+    B, S, _ = x.shape
+    q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    o = causal_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+    return o @ p["w_o"]
+
+
+def encode_cross_kv(enc_out, p, cfg):
+    """Encoder output (B,T,d) -> this layer's cross K / V (B,T,Hkv,hd),
+    views of one projection."""
+    B, T, _ = enc_out.shape
+    kv = (enc_out @ p["w_kv"]).reshape(B, T, 2, cfg.n_kv_heads, cfg.hd)
+    return {"k": kv[:, :, 0], "v": kv[:, :, 1]}

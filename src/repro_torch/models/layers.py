@@ -32,6 +32,15 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return (x * gamma.float()).to(dt)
 
 
+def layernorm(x, gamma, beta, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(dt)
+
+
 # ---------------------------------------------------------------- activations
 GATED_ACTS = ("swiglu", "geglu")
 
@@ -94,3 +103,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(0.25, 0.375, 0.375)) -> torch.Tensor:
+    """Multimodal RoPE [arXiv:2409.12191]: the rotary half-dims split
+    into (temporal, height, width) sections of ``int(half * 0.25)``,
+    ``int(half * 0.375)`` and the rest, each rotated by its own id.
+
+    x: (B, S, H, hd); positions: (B, 3, S) int."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)         # (half,)
+    n_t = int(half * sections[0])
+    n_h = int(half * sections[1])
+    pos_t = positions.float().transpose(1, 2)                # (B, S, 3)
+    B, S = pos_t.shape[:2]
+    pos = torch.cat([pos_t[..., i:i + 1].expand(B, S, n)     # (B, S, half)
+                     for i, n in enumerate((n_t, n_h, half - n_t - n_h))],
+                    dim=-1)
+    ang = pos[..., None, :] * freqs                          # (B, S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_pos(positions: torch.Tensor, d: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Whisper-style sinusoidal position embedding, computed on the fly:
+    positions (...,) int -> (..., d). The frequencies divide by
+    ``half - 1``, as the reference's do."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

@@ -1,4 +1,5 @@
-"""Model factory for the dense, MoE, rwkv and hybrid decoder families.
+"""Model factory for the dense, MoE, rwkv, hybrid, audio (encoder +
+cross-attention decoder) and vision (patch prefix, M-RoPE) families.
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods take the
 params tree explicitly, as in the JAX reference:
@@ -10,7 +11,10 @@ params tree explicitly, as in the JAX reference:
     init_cache(batch_size, capacity)                    -> zeroed stripes
     init_paged_cache(num_blocks, block_size)            -> zeroed pool
 
-Batch dicts: prefill ``{"tokens": (B, S) int}``; decode ``token (B, 1)``.
+Batch dicts: prefill ``{"tokens": (B, S) int}``, plus ``"frames"`` (B,
+n_frames, d) for the audio frontend or ``"patch_embeds"`` (B, n_patches,
+d) for the vision one (the frontends' feature extractors are stubs, as
+in the reference); decode ``token (B, 1)``.
 Every tensor argument lies on the model's device. Caches (the paged
 pool, or the per-slot stripes and recurrent state) are updated in
 place.
@@ -22,7 +26,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import layers, transformer
+from repro_torch.models import attention, layers, transformer
 
 
 # ===================================================================== init
@@ -46,6 +50,18 @@ def init_params(cfg, seed: int = 0, *, device="cuda"):
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_init(gen, d, vp, dtype, device)
+    if cfg.encoder_layers:
+        # rope == "learned" (whisper): the decoder's positions are the
+        # computed sinusoid; only the encoder has a table
+        blocks = transformer.init_block(gen, cfg, kind="dense",
+                                        device=device,
+                                        lead=(cfg.encoder_layers,))
+        pos = torch.randn((cfg.n_frames, d), generator=gen,
+                          dtype=torch.float32, device=device)
+        p["encoder"] = {"blocks": blocks,
+                        "final_norm": torch.ones((d,), dtype=dtype,
+                                                 device=device),
+                        "pos_embed": pos.mul_(0.02).to(dtype)}
     return p
 
 
@@ -55,11 +71,72 @@ def padded_vocab(cfg) -> int:
 
 
 def _embed_tokens(p, cfg, tokens):
-    if cfg.frontend != "none" or cfg.rope not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: frontends and non-rotary positions are the "
-            "'frontends' slice of ROADMAP.md")
     return p["embed"][tokens.long()]
+
+
+def _mrope_positions(B, n_patches, s_text, device):
+    """M-RoPE position ids (B, 3, P + s_text) for one leading image: patch
+    i at (0, i // g, i % g) on a g x g grid, text from g on all three."""
+    g = max(int(n_patches ** 0.5), 1)
+    pi = torch.arange(n_patches, device=device)
+    patch = torch.stack([torch.zeros_like(pi), pi // g, pi % g])  # (3, P)
+    ti = torch.arange(s_text, device=device) + g
+    pos = torch.cat([patch, ti.expand(3, s_text)], dim=1)        # (3, P+S)
+    return pos[None].expand(B, 3, pos.shape[1]).to(torch.int32)
+
+
+def _positions_added(x, cfg, positions):
+    """x plus the learned-rope sinusoid at ``positions``, in x's dtype."""
+    if cfg.rope != "learned":
+        return x
+    return x + layers.sinusoidal_pos(positions, cfg.d_model, x.dtype)
+
+
+def _build_inputs(p, cfg, batch):
+    """Returns (x (B,S,d), extras, prefix, enc_kv) for a prefill: the
+    vision patches lead the text (``prefix`` of them) with their M-RoPE
+    ids in ``extras``; the audio frames run the encoder, whose output
+    every decoder layer projects to its cross K / V (``enc_kv``, stacked
+    over L)."""
+    tokens = batch["tokens"]
+    B, S_text = tokens.shape
+    extras, prefix, enc_kv = {}, 0, None
+    x = _embed_tokens(p, cfg, tokens)
+    if cfg.frontend == "vision":
+        pe = batch["patch_embeds"].to(cfg.dtype)                # (B,P,d)
+        x = torch.cat([pe, x], dim=1)
+        prefix = pe.shape[1]
+        extras["mrope_positions"] = _mrope_positions(B, prefix, S_text,
+                                                     x.device)
+    else:
+        x = _positions_added(x, cfg, torch.arange(S_text,
+                                                  device=x.device)[None])
+    if cfg.frontend == "audio":
+        enc = _run_encoder(p, cfg, batch["frames"].to(cfg.dtype))
+        L = p["blocks"]["ln1"].shape[0]
+        kvs = [attention.encode_cross_kv(
+            enc, transformer._layer(p["blocks"]["xattn"], l), cfg)
+            for l in range(L)]
+        enc_kv = {key: torch.stack([kv[key] for kv in kvs])
+                  for key in ("k", "v")}                         # (L,B,T,H,hd)
+    return x, extras, prefix, enc_kv
+
+
+def _run_encoder(p, cfg, frames):
+    """The audio encoder: frames plus the position table, dense blocks
+    attending without a mask (the flash kernel, non-causal, on CUDA
+    tensors), then the final rmsnorm."""
+    e = p["encoder"]
+    x = frames + e["pos_embed"][None, : frames.shape[1], :]
+    for l in range(e["blocks"]["ln1"].shape[0]):
+        bp = transformer._layer(e["blocks"], l)
+        hh = layers.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        o, _ = attention.attention_block(hh, bp["attn"], cfg, mode="train",
+                                         causal=False, sliding_window=0)
+        x = x + o
+        hh = layers.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        x = x + layers.mlp(hh, bp["ffn"], cfg.act)
+    return layers.rmsnorm(x, e["final_norm"], cfg.norm_eps)
 
 
 def _logits(p, cfg, x):
@@ -100,11 +177,12 @@ class Model:
                 cache_len=None, block_table=None, paged_kernel: bool = False,
                 n_write=None):
         """last_idx: optional (B,) — per-row index of the last *real*
-        token when rows are right-padded to a shared bucket length; None
-        gives the logits at the final position. Returns (logits (B, 1,
-        V), cache) with the fresh cache leaves stacked over L: k / v
-        (L,B,S,Hkv,hd) [+ ssm_state (L,B,di,N)], or state (L,B,H,hd,hd) /
-        last_x_t / last_x_c (L,B,d) for rwkv.
+        text token when rows are right-padded to a shared bucket length
+        (a vision prefix is added to it); None gives the logits at the
+        final position. Returns (logits (B, 1, V), cache) with the fresh
+        cache leaves stacked over L: k / v (L,B,S,Hkv,hd) [+ ssm_state
+        (L,B,di,N), or the cross K / V xk / xv (L,B,n_frames,Hkv,hd)], or
+        state (L,B,H,hd,hd) / last_x_t / last_x_c (L,B,d) for rwkv.
 
         **Chunked mode** (``cache`` is the paged pool): ``batch["tokens"]``
         (B, S) is a chunk window of each row's prompt at offset
@@ -121,12 +199,14 @@ class Model:
             if last_idx is not None:
                 x = _rows_at(x, last_idx)
             return _logits(params, cfg, x), new_cache
-        x = _embed_tokens(params, cfg, batch["tokens"])
+        x, extras, prefix, enc_kv = _build_inputs(params, cfg, batch)
         x, kv = transformer.apply_stack(x, params["blocks"], cfg,
                                         kind=transformer.block_kind(cfg),
-                                        mode="prefill")
+                                        mode="prefill", extras=extras,
+                                        enc_kv=enc_kv)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        x_last = x[:, -1:, :] if last_idx is None else _rows_at(x, last_idx)
+        x_last = x[:, -1:, :] if last_idx is None \
+            else _rows_at(x, last_idx + prefix)
         return _logits(params, cfg, x_last), kv
 
     # ---------------- decode ----------------
@@ -140,11 +220,19 @@ class Model:
         block_size, Hkv, hd) per leaf and row b's position j resolves to
         (block_table[b, j // block_size], j % block_size).
         ``paged_kernel`` reads the pool through ``kernels.paged_attention``
-        instead of the gather."""
+        instead of the gather. The new token sits at position cache_len[b]
+        for the learned sinusoid and on all three M-RoPE sections (the
+        reference's numbering: after a vision prefix of P patches on a g
+        x g grid, text prefilled from g continues from P + S_text)."""
         cfg = self.cfg
+        B = token.shape[0]
         x = _embed_tokens(params, cfg, token)
+        x = _positions_added(x, cfg, cache_len.reshape(-1, 1))
         extras = {"cache_len": cache_len, "block_table": block_table,
                   "paged_kernel": bool(paged_kernel)}
+        if cfg.rope == "mrope":
+            extras["mrope_positions"] = cache_len.to(torch.int32) \
+                .reshape(-1, 1, 1).expand(B, 3, 1)
         x, new_cache = transformer.apply_stack(
             x, params["blocks"], cfg, kind=transformer.block_kind(cfg),
             mode="decode", cache=cache, extras=extras)
@@ -173,10 +261,15 @@ class Model:
         if kind in ("rwkv", "hybrid"):
             raise ValueError(f"multi-token window unsupported for family "
                              f"{kind!r} (recurrent state is sequential)")
-        x = _embed_tokens(params, cfg, tokens)
-        extras = {"cache_len": cache_len.reshape(-1),
-                  "block_table": block_table,
+        B, S = tokens.shape
+        idx = cache_len.reshape(-1)
+        pos = idx[:, None] + torch.arange(S, device=idx.device)[None, :]
+        x = _positions_added(_embed_tokens(params, cfg, tokens), cfg, pos)
+        extras = {"cache_len": idx, "block_table": block_table,
                   "paged_kernel": bool(paged_kernel), "n_write": n_write}
+        if cfg.rope == "mrope":
+            extras["mrope_positions"] = pos[:, None, :].expand(
+                B, 3, S).to(torch.int32)
         x, new_cache = transformer.apply_stack(
             x, params["blocks"], cfg, kind=kind, mode="decode", cache=cache,
             extras=extras)
@@ -186,9 +279,11 @@ class Model:
     # ---------------- cache ----------------
     def init_cache(self, batch_size: int, capacity: int):
         """Zeroed per-slot cache with room for ``capacity`` tokens: K/V
-        stripes ``(L, B, capacity, Hkv, hd)`` in ``cfg.dtype``, the hybrid
-        SSM state ``(L, B, di, N)`` in f32, or the rwkv state ``(L, B, H,
-        hd, hd)`` in f32 with the token-shift carries ``(L, B, d)``."""
+        stripes ``(L, B, capacity, Hkv, hd)`` in ``cfg.dtype`` [+ the
+        cross K / V ``xk`` / ``xv`` ``(L, B, n_frames, Hkv, hd)``], the
+        hybrid SSM state ``(L, B, di, N)`` in f32, or the rwkv state ``(L,
+        B, H, hd, hd)`` in f32 with the token-shift carries ``(L, B,
+        d)``."""
         cfg = self.cfg
         L, B = cfg.n_layers, batch_size
         Hkv, hd, d = cfg.n_kv_heads, cfg.hd, cfg.d_model
@@ -197,8 +292,6 @@ class Model:
         def zeros(shape, dtype=cfg.dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        if kind == "decoder_x":
-            transformer._unported(kind)
         if kind == "rwkv":
             return {"state": zeros((L, B, cfg.n_heads, hd, hd),
                                    torch.float32),
@@ -210,6 +303,9 @@ class Model:
             cache["ssm_state"] = zeros((L, B, cfg.dinner,
                                         max(cfg.ssm_state, 1)),
                                        torch.float32)
+        if kind == "decoder_x":
+            cache["xk"] = zeros((L, B, cfg.n_frames, Hkv, hd))
+            cache["xv"] = zeros((L, B, cfg.n_frames, Hkv, hd))
         return cache
 
     def init_paged_cache(self, num_blocks: int, block_size: int):

@@ -1,5 +1,6 @@
-"""Backbone blocks + the loop over layers (dense, moe, rwkv and hybrid
-kinds).
+"""Backbone blocks + the loop over layers (dense, moe, rwkv, hybrid and
+decoder_x kinds; decoder_x is a dense block with a cross-attention
+sub-block after its self-attention).
 
 A block apply function is ``(x, p, cfg, mode, cache, extras) -> (x,
 new_cache)``. Block params are stacked with a leading L axis and the
@@ -14,8 +15,6 @@ from repro_torch.models import attention, layers, moe, rwkv6, ssm
 
 def init_block(gen, cfg, *, kind: str, device, lead: tuple = ()):
     """One block's params, or ``lead`` stacked blocks drawn at once."""
-    if kind not in ("dense", "moe", "rwkv", "hybrid"):
-        _unported(kind)
     d, dtype = cfg.d_model, cfg.dtype
 
     def ones():
@@ -42,15 +41,11 @@ def init_block(gen, cfg, *, kind: str, device, lead: tuple = ()):
         p["ssm"] = ssm.init_ssm(gen, cfg, device, lead=lead)
         p["ln_attn_out"] = ones()
         p["ln_ssm_out"] = ones()
+    if kind == "decoder_x":
+        p["lnx"] = ones()
+        p["xattn"] = attention.init_cross_attention(gen, cfg, device,
+                                                    lead=lead)
     return p
-
-
-_LATER = {"decoder_x": "the 'frontends' slice of ROADMAP.md"}
-
-
-def _unported(kind: str):
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                              f"{_LATER.get(kind, 'not on the roadmap')}")
 
 
 def block_kind(cfg) -> str:
@@ -73,11 +68,10 @@ def _layer(tree, l: int):
 
 
 def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
-    """Returns (x, new_cache). extras: dict with positions / cache_len /
-    block_table / paged_kernel / n_write as applicable. The MoE FFN's
-    aux loss (a training term) is dropped."""
-    if kind not in ("dense", "moe", "rwkv", "hybrid"):
-        _unported(kind)
+    """Returns (x, new_cache). extras: dict with positions /
+    mrope_positions / cache_len / block_table / paged_kernel / n_write /
+    enc_kv (this layer's cross K / V) as applicable. The MoE FFN's aux
+    loss (a training term) is dropped."""
     extras = extras or {}
     eps = cfg.norm_eps
 
@@ -102,6 +96,7 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
         h, p["attn"], cfg, mode=mode, cache=acache,
         cache_len=extras.get("cache_len"),
         positions=extras.get("positions"),
+        mrope_positions=extras.get("mrope_positions"),
         block_table=extras.get("block_table"),
         paged_kernel=extras.get("paged_kernel", False),
         n_write=extras.get("n_write"))
@@ -117,6 +112,10 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
             new_cache["ssm_state"] = snew["state"]
     else:
         x = x + attn_out
+    if kind == "decoder_x":
+        hx = layers.rmsnorm(x, p["lnx"], eps)
+        x = x + attention.cross_attention_block(hx, extras["enc_kv"],
+                                                p["xattn"], cfg)
     h = layers.rmsnorm(x, p["ln2"], eps)
     if kind == "moe":
         x = x + moe.moe_ffn(h, p["moe"], cfg)[0]
@@ -125,7 +124,8 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
     return x, (new_cache if mode != "train" else None)
 
 
-def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None):
+def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None,
+                enc_kv=None):
     """Apply the stacked layer params, one layer at a time.
 
     Prefill (``cache`` None) returns every fresh cache leaf stacked over
@@ -134,13 +134,21 @@ def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None):
     decode mode ``cache`` is a dict of (L, ...) tensors — the paged pool
     or the per-slot stripes — and each layer's slice is updated in
     place: attention writes its K/V into the slice itself, the other
-    leaves are copied over. The same dict is returned."""
+    leaves are copied over. The same dict is returned.
+
+    decoder_x: layer l cross-attends to ``enc_kv`` {k, v} (L,B,T,Hkv,hd)
+    at prefill, which returns them as the cache's ``xk`` / ``xv``; in
+    decode mode it reads the cache's ``xk`` / ``xv`` in place."""
+    if enc_kv is None and cache is not None and "xk" in cache:
+        enc_kv = {"k": cache["xk"], "v": cache["xv"]}
     L = blocks["ln1"].shape[0]
     fresh = []
     for l in range(L):
         c = None if cache is None else _layer(cache, l)
+        ex = extras if enc_kv is None else \
+            {**(extras or {}), "enc_kv": _layer(enc_kv, l)}
         x, new_c = apply_block(x, _layer(blocks, l), cfg, kind=kind,
-                               mode=mode, cache=c, extras=extras)
+                               mode=mode, cache=c, extras=ex)
         if mode == "prefill":
             fresh.append(new_c)
         elif c is not None:
@@ -148,6 +156,8 @@ def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None):
                 if t is not c[key]:
                     c[key].copy_(t)
     if mode == "prefill":
-        return x, {key: torch.stack([f[key] for f in fresh])
-                   for key in fresh[0]}
+        out = {key: torch.stack([f[key] for f in fresh]) for key in fresh[0]}
+        if enc_kv is not None:
+            out["xk"], out["xv"] = enc_kv["k"], enc_kv["v"]
+        return x, out
     return x, cache

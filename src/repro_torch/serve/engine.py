@@ -65,8 +65,8 @@ based key streams (:mod:`.sampling`). Every host array a step sends to
 the card goes through pinned memory without a stream sync, so
 ``dispatch_step`` returns while the device still computes.
 
-Not ported yet (raise, naming the ROADMAP.md slice): the
-cross-attention frontends.
+Models with a frontend (audio frames, vision patches) are refused at
+construction: a request carries tokens only.
 """
 from __future__ import annotations
 
@@ -78,7 +78,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.transformer import block_kind
 from repro_torch.serve import sampling
 from repro_torch.serve.blocks import BlockPool
 from repro_torch.serve.sampling import GREEDY, SamplingParams
@@ -167,10 +166,12 @@ class ServingEngine:
         if self.device.type != model.device.type:
             raise ValueError(f"engine device {self.device} != model device "
                              f"{model.device}")
-        if block_kind(model.cfg) == "decoder_x":
-            raise NotImplementedError(f"{model.cfg.name}: cross-attention "
-                                      "serving is the 'frontends' slice of "
-                                      "ROADMAP.md")
+        if model.cfg.frontend != "none":
+            # the reference's engine takes such a model and fails at its
+            # first admission, when the prefill finds no frames / patches
+            raise ValueError(f"{model.cfg.name}: the {model.cfg.frontend} "
+                             "frontend needs frames or patch embeds, and "
+                             "engine requests carry tokens only")
         self.model = model
         self.params = params
         self.B = batch_size

@@ -1207,3 +1207,101 @@ def test_cv_parser_on_card_matches_cpu(cuda):
         assert o["fields"] == cpu.parse(d)["fields"]
         assert o["dispatch"].mode == "thread"
     parser.dispatcher.shutdown()
+
+
+# ------------------------------------------------------------ frontends
+# B x S x T x (Hq, Hkv, hd) x causal: whisper-tiny's encoder (S = T =
+# 1500, not a multiple of the kernel's tiles) and cross-attention (a
+# prompt window and a decode step against the 1500 frames), qwen2-vl-2b's
+# prefill (a 256-patch prefix and 64 text tokens, G 6)
+FRONTEND_FLASH = [(4, 1500, 1500, (6, 6, 64), False),
+                  (4, 16, 1500, (6, 6, 64), False),
+                  (4, 1, 1500, (6, 6, 64), False),
+                  (4, 320, 320, (12, 2, 128), True)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,heads,causal", FRONTEND_FLASH)
+def test_flash_at_frontend_shapes(cuda, dt, B, S, T, heads, causal):
+    """On the model's (B,S,H,hd) views against the plain version:
+    non-causal f32 within 3e-5, causal 1e-4, bf16 3e-2."""
+    Hq, Hkv, hd = heads
+    g = torch.Generator().manual_seed(S + T + hd)
+    q = torch.randn((B, S, Hq, hd), generator=g).to("cuda", dt)
+    kv = torch.randn((B, T, 2, Hkv, hd), generator=g).to("cuda", dt)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    out = attention_bshd(q, k, v, causal=causal)
+    ref = attention_bshd(q, k, v, causal=causal, force_ref=True)
+    torch.cuda.synchronize()
+    tol = TOL[dt] if causal else NON_CAUSAL_TOL[dt]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,T,lens", [
+    ((6, 6, 64), 128, [1, 128, 37, 80]),          # whisper-tiny's stripes
+    ((12, 2, 128), 512, [261, 512, 1, 336])])     # qwen2-vl-2b's (G 6)
+def test_decode_at_frontend_stripes(cuda, dt, heads, T, lens):
+    Hq, Hkv, hd = heads
+    g = torch.Generator().manual_seed(T)
+    q = torch.randn((len(lens), Hq, hd), generator=g).to("cuda", dt)
+    k, v = (torch.randn((len(lens), T, Hkv, hd), generator=g).to("cuda", dt)
+            .transpose(1, 2) for _ in range(2))
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out, lse = decode_attention(q, k, v, n)
+    ro, rl = decode_attention(q, k, v, n, force_ref=True)
+    torch.cuda.synchronize()
+    _close(out, ro, dt)
+    _close(lse, rl, dt)
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "qwen2-vl-2b"])
+def test_frontend_model_on_card_matches_cpu(cuda, name):
+    """Reduced width, f32: a right-padded prefill with the frontend's
+    input and three decode steps at per-row lengths on stripes, on the
+    card (flash and decode kernels) and on the CPU with the same weights:
+    logits within 1e-4; flash once per attention layer at the prefill
+    (whisper: encoder, self and cross) and once per cross-attention
+    layer a step, decode once per layer a step."""
+    cfg = get_config(name).reduced()
+    card = build_model(cfg, device="cuda")
+    host = build_model(cfg, device="cpu")
+    params = card.init(0)
+    hparams = _to(params, "cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(2, cfg.vocab_size, (3, 8), generator=g)
+    batch = {"tokens": toks}
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.randn((3, cfg.n_frames, cfg.d_model),
+                                      generator=g)
+    else:
+        batch["patch_embeds"] = torch.randn((3, cfg.n_patches, cfg.d_model),
+                                            generator=g)
+    last = torch.tensor([7, 2, 5])
+    prefix = cfg.n_patches if cfg.frontend == "vision" else 0
+    cross = cfg.encoder_layers + cfg.n_layers if cfg.cross_attention else 0
+    fns = (flash_kernel.flash_attention, decode_kernel.decode_attention)
+    outs = {}
+    for dev, model, p in (("cuda", card, params), ("cpu", host, hparams)):
+        before = [fn.launches for fn in fns]
+        logits, kv = model.prefill(p, _to(batch, dev), last_idx=last.to(dev))
+        cache = model.init_cache(3, 32)
+        S = kv["k"].shape[2]
+        for key, t in kv.items():
+            if key in ("k", "v"):
+                cache[key][:, :, :S] = t
+            else:
+                cache[key].copy_(t)
+        n = (last + 1 + prefix).to(dev, torch.int32)
+        steps = [logits]
+        for j in range(3):
+            steps.append(model.decode_step(p, toks[:, j:j + 1].to(dev),
+                                           cache, n + j)[0])
+        outs[dev] = [t.cpu() for t in steps]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            got = [fn.launches - b for fn, b in zip(fns, before)]
+            L = cfg.n_layers
+            assert got == [L + cross + 3 * (L if cross else 0), 3 * L]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -99,7 +99,7 @@ def test_encoder_config_and_tree_match_reference():
 
 def test_learned_positions_rotate_nothing(encoder):
     """``rope="learned"``: qkv projects and rotates nothing (the position
-    table is added at the embedding); mrope still raises."""
+    table is added at the embedding); mrope rotates q and k by its ids."""
     _, _, cfg, p = encoder
     bp = {k: v[0] for k, v in p["blocks"]["attn"].items()}
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -109,8 +109,12 @@ def test_learned_positions_rotate_nothing(encoder):
     for a, b in ((q, q0), (k, k0), (v, v0)):
         assert torch.equal(a, b)
     assert torch.equal(q, (x @ bp["w_q"]).reshape(2, 5, 12, 64))
-    with pytest.raises(NotImplementedError, match="frontends"):
-        attention.qkv(x, bp, dataclasses.replace(cfg, rope="mrope"))
+    ids = torch.arange(5)[None, None].expand(2, 3, 5)
+    qm, km, vm = attention.qkv(x, bp, dataclasses.replace(cfg, rope="mrope"),
+                               mrope_positions=ids)
+    assert not torch.equal(qm, q0) and not torch.equal(km, k0)
+    assert torch.equal(vm, v0)
+    torch.testing.assert_close(qm[:, :1], q0[:, :1])    # id 0: no turn
 
 
 # ------------------------------------------------------------- classifier

@@ -259,8 +259,9 @@ def test_dispatch_then_commit_is_step(stack):
 
 
 def test_later_slices_raise(stack):
-    """The frontends still raise; speculation and MoE serve now, with the
-    reference's ValueErrors (no draft; an MoE target speculating)."""
+    """Speculation and MoE serve now, with the reference's ValueErrors (no
+    draft; an MoE target speculating); a model with a frontend is refused
+    with a ValueError (requests carry tokens only)."""
     _, _, model, params = stack
     kw = dict(batch_size=1, max_seq=32, device="cpu")
     spec = ServingEngine(model, params, speculation=2, draft_model=model,
@@ -277,9 +278,10 @@ def test_later_slices_raise(stack):
     with pytest.raises(ValueError, match="MoE"):
         ServingEngine(mmodel, mparams, speculation=2, draft_model=mmodel,
                       draft_params=mparams, **kw)
-    wcfg = get_config("whisper-tiny").reduced()
-    with pytest.raises(NotImplementedError, match="frontends"):
-        ServingEngine(build_model(wcfg, device="cpu"), params, **kw)
+    for name in ("whisper-tiny", "qwen2-vl-2b"):
+        fmodel = build_model(get_config(name).reduced(), device="cpu")
+        with pytest.raises(ValueError, match="tokens only"):
+            ServingEngine(fmodel, fmodel.init(0), **kw)
     with pytest.raises(ValueError, match="prefill_chunk"):
         ServingEngine(model, params, prefill_chunk=-1, **kw)
     with pytest.raises(ValueError, match="max_seq"):

@@ -29,6 +29,7 @@ VARIANTS = {"mha": ("qwen3-4b", {}), "gqa": ("qwen3-4b", {"n_kv_heads": 2}),
             **{name: (name, {}) for name in ("deepseek-7b", "minitron-8b",
                                              "nemotron-4-340b")}}
 DENSE = ["qwen3-4b", "deepseek-7b", "minitron-8b", "nemotron-4-340b"]
+FRONTENDS = ["whisper-tiny", "qwen2-vl-2b"]
 BS, MAX_BLOCKS, B = 8, 4, 3
 
 
@@ -256,12 +257,14 @@ def _specs(tree):
     return out
 
 
-@pytest.mark.parametrize("name", DENSE + ["rwkv6-1.6b", "hymba-1.5b"])
+@pytest.mark.parametrize("name", DENSE + FRONTENDS + ["rwkv6-1.6b",
+                                                      "hymba-1.5b"])
 def test_param_dtypes_and_shapes_match_the_reference(name):
     """Every leaf keeps the reference's shape and dtype: bf16 leaves
     follow cfg.dtype, the f32 ones (decay_base, bonus_u, A_log, D,
     dt_bias) stay f32 — through the weight bridge at reduced width, and
-    from the port's own init at full width (on the meta device)."""
+    from the port's own init at full width (on the meta device); the
+    frontends' encoder and cross-attention leaves included."""
     jcfg = dataclasses.replace(jax_config(name).reduced(),
                                dtype=jnp.bfloat16)
     cfg = dataclasses.replace(get_config(name).reduced(),
@@ -273,7 +276,7 @@ def test_param_dtypes_and_shapes_match_the_reference(name):
     assert _specs(init_params(get_config(name), device="meta")) == \
         _specs(full)
     assert "float32" in {d for _, d in _specs(full).values()} \
-        or name in DENSE
+        or name in DENSE + FRONTENDS
 
 
 def test_params_from_numpy_keeps_bf16_bits():
