@@ -176,6 +176,39 @@ Phases (any failure exits non-zero; no result line is printed then):
    within 1e-3, 4 paged launches a step); a 4-token ``verify_step``
    window on stripes against 4 ``decode_step`` calls (logits within
    1e-3), both configs.
+13a. The flash backward kernel against its plain version
+   (``flash_attention_bwd_ref``, the explicit formulas in f32) on the
+   same q, k, v, dout and the kernel's own out and lse, f32 and bf16, at
+   qwen3-4b's train shape (B 2, S = T = 1024, 32 / 8 heads of 128),
+   whisper-tiny's encoder (non-causal, S = T = 1500, 6 / 6 of 64) and
+   cross-attention (S 448 against T 1500), qwen2-vl-2b's G 6 (12 / 2 of
+   128), a 128 window inside S 512, hd 112 and 192, S 64 < T 300, a
+   ragged S 37 against T 101 with a 24 window, and S 40 > T 20 (rows
+   that see no key): each gradient within 1e-4 (f32) / 1e-2 (bf16) of
+   its largest magnitude, two runs bitwise equal, nothing NaN, dq 0 on
+   keyless rows; the forward's lse within 1e-4 / 1e-3 of the plain
+   log-sum-exp and -inf exactly where a row sees no key; the autograd
+   route (``ops.flash_attention`` on inputs that require grad) bitwise
+   equal to the direct kernel calls. Then the paged-window, decode, WKV
+   and selective-scan ops raise on an input that requires grad (no
+   backward kernel yet; no plain fallback) and run under no_grad.
+13b. Training, the slice's main path: full-width qwen3-4b (bf16, seed-0
+   weights, remat) cut to 4 layers (1.18 B params), ``train()`` for 5
+   AdamW steps of B 2 x 1024 tokens of the packed synthetic CV corpus.
+   Every launch count is set to 0 just before and read just after:
+   flash forward exactly 2 a layer a step (remat recomputes it), the
+   backward kernel 1 a layer a step, no other kernel. Printed: the
+   losses (all finite) and grad norms, steps/s and tokens/s,
+   ``max_memory_allocated``, the final checkpoint restored equal to the
+   final params, then one more step under ``torch.profiler`` (device
+   busy against wall: the idle share).
+13c. Full width in f32 at 2 layers (B 2, S 512): ``train_loss`` and every
+   gradient through the flash kernels against the same model with its
+   attention on the plain version: loss within 1e-5 relative, each leaf
+   within 1e-4 of its largest magnitude, 2 forward and 2 backward
+   launches on the kernel route and none on the plain one.
+13d. ``python -m repro_torch.launch.train --steps 3`` (reduced qwen3-4b,
+   f32) on the card as a subprocess: exit 0.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
@@ -205,6 +238,15 @@ qwen3-4b numbers (``qwen3_*``), its numbers at the frontends' stripes
 512, 12 / 2 heads of 128; phase 12's last lengths) and floors
 (``floor_ms``, ``qwen3_floor_ms``). The sampler's device and host time per sampled and
 all-greedy step at B 8, V 151,936 is printed beside them.
+The flash backward's row (``flash_attention_bwd``) carries its time at
+qwen3-4b's train shape in bf16 beside its plain version, its bound (q,
+k, v, out, dout and lse read once, dq, dk, dv written once; 10 * hd
+flops per visible query-key pair and query head) and SDPA's backward on
+the same inputs, with the same numbers in f32 (``train_f32_*``) and at
+whisper's encoder (``whisper_enc_*``); the flash row adds its launches
+in 13b (``train_launches``) and the forward's time with and without the
+lse write at the train shape and at qwen3-4b's prefill
+(``train_fwd_ms`` / ``train_fwd_lse_ms``, ``prefill_fwd_*``).
 ``scaled_dot_product_attention`` is the yardstick of the attention
 kernels (on the gathered KV, causal, or with a length mask; the port
 never calls it); no single PyTorch call computes either recurrence. TF32
@@ -251,8 +293,11 @@ CV_DOCS = 40
 PAPER_PARSE_MS = 700            # the paper's "less than 700 ms" a CV
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n=== {name}", flush=True)
+    print(f"\n=== {name} [{time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 def gpu_line() -> str:
@@ -2190,6 +2235,406 @@ def time_frontends(attention_bshd, decode_attention, flush, front_lens):
     return flash, dec
 
 
+# ------------------------------------------------------------- training
+TRAIN_B, TRAIN_S = 2, 1024      # phase 13b's batch: 2 rows of 1024 tokens
+TRAIN_LAYERS, TRAIN_STEPS = 4, 5
+GRAD_B, GRAD_S, GRAD_LAYERS = 2, 512, 2     # phase 13c, f32
+# the backward kernel against its plain version, of each gradient's
+# largest |g|: f32 sum-order noise; bf16 one rounding of the output
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# (name, B, Hq, Hkv, S, T, hd, causal, window)
+BWD_CASES = (
+    ("qwen3-4b train", TRAIN_B, 32, 8, TRAIN_S, TRAIN_S, 128, True, 0),
+    ("whisper encoder", 2, 6, 6, 1500, 1500, 64, False, 0),
+    ("whisper cross-attention", 2, 6, 6, 448, 1500, 64, False, 0),
+    ("qwen2-vl prefill", 2, 12, 2, 320, 320, 128, True, 0),
+    ("sliding window 128", 1, 32, 8, 512, 512, 128, True, 128),
+    ("hd 112", 1, 16, 8, 256, 256, 112, True, 0),
+    ("hd 192", 1, 12, 4, 256, 256, 192, True, 0),
+    ("S < T", 2, 32, 8, 64, 300, 128, True, 0),
+    ("ragged S, window 24", 1, 25, 5, 37, 101, 64, True, 24),
+    ("keyless rows, S > T", 1, 8, 2, 40, 20, 64, True, 0),
+)
+
+
+def bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed):
+    """q, k, v, dout on the card: (B,Hq,S,hd), (B,Hkv,T,hd) x 2,
+    (B,Hq,S,hd)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dt)
+            for shape in ((Bq, Hq, S, hd), (Bq, Hkv, T, hd),
+                          (Bq, Hkv, T, hd), (Bq, Hq, S, hd))]
+
+
+def visible_pairs(S, T, causal, window):
+    """(query, key) pairs the masks let through, per head."""
+    i = torch.arange(S)[:, None] + (T - S)
+    j = torch.arange(T)[None, :]
+    m = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        m &= j <= i
+    if window:
+        m &= j > i - window
+    return int(m.sum())
+
+
+def flash_bwd_bound(Bq, Hq, Hkv, S, T, hd, dtype, causal, window):
+    """q, k, v, out and dout read once, lse read once, dq, dk and dv
+    written once; 10 * hd flops per (query head, visible pair): the
+    recomputed scores, dP, dV, dQ and dK products, at the type's peak."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * Bq * hd * (4 * S * Hq + 4 * T * Hkv) + 4 * Bq * Hq * S
+    flops = 10 * hd * Bq * Hq * visible_pairs(S, T, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash_backward(fwd_kernel, bwd_kernel, flash_op, ref_fwd,
+                         ref_bwd):
+    """Phase 13a: at every BWD_CASES shape, f32 and bf16: the forward's
+    lse against the plain lse (-inf exactly on rows that see no key),
+    then the backward kernel against ``flash_attention_bwd_ref`` on the
+    same inputs (the kernel's out and lse), twice bitwise equal, no NaN,
+    zero dq on keyless rows; then the autograd route of the op equals
+    the direct call bit for bit. Returns the largest absolute error."""
+    worst = 0.0
+    for name, Bq, Hq, Hkv, S, T, hd, causal, win in BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed=S + T)
+            out, lse = fwd_kernel(q, k, v, causal=causal,
+                                  sliding_window=win, with_lse=True)
+            _, rlse = ref_fwd(q, k, v, causal=causal, sliding_window=win,
+                              return_lse=True)
+            live = torch.isfinite(rlse)
+            if not torch.equal(torch.isfinite(lse), live):
+                raise AssertionError(f"{name} {dt}: lse finite where the "
+                                     f"plain lse is not, or the reverse")
+            lse_err = float((lse - rlse)[live].abs().max()) \
+                if live.any() else 0.0
+            got = bwd_kernel(q, k, v, out, lse, do, causal=causal,
+                             sliding_window=win)
+            again = bwd_kernel(q, k, v, out, lse, do, causal=causal,
+                               sliding_window=win)
+            want = ref_bwd(q, k, v, out, lse, do, causal=causal,
+                           sliding_window=win)
+            torch.cuda.synchronize()
+            errs = []
+            for label, g, g2, w in zip("q k v".split(), got, again, want):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{name} {dt}: d{label} differs "
+                                         f"between two runs")
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"{name} {dt}: d{label} not finite")
+                err = float((g.float() - w.float()).abs().max())
+                scale = float(w.float().abs().max())
+                if not scale > 0:
+                    raise AssertionError(f"{name} {dt}: the plain d{label} "
+                                         f"is all zero: nothing is checked")
+                errs.append((err, scale))
+                worst = max(worst, err)
+                if err > BWD_TOL[dt] * scale:
+                    raise AssertionError(f"{name} {dt}: d{label} off by "
+                                         f"{err} (largest |g| {scale})")
+            dead = ~live
+            if dead.any() and (got[0][dead] != 0).any():
+                raise AssertionError(f"{name} {dt}: a keyless row's dq is "
+                                     f"not 0")
+            if lse_err > LSE_TOL[dt]:
+                raise AssertionError(f"{name} {dt}: lse off by {lse_err}")
+            print(f"{name}: B {Bq} Hq {Hq} Hkv {Hkv} S {S} T {T} hd {hd} "
+                  f"{'causal' if causal else 'non-causal'} window {win} "
+                  f"{str(dt)[6:]}: lse {lse_err:.2e}; dq / dk / dv max abs "
+                  + " / ".join(f"{e:.2e}" for e, _ in errs)
+                  + " (largest |g| " + " / ".join(f"{m:.3f}" for _, m in errs)
+                  + f"; tol {BWD_TOL[dt]} of it); {int(dead.sum())} keyless "
+                  f"rows")
+    # the autograd route: FlashAttention.apply through the op
+    q, k, v, do = bwd_inputs(*BWD_CASES[0][1:7], torch.bfloat16, seed=7)
+    direct_out, lse = fwd_kernel(q, k, v, with_lse=True)
+    direct = bwd_kernel(q, k, v, direct_out, lse, do)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_op(qg, kg, vg)
+    via = torch.autograd.grad(out, (qg, kg, vg), do)
+    if not torch.equal(out.detach(), direct_out) or \
+            not all(torch.equal(a, b) for a, b in zip(via, direct)):
+        raise AssertionError("the autograd route differs from the direct "
+                             "kernel calls")
+    print("autograd route (ops.flash_attention on inputs that require "
+          "grad) = direct forward + backward kernel calls, bitwise")
+    return worst
+
+
+def check_grad_refusals(ops):
+    """The four CUDA ops without a backward raise when autograd would
+    record them, and run under torch.no_grad()."""
+    paged, decode, wkv, ssm = ops
+    args = {
+        "paged_window_attention": (paged, list(window_case(
+            4, torch.float32, [0, 17, 64, 100], seed=3))),
+        "decode_attention": (decode, [*(t.transpose(1, 2) if t.dim() == 4
+                                        else t for t in stripe_case(
+                                            4, 32, 8, 128, torch.float32, 3,
+                                            T=256)),
+                                      torch.tensor([1, 17, 100, 256],
+                                                   dtype=torch.int32,
+                                                   device="cuda")]),
+        "wkv_scan": (wkv, wkv_case(2, 8, 4, 64, seed=3)),
+        "ssm_scan": (ssm, ssm_case(2, 8, 64, 16, seed=3)),
+    }
+    for name, (op, a) in args.items():
+        a = list(a)
+        a[0] = a[0].clone().requires_grad_(True)
+        try:
+            op(*a)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            print(f"{name}: raises under grad ({str(e)[:70]}...)")
+        else:
+            raise AssertionError(f"{name} ran with an input that requires "
+                                 f"grad")
+        with torch.no_grad():
+            op(*a)
+    torch.cuda.synchronize()
+
+
+def _zero(fns):
+    for fn in fns:
+        fn.launches = 0
+
+
+def train_full_width(get_config, build_model, kernel_fns, bwd_fn):
+    """Phase 13b: full-width qwen3-4b, bf16, remat, TRAIN_LAYERS layers,
+    through ``train()`` for TRAIN_STEPS steps at B TRAIN_B x S TRAIN_S.
+    Returns the launch counts of that run."""
+    import tempfile
+
+    from repro_torch.train import checkpoint, optimizer as opt_mod, tree
+    from repro_torch.train.data import (DataConfig, PackedLMDataset,
+                                        sharded_batches)
+    from repro_torch.train.train_loop import (TrainerConfig,
+                                              make_train_step, train)
+    cfg = replace(get_config("qwen3-4b"), n_layers=TRAIN_LAYERS, remat=True)
+    model = build_model(cfg, device="cuda")
+    params = model.init(SEED)
+    n = sum(t.numel() for t in tree.leaves(params))
+    print(f"{cfg.name}: {TRAIN_LAYERS} layers at full width (d "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, vocab {cfg.vocab_size}), {cfg.dtype}, remat: "
+          f"{n / 1e9:.3f} B params; params + grads + AdamW f32 moments "
+          f"{n * (2 + 2 + 8) / 1e9:.2f} GB")
+    ds = PackedLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, batch_size=TRAIN_B))
+    oc = opt_mod.AdamWConfig(lr=1e-4, warmup_steps=2,
+                             total_steps=TRAIN_STEPS)
+    fns = (*kernel_fns, bwd_fn)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+        tc = TrainerConfig(n_steps=TRAIN_STEPS, log_every=1, ckpt_root=ck,
+                           ckpt_name=cfg.name, opt=oc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()   # params and earlier phases'
+        _zero(fns)
+        res = train(model, ds, tc, params=params)
+        launches = {fn.__name__: fn.launches for fn in fns}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in res.history]
+        print("losses:", " ".join(f"{x:.4f}" for x in losses))
+        print("grad norms:", " ".join(f"{h['grad_norm']:.4f}"
+                                      for h in res.history))
+        if len(losses) != TRAIN_STEPS or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"losses {losses}")
+        want = {fn.__name__: 0 for fn in fns}
+        want["flash_attention"] = 2 * TRAIN_LAYERS * TRAIN_STEPS
+        want["flash_attention_bwd"] = TRAIN_LAYERS * TRAIN_STEPS
+        print("launches:", json.dumps(launches), "(expected: forward 2 a "
+              "layer a step, the second the recompute of remat; backward 1 "
+              "a layer a step)")
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+        tok_s = res.steps_per_s * TRAIN_B * TRAIN_S
+        print(f"train(): {res.steps_per_s:.3f} steps/s, {tok_s:.0f} "
+              f"tokens/s (the first step, with the card's warm-up, "
+              f"included); max_memory_allocated {peak / 1e9:.2f} GB, "
+              f"{(peak - held) / 1e9:.2f} GB above the {held / 1e9:.2f} GB "
+              f"held before train()")
+        t0 = time.perf_counter()
+        back = checkpoint.restore(ck, f"{cfg.name}-final",
+                                  like={"params": res.params})["params"]
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree.leaves(back), tree.leaves(res.params)))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree.leaves(back))
+        print(f"checkpoint {cfg.name}-final: {nbytes / 1e9:.2f} GB restored "
+              f"in {time.perf_counter() - t0:.1f} s, equal to the final "
+              f"params: {same}")
+        if not same:
+            raise AssertionError("the checkpoint does not round-trip")
+        del back
+    # steady state: 3 more steps, synchronised; then one under the
+    # profiler: the device's idle share
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = make_train_step(model, oc)
+    params, state = res.params, res.opt_state
+    batches = list(sharded_batches(ds, None, 4, TRAIN_STEPS, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[:3]:
+        params, state, m = step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 3
+    print(f"steady state: {dt * 1e3:.1f} ms a step, {1 / dt:.3f} steps/s, "
+          f"{TRAIN_B * TRAIN_S / dt:.0f} tokens/s")
+    batch = batches[3]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_ms = sum(t for t, _ in rows) / 1e3
+    if rows:
+        print(f"profiled train step: wall {wall * 1e3:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms (idle share "
+              f"{1 - busy_ms / (wall * 1e3):.3f}), loss {float(m['loss']):.4f}")
+        for t, e in rows[:10]:
+            print(f"  {t / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    else:
+        print("profiler recorded no device time: idle share not measured")
+    del params, state, res, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_grads_kernel_vs_plain(get_config, build_model, fwd_fn, bwd_fn):
+    """Phase 13c: full width, f32, GRAD_LAYERS layers: train_loss and its
+    gradient through the flash kernels against the same model with
+    attention on its plain version (``force_ref``). Loss within 1e-5
+    relative, each leaf within 1e-4 of its largest |g|."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention
+    from repro_torch.train import tree
+    cfg = replace(get_config("qwen3-4b"), n_layers=GRAD_LAYERS,
+                  dtype=torch.float32, remat=False)
+    model = build_model(cfg, device="cuda")
+    params = model.init(SEED + 1)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (GRAD_B, GRAD_S + 1), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    leaves = tree.leaves(params)
+
+    def value_and_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = model.train_loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        return loss.detach(), grads
+
+    _zero((fwd_fn, bwd_fn))
+    lk, gk = value_and_grad()
+    counts = (fwd_fn.launches, bwd_fn.launches)
+    kernel_route = attention.attention_bshd
+    attention.attention_bshd = partial(flash_ops.attention_bshd,
+                                       force_ref=True)
+    try:
+        lp, gp = value_and_grad()
+    finally:
+        attention.attention_bshd = kernel_route
+    if counts != (GRAD_LAYERS, GRAD_LAYERS) or \
+            (fwd_fn.launches, bwd_fn.launches) != counts:
+        raise AssertionError(f"launches {counts}, then "
+                             f"{(fwd_fn.launches, bwd_fn.launches)}")
+    worst = 0.0
+    for (key, p), a, b in zip(tree.leaves_with_path(params), gk, gp):
+        err = float((a - b).abs().max())
+        scale = max(float(b.abs().max()), 1e-30)
+        worst = max(worst, err / scale)
+        if err > 1e-4 * scale:
+            raise AssertionError(f"{key}: kernel-route gradient off by {err}"
+                                 f" (largest |g| {scale})")
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    print(f"loss {float(lk):.6f} (kernel route) vs {float(lp):.6f} (plain), "
+          f"relative {rel:.1e}; {len(leaves)} gradient leaves, worst "
+          f"{worst:.1e} of the leaf's largest |g| (tol 1e-4); flash "
+          f"launches {counts[0]} forward / {counts[1]} backward on the "
+          f"kernel route, none on the plain one")
+    if rel > 1e-5:
+        raise AssertionError(f"losses differ by {rel}")
+    del params, gk, gp, model
+    torch.cuda.empty_cache()
+
+
+def run_train_launcher():
+    """Phase 13d: ``python -m repro_torch.launch.train --steps 3`` on the
+    card (reduced qwen3-4b, f32), as a subprocess that must exit 0."""
+    import os
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            "--steps", "3", "--ckpt-root", ck], cwd=ROOT,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+    print(r.stdout.strip())
+    if r.returncode:
+        raise AssertionError(f"launcher exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+
+
+def time_flash_backward(fwd_kernel, bwd_kernel, ref_bwd, flush):
+    """The backward kernel's time at the qwen3-4b train shape (bf16 and
+    f32) and whisper's encoder (bf16) beside its plain version, its
+    bound and SDPA's backward on the same inputs; the forward's time
+    with and without the lse write at the train shape and at qwen3-4b's
+    prefill (B 1, S = T = 300)."""
+    F = torch.nn.functional
+    rows = {}
+    for key, case, dt in (("train", BWD_CASES[0], torch.bfloat16),
+                          ("train_f32", BWD_CASES[0], torch.float32),
+                          ("whisper_enc", BWD_CASES[1], torch.bfloat16)):
+        _, Bq, Hq, Hkv, S, T, hd, causal, win = case
+        q, k, v, do = bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed=9)
+        out, lse = fwd_kernel(q, k, v, causal=causal, with_lse=True)
+        k_ms = time_ms(lambda: bwd_kernel(q, k, v, out, lse, do,
+                                          causal=causal), flush, iters=10,
+                       warmup=2)
+        p_ms = time_ms(lambda: ref_bwd(q, k, v, out, lse, do,
+                                       causal=causal), flush, iters=5,
+                       warmup=1)
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                            enable_gqa=Hq != Hkv)
+        l_ms = time_ms(lambda: torch.autograd.grad(
+            so, (qs, ks, vs), do, retain_graph=True), flush, iters=10,
+            warmup=2)
+        b_ms, b_by = flash_bwd_bound(Bq, Hq, Hkv, S, T, hd, dt, causal, win)
+        rows[key] = (k_ms, p_ms, b_ms, b_by, l_ms)
+        print(f"flash backward, {case[0]} (B {Bq}, {Hq} / {Hkv} heads of "
+              f"{hd}, S {S}, T {T}, {str(dt)[6:]}): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, sdpa backward {l_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})")
+        del so, qs, ks, vs
+    fwd = {}
+    for key, shape in (("train", BWD_CASES[0][1:7]),
+                       ("prefill", (1, 32, 8, PREFILL_T, PREFILL_T, 128))):
+        q, k, v, _ = bwd_inputs(*shape, torch.bfloat16, seed=10)
+        plain = time_ms(lambda: fwd_kernel(q, k, v), flush)
+        with_lse = time_ms(lambda: fwd_kernel(q, k, v, with_lse=True), flush)
+        fwd[key] = (plain, with_lse)
+        print(f"flash forward at {key} shape {shape}, bf16: {plain:.4f} ms, "
+              f"with the lse write {with_lse:.4f} ms")
+    return rows, fwd
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -2207,9 +2652,12 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, sharded_decode_attention)
+    from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ops import (attention_bshd,
                                                          flash_attention)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
     from repro_torch.kernels.paged_attention import kernel as pw_kernel
     from repro_torch.kernels.paged_attention.ops import paged_window_attention
     from repro_torch.kernels.paged_attention.ref import (
@@ -2662,6 +3110,30 @@ def main() -> int:
         frontend_checks(name, get_config, build_model,
                         pw_kernel.paged_window_attention)
 
+    phase("13a. the flash backward kernel vs its plain version, f32 and "
+          "bf16, at the training shapes")
+    bwd_err = check_flash_backward(flash_kernel.flash_attention,
+                                   flash_bwd.flash_attention_bwd,
+                                   flash_attention, flash_attention_ref,
+                                   flash_attention_bwd_ref)
+    check_grad_refusals((paged_window_attention, decode_attention, wkv,
+                         selective_scan))
+
+    phase(f"13b. train full-width qwen3-4b, bf16, remat, {TRAIN_LAYERS} "
+          f"layers, {TRAIN_STEPS} steps of B {TRAIN_B} x S {TRAIN_S}")
+    train_launches = train_full_width(get_config, build_model, kernel_fns,
+                                      flash_bwd.flash_attention_bwd)
+
+    phase(f"13c. train_loss gradients, kernel route vs plain route, f32, "
+          f"full width, {GRAD_LAYERS} layers")
+    train_grads_kernel_vs_plain(get_config, build_model,
+                                flash_kernel.flash_attention,
+                                flash_bwd.flash_attention_bwd)
+
+    phase("13d. the launcher: python -m repro_torch.launch.train --steps 3 "
+          "(reduced qwen3-4b, f32) on the card")
+    run_train_launcher()
+
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
@@ -2774,6 +3246,9 @@ def main() -> int:
     front_flash, front_dec = time_frontends(attention_bshd, decode_attention,
                                             flush, front_lens)
     time_sampler(sampling)
+    bwd_times, fwd_lse_times = time_flash_backward(
+        flash_kernel.flash_attention, flash_bwd.flash_attention_bwd,
+        flash_attention_bwd_ref, flush)
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
                                 ("qwen3-4b", HEAD_SHAPES[0])):
@@ -2845,6 +3320,25 @@ def main() -> int:
         floor_ms=dec_times["hymba-1.5b"][5], qwen3_ms=q_ms,
         qwen3_plain_ms=qp_ms, qwen3_bound_ms=qb_ms, qwen3_bound_by=qb_by,
         qwen3_library_ms=ql_ms, qwen3_floor_ms=qf_ms, **front_dec)
+    k_ms, p_ms, b_ms, b_by, l_ms = bwd_times["train"]
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
+        "replaces_note": "the gradient of _flash_kernel's function, which "
+                         "the reference takes through XLA "
+                         "(src/repro/models/attention.py:106)",
+        "launches": train_launches["flash_attention_bwd"],
+        "max_abs_err": bwd_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+        **{f"{key}_{name}": val for key in ("train_f32", "whisper_enc")
+           for name, val in zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms"), bwd_times[key])}})
+    next(r for r in rows if r["name"] == "flash_attention").update(
+        train_launches=train_launches["flash_attention"],
+        **{f"{key}_{name}": val for key, pair in fwd_lse_times.items()
+           for name, val in zip(("fwd_ms", "fwd_lse_ms"), pair)})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

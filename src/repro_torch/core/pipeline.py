@@ -8,7 +8,9 @@ timings are recorded exactly as the paper's Table 6 (tika / sectioning /
 bert / parallel-services). Models live on one device, the card unless
 the caller passes ``device="cpu"``. The only deliberate waits for the
 card are the one before the ``bert`` timing ends and each NER call's
-read-back of its labels.
+read-back of its labels. A parse and every NER call run under
+``torch.no_grad()`` (the services run on the dispatcher's threads, each
+with its own grad mode).
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ class NERModel:
                                                    device), cfg, device)
         return cls(name, cfg, params, HashTokenizer(vocab_size))
 
+    @torch.no_grad()
     def __call__(self, sentences: list) -> list:
         """sentences: list of token lists -> list of (token, label) pairs."""
         if not sentences:
@@ -135,6 +138,7 @@ class CVParser:
                    HashTokenizer(vocab_size))
 
     # ------------------------------------------------------------ stages
+    @torch.no_grad()
     def parse(self, document) -> dict:
         """Returns {"fields": ..., "timings": {tika, sectioning, bert,
         parallel_services, total}, "dispatch": DispatchResult}."""

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.kernel import (check_strided,
                                                        rows_aligned)
 
@@ -174,6 +174,7 @@ def decode_attention(q, k, v, n_valid, *, sliding_window: int = 0):
     ``n = n_valid[b]``. Returns (out (B,Hq,hd) in q.dtype, lse (B,Hq)
     f32)."""
     _check(q, k, v, n_valid)
+    refuse_grad("decode_attention", q, k, v)
     B, Hq, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)

@@ -10,6 +10,13 @@
 // that sees no key writes 0 (the reference kernel's m_safe / alpha and
 // max(l, 1e-30) guards).
 //
+// With a non-null `lse` the kernel also writes each row's log-sum-exp of
+// its scaled scores, (B, Hq, S) f32 contiguous, -inf for a row that sees
+// no key: the backward kernel (flash_bwd.cu) recomputes the
+// probabilities from it. That is a second instantiation of each kernel
+// (the LSE template flag); serving passes null and runs the first, whose
+// code the lse write does not touch.
+//
 // Layouts: q / out (B, Hq, S, hd), k / v (B, Hkv, T, hd), each read
 // through element strides of its batch, head and position axes with the
 // head-dim stride 1. So the model's (B, S, H, hd) tensors (k and v are
@@ -160,10 +167,11 @@ struct Strides {
   int b, h, s;
 };
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool LSE>
 __global__ void __launch_bounds__(Cfg<HDP>::WARPS * 32)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int T_,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int T_,
                  int hd, int G, Strides qs_, Strides ks_, Strides vs_,
                  Strides os_, int causal, int window, int vec,
                  float scale) {
@@ -284,6 +292,11 @@ __global__ void __launch_bounds__(Cfg<HDP>::WARPS * 32)
   for (int r = 0; r < ROWS; ++r) {
     const int row = q0 + row0 + r;
     if (row >= S) break;
+    if constexpr (LSE) {
+      if (lane == 0)
+        lse[((size_t)b * gridDim.y + h) * S + row] =
+            l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
+    }
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < EPL; ++i) {
@@ -293,34 +306,40 @@ __global__ void __launch_bounds__(Cfg<HDP>::WARPS * 32)
   }
 }
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool LSE>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out,
-                      int B, int Hq, int Hkv, int S, int T_, int hd,
-                      Strides qs_, Strides ks_, Strides vs_, Strides os_,
-                      int causal, int window, int vec, cudaStream_t stream) {
+                      float* lse, int B, int Hq, int Hkv, int S, int T_,
+                      int hd, Strides qs_, Strides ks_, Strides vs_,
+                      Strides os_, int causal, int window, int vec,
+                      cudaStream_t stream) {
   using C = Cfg<HDP>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<T, HDP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   const dim3 block(C::WARPS * 32);
-  flash_kernel<T, HDP><<<grid, block, C::SMEM, stream>>>(
+  flash_kernel<T, HDP, LSE><<<grid, block, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_, hd, Hq / Hkv,
-      qs_, ks_, vs_, os_, causal, window, vec, 1.0f / sqrtf((float)hd));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_, hd,
+      Hq / Hkv, qs_, ks_, vs_, os_, causal, window, vec,
+      1.0f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int B, int Hq, int Hkv, int S, int T_, int hd,
-                       Strides qs_, Strides ks_, Strides vs_, Strides os_,
-                       int causal, int window, int vec, cudaStream_t stream) {
+                       float* lse, int B, int Hq, int Hkv, int S, int T_,
+                       int hd, Strides qs_, Strides ks_, Strides vs_,
+                       Strides os_, int causal, int window, int vec,
+                       cudaStream_t stream) {
 #define FLASH_HD(HDP_)                                                     \
   case HDP_:                                                               \
-    return launch_hd<float, HDP_>(q, k, v, out, B, Hq, Hkv, S, T_, hd,     \
-                                  qs_, ks_, vs_, os_, causal, window, vec, \
-                                  stream)
+    return lse ? launch_hd<float, HDP_, true>(                             \
+                     q, k, v, out, lse, B, Hq, Hkv, S, T_, hd, qs_, ks_,   \
+                     vs_, os_, causal, window, vec, stream)                \
+               : launch_hd<float, HDP_, false>(                            \
+                     q, k, v, out, lse, B, Hq, Hkv, S, T_, hd, qs_, ks_,   \
+                     vs_, os_, causal, window, vec, stream)
   switch ((hd + 31) / 32 * 32) {
     FLASH_HD(32);
     FLASH_HD(64);
@@ -389,13 +408,13 @@ __device__ __forceinline__ void stage_kv(bf16* dst, const bf16* src,
   }
 }
 
-template <int HDP>
+template <int HDP, bool LSE>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int S, int T_, int hd, int G, Strides qs_, Strides ks_,
-                     Strides vs_, Strides os_, int causal, int window,
-                     int vec, float scale_log2) {
+                     float* __restrict__ lse, int S, int T_, int hd, int G,
+                     Strides qs_, Strides ks_, Strides vs_, Strides os_,
+                     int causal, int window, int vec, float scale_log2) {
   using namespace hopper;
   using C = MmaCfg<HDP>;
   constexpr int BK = C::BK;
@@ -553,6 +572,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     const float a0 = m[i] == -INFINITY ? 0.f : exp2f(m[i] - m_safe);
     const float a1 = m1 == -INFINITY ? 0.f : exp2f(m1 - m_safe);
     l[i] = l[i] * a0 + l1 * a1;
+    if constexpr (LSE) m[i] = mx;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
 #pragma unroll
@@ -568,6 +588,11 @@ __global__ void __launch_bounds__(kMmaThreads)
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const int pr = r0 + warp * 16 + gid + 8 * i;
     if (pr >= R) continue;
+    if constexpr (LSE) {
+      if (tig == 0)  // base 2 -> natural log
+        lse[((size_t)b * G * gridDim.x + kvh * G + pr % G) * S + pr / G] =
+            li > 0.f ? (m[i] + log2f(li)) * 0.6931471805599453f : -INFINITY;
+    }
     const float inv = 1.f / fmaxf(li, 1e-30f);
     bf16* ob = out + (size_t)b * os_.b + (size_t)(kvh * G + pr % G) * os_.h +
                (size_t)(pr / G) * os_.s;
@@ -580,38 +605,42 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <int HDP>
+template <int HDP, bool LSE>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       void* out, int B, int Hq, int Hkv, int S, int T_,
-                       int hd, Strides qs_, Strides ks_, Strides vs_,
+                       void* out, float* lse, int B, int Hq, int Hkv, int S,
+                       int T_, int hd, Strides qs_, Strides ks_, Strides vs_,
                        Strides os_, int causal, int window, int vec,
                        cudaStream_t stream) {
   using C = MmaCfg<HDP>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_mma_kernel<HDP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::SMEM);
   if (err != cudaSuccess) return err;
   const int G = Hq / Hkv;
   const int tiles = (S * G + kMmaRows - 1) / kMmaRows;
   if (tiles > 65535 || B > 65535) return cudaErrorInvalidValue;
   const dim3 grid(Hkv, B, tiles);
-  flash_mma_kernel<HDP><<<grid, kMmaThreads, C::SMEM, stream>>>(
+  flash_mma_kernel<HDP, LSE><<<grid, kMmaThreads, C::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, T_, hd, G,
-      qs_, ks_, vs_, os_, causal, window, vec,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, T_, hd,
+      G, qs_, ks_, vs_, os_, causal, window, vec,
       1.4426950408889634f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int Hq, int Hkv, int S, int T_,
-                        int hd, Strides qs_, Strides ks_, Strides vs_,
+                        void* out, float* lse, int B, int Hq, int Hkv, int S,
+                        int T_, int hd, Strides qs_, Strides ks_, Strides vs_,
                         Strides os_, int causal, int window, int vec,
                         cudaStream_t stream) {
 #define FLASH_MMA(HDP_)                                                   \
   case HDP_:                                                              \
-    return launch_mma<HDP_>(q, k, v, out, B, Hq, Hkv, S, T_, hd, qs_, ks_, \
-                            vs_, os_, causal, window, vec, stream)
+    return lse ? launch_mma<HDP_, true>(q, k, v, out, lse, B, Hq, Hkv, S,  \
+                                        T_, hd, qs_, ks_, vs_, os_, causal, \
+                                        window, vec, stream)                \
+               : launch_mma<HDP_, false>(q, k, v, out, lse, B, Hq, Hkv, S, \
+                                         T_, hd, qs_, ks_, vs_, os_, causal,\
+                                         window, vec, stream)
   switch ((hd + 63) / 64 * 64) {
     FLASH_MMA(64);
     FLASH_MMA(128);
@@ -626,22 +655,25 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Launches on `stream` and returns the launch's cudaError_t (0 = queued).
+// lse: null, or (B, Hq, S) f32 contiguous for the rows' log-sum-exp.
 // Strides are in elements; dtype: 0 = float32, 1 = bfloat16 (q, k, v and
 // out alike); causal: 0 or 1; window: 0 for none; vec: 1 when every q, k
 // and v row starts 16-byte aligned and hd fills whole 16-byte loads.
 extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int Hq,
-    int Hkv, int S, int T, int hd, int q_sb, int q_sh, int q_ss, int k_sb,
-    int k_sh, int k_st, int v_sb, int v_sh, int v_st, int o_sb, int o_sh,
-    int o_ss, int causal, int window, int vec, int dtype, void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int B, int Hq, int Hkv, int S, int T, int hd, int q_sb, int q_sh,
+    int q_ss, int k_sb, int k_sh, int k_st, int v_sb, int v_sh, int v_st,
+    int o_sb, int o_sh, int o_ss, int causal, int window, int vec, int dtype,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs_{q_sb, q_sh, q_ss}, ks_{k_sb, k_sh, k_st},
       vs_{v_sb, v_sh, v_st}, os_{o_sb, o_sh, o_ss};
+  float* lse_ = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)launch_f32(q, k, v, out, B, Hq, Hkv, S, T, hd, qs_, ks_,
-                           vs_, os_, causal, window, vec, st);
+    return (int)launch_f32(q, k, v, out, lse_, B, Hq, Hkv, S, T, hd, qs_,
+                           ks_, vs_, os_, causal, window, vec, st);
   if (dtype == 1)
-    return (int)launch_bf16(q, k, v, out, B, Hq, Hkv, S, T, hd, qs_, ks_,
-                            vs_, os_, causal, window, vec, st);
+    return (int)launch_bf16(q, k, v, out, lse_, B, Hq, Hkv, S, T, hd, qs_,
+                            ks_, vs_, os_, causal, window, vec, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,11 @@ by ``kernels._build``, loaded with ``ctypes``).
 The kernel reads q, k and v through their element strides (head-dim
 stride 1), so (B, S, H, hd) views transposed to (B, H, S, hd) need no
 copy. The wrapper checks device, dtype, shape and strides, allocates
-``out`` with ``torch.empty_like(q)`` (q's stride order), and launches on
-the current CUDA stream without synchronising; a launch CUDA refuses
-raises. ``flash_attention.launches`` counts successful launches.
+``out`` with ``torch.empty_like(q)`` (q's stride order) and, when asked
+(the autograd route of ``ops``), the rows' log-sum-exp (B, Hq, S) f32
+for the backward kernel (``backward.py``), and launches on the current
+CUDA stream without synchronising; a launch CUDA refuses raises.
+``flash_attention.launches`` counts successful launches.
 """
 from __future__ import annotations
 
@@ -16,15 +18,16 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
-# the C signature: q, k, v, out; B, Hq, Hkv, S, T, hd, 12 strides (q, k,
-# v, out: batch, head, position), causal, window, vec, dtype; stream
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
+# the C signature: q, k, v, out, lse (or null); B, Hq, Hkv, S, T, hd, 12
+# strides (q, k, v, out: batch, head, position), causal, window, vec,
+# dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
 
 
 @functools.cache
@@ -74,7 +77,7 @@ def _check(q, k, v):
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in DTYPES:
         raise ValueError(f"q dtype {q.dtype}: float32 or bfloat16 only")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"k / v dtypes {k.dtype}/{v.dtype} != q dtype "
@@ -96,30 +99,39 @@ def _check(q, k, v):
         check_strided(name, t)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
+                    with_lse: bool = False):
     """The CUDA kernel. q (B,Hq,S,hd), k/v (B,Hkv,T,hd) on one CUDA
     device, f32 or bf16 alike, any strides with head-dim stride 1. Query
     i sits at absolute position ``T - S + i``. Returns out (B,Hq,S,hd) in
-    q.dtype."""
+    q.dtype, with ``with_lse`` (out, lse (B,Hq,S) f32; -inf for a row
+    that sees no key). A call autograd would record raises: the
+    differentiable route is ``ops.FlashAttention``."""
     _check(q, k, v)
+    refuse_grad("flash_attention", q, k, v)
     B, Hq, S, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    if B == 0 or S == 0 or Hq == 0:
-        return out
-    if T == 0:
-        return out.zero_()
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if B == 0 or S == 0 or Hq == 0 or T == 0:
+        if T == 0:
+            out.zero_()
+            if lse is not None:
+                lse.fill_(float("-inf"))
+        return (out, lse) if with_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Hq, Hkv, S, T, hd, *strides,
-                      int(bool(causal)), int(sliding_window),
-                      int(rows_aligned(q, k, v)), _DTYPES[q.dtype], stream)
+                      out.data_ptr(), None if lse is None else lse.data_ptr(),
+                      B, Hq, Hkv, S, T, hd, *strides, int(bool(causal)),
+                      int(sliding_window), int(rows_aligned(q, k, v)),
+                      DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t "
                            f"{err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0

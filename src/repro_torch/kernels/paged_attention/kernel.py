@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_window.cu"
 # the head dims the kernels are instantiated on: a head dim hd (a
@@ -186,6 +186,7 @@ def paged_window_attention(q, pool_k, pool_v, block_table, base_lens, *,
     w of row b attends to cache positions ``[0, base_lens[b] + w]``.
     Returns (out (B,S,Hq,hd) in q.dtype, lse (B,S,Hq) f32)."""
     _check(q, pool_k, pool_v, block_table, base_lens)
+    refuse_grad("paged_window_attention", q, pool_k, pool_v)
     B, S, Hq, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)

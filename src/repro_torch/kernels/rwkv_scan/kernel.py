@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.kernel import rows_aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
@@ -119,6 +119,7 @@ def wkv_scan(r, k, v, w, u, state):
     contiguous float32 on one CUDA device. Returns (out (B,T,H,hd),
     final state (B,H,hd,hd)), both float32."""
     _check(r, k, v, w, u, state)
+    refuse_grad("wkv_scan", r, k, v, w, u, state)
     B, T, H, hd = r.shape
     out = torch.empty_like(r)
     if B == 0 or T == 0:

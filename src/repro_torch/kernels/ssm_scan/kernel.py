@@ -16,7 +16,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 MAX_STATE = 64                 # h of a channel lives in 32 lanes' registers
@@ -68,6 +68,7 @@ def ssm_scan(u, dt, Bm, Cm, A, D, state):
     state (B,di,N): contiguous float32 on one CUDA device. Returns
     (y (B,T,di), final state (B,di,N)), both float32."""
     _check(u, dt, Bm, Cm, A, D, state)
+    refuse_grad("ssm_scan", u, dt, Bm, Cm, A, D, state)
     B, T, di = u.shape
     y = torch.empty_like(u)
     if B == 0 or T == 0 or di == 0:

@@ -101,3 +101,9 @@ def classify_sections(params, embeddings: torch.Tensor) -> torch.Tensor:
     h = torch.tanh(embeddings @ params["dense_1"]["w"]
                    + params["dense_1"]["b"])
     return h @ params["dense_2"]["w"] + params["dense_2"]["b"]
+
+
+def classifier_loss(params, embeddings, labels):
+    """Mean cross-entropy of the section classifier: embeddings (B, 768),
+    labels (B,) section ids."""
+    return layers.softmax_xent(classify_sections(params, embeddings), labels)

@@ -128,5 +128,11 @@ def forward(params, cfg: LANConfig, tokens: torch.Tensor) -> torch.Tensor:
     return scores
 
 
+def loss(params, cfg: LANConfig, tokens, labels, mask=None):
+    """Token cross-entropy of the last layer's label scores: labels (B,S)
+    label ids, ``mask`` (B,S) weights (padding 0)."""
+    return layers.softmax_xent(forward(params, cfg, tokens), labels, mask)
+
+
 def predict(params, cfg: LANConfig, tokens):
     return torch.argmax(forward(params, cfg, tokens), dim=-1)

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, activations, rotary embeddings, inits.
+"""Shared building blocks: norms, activations, rotary embeddings, inits,
+the cross-entropy loss.
 
 Params are nested dicts of tensors. Layer-stacked params carry a leading
 L axis; the backbone loops over it. Norms and rope compute in float32
@@ -139,3 +140,21 @@ def sinusoidal_pos(positions: torch.Tensor, d: int,
         / max(half - 1, 1))
     ang = positions[..., None].float() * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+# ---------------------------------------------------------------- loss
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy in f32: logits (..., V), labels (...) int; with
+    ``mask`` (...) the masked mean, divided by ``max(sum(mask), 1)``.
+
+    The reference takes the gold logit as a dot with a one-hot row; a
+    gather gives the same value without a second (..., V) f32 tensor."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

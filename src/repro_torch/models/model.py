@@ -4,6 +4,7 @@ cross-attention decoder) and vision (patch prefix, M-RoPE) families.
 ``build_model(cfg, device)`` returns a ``Model`` whose methods take the
 params tree explicitly, as in the JAX reference:
     init(seed)                                          -> params
+    train_loss(params, batch)                           -> (loss, metrics)
     prefill(params, batch, last_idx=...)                -> (logits_last, cache)
     prefill(params, batch, cache=..., cache_len=...)    -> chunk window
     decode_step(params, token, cache, cache_len[, block_table=...])
@@ -11,10 +12,11 @@ params tree explicitly, as in the JAX reference:
     init_cache(batch_size, capacity)                    -> zeroed stripes
     init_paged_cache(num_blocks, block_size)            -> zeroed pool
 
-Batch dicts: prefill ``{"tokens": (B, S) int}``, plus ``"frames"`` (B,
-n_frames, d) for the audio frontend or ``"patch_embeds"`` (B, n_patches,
-d) for the vision one (the frontends' feature extractors are stubs, as
-in the reference); decode ``token (B, 1)``.
+Batch dicts: train ``{"tokens": (B, S+1) int}``, prefill ``{"tokens":
+(B, S) int}``, each plus ``"frames"`` (B, n_frames, d) for the audio
+frontend or ``"patch_embeds"`` (B, n_patches, d) for the vision one
+(the frontends' feature extractors are stubs, as in the reference);
+decode ``token (B, 1)``.
 Every tensor argument lies on the model's device. Caches (the paged
 pool, or the per-slot stripes and recurrent state) are updated in
 place.
@@ -92,13 +94,16 @@ def _positions_added(x, cfg, positions):
     return x + layers.sinusoidal_pos(positions, cfg.d_model, x.dtype)
 
 
-def _build_inputs(p, cfg, batch):
-    """Returns (x (B,S,d), extras, prefix, enc_kv) for a prefill: the
-    vision patches lead the text (``prefix`` of them) with their M-RoPE
-    ids in ``extras``; the audio frames run the encoder, whose output
-    every decoder layer projects to its cross K / V (``enc_kv``, stacked
-    over L)."""
+def _build_inputs(p, cfg, batch, *, drop_last_token: bool):
+    """Returns (x (B,S,d), extras, prefix, enc_kv) for a prefill or, with
+    ``drop_last_token`` (the last token is only a label), a train step:
+    the vision patches lead the text (``prefix`` of them) with their
+    M-RoPE ids in ``extras``; the audio frames run the encoder, whose
+    output every decoder layer projects to its cross K / V (``enc_kv``,
+    stacked over L)."""
     tokens = batch["tokens"]
+    if drop_last_token:
+        tokens = tokens[:, :-1]
     B, S_text = tokens.shape
     extras, prefix, enc_kv = {}, 0, None
     x = _embed_tokens(p, cfg, tokens)
@@ -172,6 +177,31 @@ class Model:
     def init(self, seed: int = 0):
         return init_params(self.cfg, seed, device=self.device)
 
+    # ---------------- train ----------------
+    def train_loss(self, params, batch):
+        """Next-token cross-entropy plus the summed MoE aux loss: batch
+        ``{"tokens": (B, S+1)}`` (+ frames / patch embeds), the first S
+        tokens in, ``tokens[:, 1:]`` the labels; a vision prefix is cut
+        off before the logits. Returns (total, {"xent", "aux"}), f32
+        scalars. Attention takes the flash kernel (and its backward) on
+        CUDA tensors; with ``cfg.remat`` every layer is recomputed in the
+        backward pass."""
+        cfg = self.cfg
+        x, extras, prefix, enc_kv = _build_inputs(params, cfg, batch,
+                                                  drop_last_token=True)
+        x, _, aux = transformer.apply_stack(x, params["blocks"], cfg,
+                                            kind=transformer.block_kind(cfg),
+                                            mode="train", extras=extras,
+                                            enc_kv=enc_kv)
+        x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if prefix:
+            x = x[:, prefix:, :]
+        logits = _logits(params, cfg, x)
+        loss = layers.softmax_xent(logits, batch["tokens"][:, 1:])
+        if not torch.is_tensor(aux):       # no MoE layer: filled on the
+            aux = torch.zeros_like(loss)   # device, no host copy (a sync)
+        return loss + aux, {"xent": loss, "aux": aux}
+
     # ---------------- prefill ----------------
     def prefill(self, params, batch, *, last_idx=None, cache=None,
                 cache_len=None, block_table=None, paged_kernel: bool = False,
@@ -199,11 +229,12 @@ class Model:
             if last_idx is not None:
                 x = _rows_at(x, last_idx)
             return _logits(params, cfg, x), new_cache
-        x, extras, prefix, enc_kv = _build_inputs(params, cfg, batch)
-        x, kv = transformer.apply_stack(x, params["blocks"], cfg,
-                                        kind=transformer.block_kind(cfg),
-                                        mode="prefill", extras=extras,
-                                        enc_kv=enc_kv)
+        x, extras, prefix, enc_kv = _build_inputs(params, cfg, batch,
+                                                  drop_last_token=False)
+        x, kv, _ = transformer.apply_stack(x, params["blocks"], cfg,
+                                           kind=transformer.block_kind(cfg),
+                                           mode="prefill", extras=extras,
+                                           enc_kv=enc_kv)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         x_last = x[:, -1:, :] if last_idx is None \
             else _rows_at(x, last_idx + prefix)
@@ -233,7 +264,7 @@ class Model:
         if cfg.rope == "mrope":
             extras["mrope_positions"] = cache_len.to(torch.int32) \
                 .reshape(-1, 1, 1).expand(B, 3, 1)
-        x, new_cache = transformer.apply_stack(
+        x, new_cache, _ = transformer.apply_stack(
             x, params["blocks"], cfg, kind=transformer.block_kind(cfg),
             mode="decode", cache=cache, extras=extras)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -270,7 +301,7 @@ class Model:
         if cfg.rope == "mrope":
             extras["mrope_positions"] = pos[:, None, :].expand(
                 B, 3, S).to(torch.int32)
-        x, new_cache = transformer.apply_stack(
+        x, new_cache, _ = transformer.apply_stack(
             x, params["blocks"], cfg, kind=kind, mode="decode", cache=cache,
             extras=extras)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -3,12 +3,15 @@ decoder_x kinds; decoder_x is a dense block with a cross-attention
 sub-block after its self-attention).
 
 A block apply function is ``(x, p, cfg, mode, cache, extras) -> (x,
-new_cache)``. Block params are stacked with a leading L axis and the
-stack is a Python loop over layers (the reference's ``lax.scan``).
+new_cache, aux)``. Block params are stacked with a leading L axis and the
+stack is a Python loop over layers (the reference's ``lax.scan``); with
+``cfg.remat`` a training layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of the scan body).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers, moe, rwkv6, ssm
 
@@ -68,12 +71,14 @@ def _layer(tree, l: int):
 
 
 def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
-    """Returns (x, new_cache). extras: dict with positions /
+    """Returns (x, new_cache, aux). extras: dict with positions /
     mrope_positions / cache_len / block_table / paged_kernel / n_write /
-    enc_kv (this layer's cross K / V) as applicable. The MoE FFN's aux
-    loss (a training term) is dropped."""
+    enc_kv (this layer's cross K / V) as applicable. ``aux`` is the MoE
+    FFN's load-balancing loss (an f32 scalar tensor), 0.0 for the other
+    kinds."""
     extras = extras or {}
     eps = cfg.norm_eps
+    aux = 0.0
 
     if kind == "rwkv":
         tcache = None if cache is None else {"state": cache["state"],
@@ -86,9 +91,9 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
                                     p["cmix"], cfg, ccache)
         x = x + h
         if mode == "train":
-            return x, None
+            return x, None, aux
         return x, {"state": tnew["state"], "last_x_t": tnew["last_x"],
-                   "last_x_c": cnew["last_x"]}
+                   "last_x_c": cnew["last_x"]}, aux
 
     h = layers.rmsnorm(x, p["ln1"], eps)
     acache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
@@ -118,15 +123,17 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None):
                                                 p["xattn"], cfg)
     h = layers.rmsnorm(x, p["ln2"], eps)
     if kind == "moe":
-        x = x + moe.moe_ffn(h, p["moe"], cfg)[0]
+        ffn_out, aux = moe.moe_ffn(h, p["moe"], cfg)
+        x = x + ffn_out
     else:
         x = x + layers.mlp(h, p["ffn"], cfg.act)
-    return x, (new_cache if mode != "train" else None)
+    return x, (new_cache if mode != "train" else None), aux
 
 
 def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None,
                 enc_kv=None):
-    """Apply the stacked layer params, one layer at a time.
+    """Apply the stacked layer params, one layer at a time. Returns (x,
+    cache, aux): ``aux`` sums the layers' aux losses (0.0 without MoE).
 
     Prefill (``cache`` None) returns every fresh cache leaf stacked over
     L: ``k`` / ``v`` (L,B,S,Hkv,hd), ``ssm_state`` (L,B,di,N), or
@@ -134,7 +141,10 @@ def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None,
     decode mode ``cache`` is a dict of (L, ...) tensors — the paged pool
     or the per-slot stripes — and each layer's slice is updated in
     place: attention writes its K/V into the slice itself, the other
-    leaves are copied over. The same dict is returned.
+    leaves are copied over. The same dict is returned. Train mode
+    returns no cache; with ``cfg.remat`` each layer keeps only its input
+    and recomputes the rest in the backward pass (the flash forward runs
+    twice a layer).
 
     decoder_x: layer l cross-attends to ``enc_kv`` {k, v} (L,B,T,Hkv,hd)
     at prefill, which returns them as the cache's ``xk`` / ``xv``; in
@@ -143,12 +153,20 @@ def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None,
         enc_kv = {"k": cache["xk"], "v": cache["xv"]}
     L = blocks["ln1"].shape[0]
     fresh = []
+    aux = 0.0
+    remat = cfg.remat and mode == "train"
     for l in range(L):
         c = None if cache is None else _layer(cache, l)
         ex = extras if enc_kv is None else \
             {**(extras or {}), "enc_kv": _layer(enc_kv, l)}
-        x, new_c = apply_block(x, _layer(blocks, l), cfg, kind=kind,
-                               mode=mode, cache=c, extras=ex)
+        if remat:
+            x, a = checkpoint(_train_layer, x, _layer(blocks, l), cfg, kind,
+                              ex, use_reentrant=False)
+            new_c = None
+        else:
+            x, new_c, a = apply_block(x, _layer(blocks, l), cfg, kind=kind,
+                                      mode=mode, cache=c, extras=ex)
+        aux = aux + a
         if mode == "prefill":
             fresh.append(new_c)
         elif c is not None:
@@ -159,5 +177,11 @@ def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None,
         out = {key: torch.stack([f[key] for f in fresh]) for key in fresh[0]}
         if enc_kv is not None:
             out["xk"], out["xv"] = enc_kv["k"], enc_kv["v"]
-        return x, out
-    return x, cache
+        return x, out, aux
+    return x, cache, aux
+
+
+def _train_layer(x, p, cfg, kind, extras):
+    x, _, aux = apply_block(x, p, cfg, kind=kind, mode="train",
+                            extras=extras)
+    return x, aux

@@ -58,7 +58,10 @@ share prefixes, never chunk and never speculate.
 Device work is launched by :meth:`ServingEngine.dispatch_step` on the
 current CUDA stream (PyTorch returns before the device finishes); the
 returned tick's ``commit()`` is the host sync (``.cpu()``) followed by
-the per-slot bookkeeping. Caches are updated in place.
+the per-slot bookkeeping. Caches are updated in place. Admission,
+dispatch and commit run under ``torch.no_grad()``: params fresh from a
+train step (or any that require grad) serve as detached ones would, and
+no kernel without a backward sees a recorded call.
 
 Sampled rows (temperature / top-k) draw from the reference's counter-
 based key streams (:mod:`.sampling`). Every host array a step sends to
@@ -138,6 +141,7 @@ class _Tick:
     def __init__(self, commit_fn):
         self._commit = commit_fn
 
+    @torch.no_grad()
     def commit(self) -> list:
         """Synchronize on the device results, run the per-slot
         bookkeeping, and return the finished requests."""
@@ -605,6 +609,7 @@ class ServingEngine:
                 return max_len
         return pos
 
+    @torch.no_grad()
     def add_requests(self, reqs: list) -> int:
         """Admit as many of ``reqs`` (in order, behind any preempted
         requests awaiting re-admission) as free slots AND pool blocks
@@ -1290,6 +1295,7 @@ class ServingEngine:
         ``dispatch_step().commit()``."""
         return self.dispatch_step().commit()
 
+    @torch.no_grad()
     def dispatch_step(self) -> _Tick:
         """Dispatch one decode step over all active slots (each at its own
         length) — a draft-and-verify step when the engine speculates and

@@ -1305,3 +1305,254 @@ def test_frontend_model_on_card_matches_cpu(cuda, name):
             assert got == [L + cross + 3 * (L if cross else 0), 3 * L]
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- training on the card
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # of max |g|
+# B x Hq x Hkv x hd x S x T x window x causal: G 1 / 4 / 6, S < T, S > T
+# (keyless rows), a window, non-causal (whisper), the config head dims
+BWD_GRID = [
+    (2, 8, 2, 128, 100, 100, 0, True),
+    (1, 6, 6, 64, 150, 150, 0, False),
+    (1, 6, 6, 64, 45, 150, 0, False),
+    (1, 12, 2, 128, 70, 70, 0, True),
+    (1, 8, 2, 128, 130, 130, 32, True),
+    (1, 4, 2, 112, 65, 90, 0, True),
+    (1, 4, 1, 192, 33, 50, 24, True),
+    (1, 4, 2, 64, 40, 20, 0, True),
+    (2, 2, 2, 32, 17, 17, 0, True),
+]
+
+
+def _bwd_case(B, Hq, Hkv, hd, S, T, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to("cuda", dt)
+            for shape in ((B, Hq, S, hd), (B, Hkv, T, hd), (B, Hkv, T, hd),
+                          (B, Hq, S, hd))]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,hd,S,T,win,causal", BWD_GRID)
+def test_flash_backward_matches_plain_version(cuda, dt, B, Hq, Hkv, hd, S,
+                                              T, win, causal):
+    """The kernel's lse against the plain one; the backward kernel against
+    ``flash_attention_bwd_ref`` on the same out / lse, twice bitwise, no
+    NaN, dq 0 on rows that see no key."""
+    from repro_torch.kernels.flash_attention import backward
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    q, k, v, do = _bwd_case(B, Hq, Hkv, hd, S, T, dt, S * T + hd)
+    out, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                            sliding_window=win,
+                                            with_lse=True)
+    _, rlse = flash_attention_ref(q, k, v, causal=causal,
+                                  sliding_window=win, return_lse=True)
+    live = torch.isfinite(rlse)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(lse[live], rlse[live], atol=1e-3, rtol=1e-4)
+    before = backward.flash_attention_bwd.launches
+    got = backward.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       sliding_window=win)
+    again = backward.flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=causal, sliding_window=win)
+    assert backward.flash_attention_bwd.launches == before + 2
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                   sliding_window=win)
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got, again, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert torch.equal(g, g2) and torch.isfinite(g).all()
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) \
+            <= BWD_TOL[dt] * max(scale, 1e-30)
+    assert (got[0][~live] == 0).all()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 100])
+def test_flash_backward_takes_unaligned_rows(cuda, dt, hd):
+    """Rows that do not start 16-byte aligned (views one element into
+    their buffers), and hd 100 (no whole 16-byte loads), take the
+    element-wise staging path of either route: the plain version's
+    gradients."""
+    from repro_torch.kernels.flash_attention import backward
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    g = torch.Generator().manual_seed(hd)
+    qb = torch.randn((2, 4, 40, hd + 1), generator=g).to("cuda", dt)
+    kvb = torch.randn((2, 2, 50, hd + 1), generator=g).to("cuda", dt)
+    dob = torch.randn((2, 4, 40, hd + 1), generator=g).to("cuda", dt)
+    q, k, v, do = qb[..., 1:], kvb[..., 1:], kvb[..., :hd], dob[..., 1:]
+    assert not flash_kernel.rows_aligned(q, k, v, do)
+    out, lse = flash_kernel.flash_attention(q, k, v, sliding_window=9,
+                                            with_lse=True)
+    got = backward.flash_attention_bwd(q, k, v, out, lse, do,
+                                       sliding_window=9)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, sliding_window=9)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) \
+            <= BWD_TOL[dt] * scale
+
+
+def test_flash_backward_rejects_what_it_cannot_run(cuda):
+    from repro_torch.kernels.flash_attention import backward
+    q = torch.zeros((1, 4, 8, 64), device="cuda")
+    kv = torch.zeros((1, 2, 8, 64), device="cuda")
+    lse = torch.zeros((1, 4, 8), device="cuda")
+    fn = backward.flash_attention_bwd
+    before = fn.launches
+    bad = [(q, kv, kv, q, lse[..., :4], q),                  # lse shape
+           (q, kv, kv, q, lse.double(), q),                  # lse dtype
+           (q, kv, kv, q, lse, q[:, :, :4]),                 # dout shape
+           (q, kv, kv, q.bfloat16(), lse, q),                # out dtype
+           (q, kv, kv, q, lse, torch.zeros(
+               (1, 4, 8, 128), device="cuda")[..., ::2])]    # dout stride
+    for args in bad:
+        with pytest.raises(ValueError):
+            fn(*args)
+    wide = torch.zeros((1, 4, 8, 264), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fn(wide, wide[:, :2], wide[:, :2], wide, lse, wide)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_autograd_route_matches_plain_autograd(cuda, dt):
+    """attention_bshd on the model's (B,S,H,hd) views that require grad:
+    one forward and one backward launch, gradients equal to autograd of
+    the plain version; under no_grad the forward alone."""
+    from repro_torch.kernels.flash_attention import backward
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 90, 8, 128), generator=g).to("cuda", dt)
+    kv = torch.randn((2, 90, 2, 2, 128), generator=g).to("cuda", dt)
+    do = torch.randn((2, 90, 8, 128), generator=g).to("cuda", dt)
+    grads = []
+    for force_ref in (False, True):
+        qg, kvg = q.clone().requires_grad_(True), kv.clone().requires_grad_(
+            True)
+        before = (flash_kernel.flash_attention.launches,
+                  backward.flash_attention_bwd.launches)
+        out = attention_bshd(qg, kvg[:, :, 0], kvg[:, :, 1],
+                             sliding_window=40, force_ref=force_ref)
+        grads.append(torch.autograd.grad(out, (qg, kvg), do))
+        after = (flash_kernel.flash_attention.launches,
+                 backward.flash_attention_bwd.launches)
+        assert [a - b for a, b in zip(after, before)] == \
+            ([0, 0] if force_ref else [1, 1])
+    for a, b in zip(*grads):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) \
+            <= BWD_TOL[dt] * scale
+    with torch.no_grad():
+        before = backward.flash_attention_bwd.launches
+        attention_bshd(q.requires_grad_(True), kv[:, :, 0], kv[:, :, 1])
+        assert backward.flash_attention_bwd.launches == before
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """paged-window, decode, WKV and selective-scan ops refuse a call
+    autograd would record (no plain-version fallback), and run under
+    no_grad; the flash forward refuses it when called directly."""
+    q, pk, pv, table, base = _case(2, 4, 8, 2, 64, 16, 4, torch.float32)
+    g = torch.Generator().manual_seed(2)
+    kst = torch.randn((2, 2, 64, 64), generator=g).cuda()
+    n = torch.tensor([5, 64], dtype=torch.int32, device="cuda")
+    r, k, v, w, u, s = _wkv_case(1, 5, 2, 32, 0)
+    x = _ssm_case(1, 5, 40, 16, 0)
+    calls = {
+        "paged_window_attention": lambda a: paged_window_attention(
+            a, pk, pv, table, base),
+        "decode_attention": lambda a: decode_attention(a, kst, kst, n),
+        "wkv_scan": lambda a: wkv(a, k, v, w, u, s),
+        "ssm_scan": lambda a: selective_scan(a, *x[1:]),
+        "flash_attention": lambda a: flash_kernel.flash_attention(
+            a, kst, kst),
+    }
+    firsts = {"paged_window_attention": q,
+              "decode_attention": torch.randn((2, 4, 64), generator=g).cuda(),
+              "wkv_scan": r, "ssm_scan": x[0],
+              "flash_attention": torch.randn((2, 4, 9, 64),
+                                             generator=g).cuda()}
+    for name, call in calls.items():
+        a = firsts[name].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(a)
+        with torch.no_grad():
+            call(a)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch,kw", [("qwen3-4b", {"use_kernel": True}),
+                                     ("hymba-1.5b", {}),
+                                     ("rwkv6-1.6b", {})])
+def test_params_requiring_grad_serve_on_card(cuda, arch, kw):
+    """Params that require grad (as a train step leaves them) serve
+    without tripping a kernel's refusal, with the detached params'
+    streams: the engine runs under no_grad."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_kv_heads=2) \
+        if arch != "rwkv6-1.6b" else get_config(arch).reduced()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    streams = []
+    for p in (params, _grad_tree(params)):
+        eng = ServingEngine(model, p, batch_size=2, max_seq=64, **kw)
+        reqs = [Request(rid=i, prompt=list(range(3 + i, 12 + 3 * i)),
+                        max_new_tokens=4) for i in range(3)]
+        assert len(eng.run(list(reqs))) == 3
+        streams.append([(r.out_tokens, r.out_logprobs) for r in reqs])
+    assert streams[0] == streams[1]
+
+
+def _grad_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _grad_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_grad_tree(v) for v in tree]
+    return tree.clone().requires_grad_(True)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "whisper-tiny",
+                                  "qwen2-vl-2b"])
+def test_train_loss_grads_on_card_match_cpu(cuda, arch):
+    """Reduced configs (G 2 where the config has GQA), f32: train_loss and
+    every gradient through the flash kernels on the card against the
+    port on the CPU (plain attention), 1e-4 of each leaf's largest |g|;
+    one forward and one backward flash launch per attention call."""
+    from repro_torch.kernels.flash_attention import backward
+    from repro_torch.train import tree
+    cfg = get_config(arch).reduced()
+    if arch == "qwen3-4b":
+        cfg = dataclasses.replace(cfg, n_kv_heads=2)
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (2, 17),
+                                     generator=g)}
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                      generator=g)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                            generator=g)
+    params = build_model(cfg, device="cpu").init(0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        p = _to(params, dev)
+        leaves = tree.leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = (flash_kernel.flash_attention.launches,
+                  backward.flash_attention_bwd.launches)
+        loss, _ = model.train_loss(p, _to(batch, dev))
+        grads = torch.autograd.grad(loss, leaves)
+        n = (flash_kernel.flash_attention.launches - before[0],
+             backward.flash_attention_bwd.launches - before[1])
+        out[dev] = (float(loss.detach()), [t.cpu() for t in grads], n)
+    calls = cfg.n_layers + (cfg.encoder_layers + cfg.n_layers
+                            if cfg.cross_attention else 0)
+    assert out["cuda"][2] == (calls, calls) and out["cpu"][2] == (0, 0)
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) \
+            <= 1e-4 * max(float(b.abs().max()), 1e-30)

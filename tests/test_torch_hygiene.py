@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.flash_attention import backward as flash_bwd
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.paged_attention import kernel as pw_kernel
 from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
@@ -35,7 +36,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
 print(len(names), "modules;", "leaked:", bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+train = {"repro_torch.train." + m for m in
+         ("checkpoint", "data", "optimizer", "train_loop", "tree")}
+train.add("repro_torch.launch.train")
+sys.exit(1 if bad or len(names) < 20 or not train <= set(names) else 0)
 """
 
 
@@ -129,6 +133,12 @@ def _flash_args():
     return q, kv, kv
 
 
+def _flash_bwd_args():
+    q = torch.zeros((1, 4, 3, 32))
+    kv = torch.zeros((1, 2, 5, 32))
+    return q, kv, kv, q, torch.zeros((1, 4, 3)), q
+
+
 def _decode_args():
     kv = torch.zeros((2, 2, 5, 32))
     return (torch.zeros((2, 4, 32)), kv, kv,
@@ -141,6 +151,7 @@ KERNELS = {
     "wkv": (wkv_kernel, "wkv_scan", _wkv_args),
     "ssm_scan": (ssm_kernel, "ssm_scan", _ssm_args),
     "flash": (flash_kernel, "flash_attention", _flash_args),
+    "flash_bwd": (flash_bwd, "flash_attention_bwd", _flash_bwd_args),
     "decode": (decode_kernel, "decode_attention", _decode_args),
 }
 
@@ -171,8 +182,8 @@ def test_build_path_follows_source_hash(tmp_path):
 def test_build_path_follows_included_headers(tmp_path):
     """A library is named by the headers its source includes too, and
     theirs in turn: editing one builds anew, an unrelated file does
-    not. The attention sources and both scans share the helpers
-    header."""
+    not. The attention sources (the flash backward too) and both scans
+    share the helpers header."""
     (tmp_path / "inc").mkdir()
     a, b = tmp_path / "inc" / "a.cuh", tmp_path / "inc" / "b.cuh"
     a.write_text('#include "b.cuh"\n// a')
@@ -189,6 +200,7 @@ def test_build_path_follows_included_headers(tmp_path):
     header = (_build.KERNELS_DIR / "include" / "hopper.cuh").resolve()
     assert {p.name for p in _build.sources()
             if header in _build.includes(p)} == {"decode.cu", "flash.cu",
+                                                 "flash_bwd.cu",
                                                  "paged_window.cu",
                                                  "ssm_scan.cu", "wkv.cu"}
 
