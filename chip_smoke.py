@@ -9,9 +9,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    Without a GPU it stops here.
 2. Build: every CUDA source of the port, with nvcc, into ``build/``;
    ptxas registers and spills of every kernel instantiation; where
-   ``cuobjdump`` exists, whether the bf16 flash kernel's SASS holds
-   tensor-core ``HMMA`` and both attention kernels asynchronous copies
-   (``LDGSTS`` / ``UTMALDG``).
+   ``cuobjdump`` exists, whether the flash, flash backward and paged
+   kernels' SASS holds tensor-core ``HMMA`` (mma.sync) or ``HGMMA``
+   (wgmma: the bf16 backward) and asynchronous copies (``LDGSTS`` /
+   ``UTMALDG``); the flash backward's per-launch device times
+   (``bwd_launch_split``, before any other trace), printed with the
+   timing rows.
 3. Kernel vs plain version on the card: ``paged_window_attention`` at
    the full qwen3-4b head shape (Hq 32, Hkv 8, hd 128, bs 16, B 8) for
    S in {1, 4, 64}, ragged base lengths, one sliding window, f32
@@ -243,10 +246,15 @@ qwen3-4b's train shape in bf16 beside its plain version, its bound (q,
 k, v, out, dout and lse read once, dq, dk, dv written once; 10 * hd
 flops per visible query-key pair and query head) and SDPA's backward on
 the same inputs, with the same numbers in f32 (``train_f32_*``) and at
-whisper's encoder (``whisper_enc_*``); the flash row adds its launches
-in 13b (``train_launches``) and the forward's time with and without the
-lse write at the train shape and at qwen3-4b's prefill
-(``train_fwd_ms`` / ``train_fwd_lse_ms``, ``prefill_fwd_*``).
+whisper's encoder (``whisper_enc_*``), and the device time of each of
+its launches per call from ``torch.profiler`` at the train shape and
+whisper's encoder, bf16 (``launch_split_ms``); the flash row adds its
+launches in 13b (``train_launches``) and the forward's time with and
+without the lse write at the train shape and at qwen3-4b's prefill
+(``train_fwd_ms`` / ``train_fwd_lse_ms``, ``prefill_fwd_*``) beside the
+forward's bound, its plain version with the lse and SDPA's forward,
+which returns no lse (``*_fwd_lse_bound_ms``, ``*_fwd_lse_plain_ms``,
+``*_fwd_library_ms``).
 ``scaled_dot_product_attention`` is the yardstick of the attention
 kernels (on the gathered KV, causal, or with a length mask; the port
 never calls it); no single PyTorch call computes either recurrence. TF32
@@ -256,6 +264,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -341,14 +350,15 @@ def print_ptxas(build_dir, tool_dir):
 
 
 def print_sass_checks(libs, tool_dir):
-    """Which kernels' SASS holds tensor-core MMAs (HMMA) and asynchronous
-    copies (LDGSTS, or UTMALDG for TMA), where cuobjdump exists."""
+    """Which attention kernels' SASS holds tensor-core MMAs (HMMA for
+    mma.sync, HGMMA for wgmma) and asynchronous copies (LDGSTS, or
+    UTMALDG for TMA), where cuobjdump exists."""
     tool = Path(tool_dir) / "cuobjdump"
     if not tool.is_file():
         print("  sass: cuobjdump not available")
         return
     for src, lib in libs.items():
-        if src.stem not in ("flash", "paged_window"):
+        if src.stem not in ("flash", "flash_bwd", "paged_window"):
             continue
         sass = subprocess.run([str(tool), "-sass", str(lib)],
                               capture_output=True, text=True).stdout
@@ -358,10 +368,10 @@ def print_sass_checks(libs, tool_dir):
             funcs[name.strip()] = body
         names = _demangle(list(funcs), tool_dir)
         for short, body in zip(names, funcs.values()):
-            print(f"  sass {src.stem}: {short}: HMMA "
-                  f"{'yes' if 'HMMA' in body else 'no'}, LDGSTS "
-                  f"{'yes' if 'LDGSTS' in body else 'no'}, UTMALDG "
-                  f"{'yes' if 'UTMALDG' in body else 'no'}")
+            has = {op: re.search(r"\b" + op + r"\b", body) is not None
+                   for op in ("HMMA", "HGMMA", "LDGSTS", "UTMALDG")}
+            print(f"  sass {src.stem}: {short}: " + ", ".join(
+                f"{op} {'yes' if yes else 'no'}" for op, yes in has.items()))
 
 
 # ------------------------------------------------------------ kernel cases
@@ -2590,12 +2600,15 @@ def run_train_launcher():
                              f"{r.stderr[-2000:]}")
 
 
-def time_flash_backward(fwd_kernel, bwd_kernel, ref_bwd, flush):
+def time_flash_backward(fwd_kernel, bwd_kernel, ref_fwd, ref_bwd, flush,
+                        split):
     """The backward kernel's time at the qwen3-4b train shape (bf16 and
     f32) and whisper's encoder (bf16) beside its plain version, its
-    bound and SDPA's backward on the same inputs; the forward's time
-    with and without the lse write at the train shape and at qwen3-4b's
-    prefill (B 1, S = T = 300)."""
+    bound and SDPA's backward on the same inputs, and its per-launch
+    split (``split``, from ``bwd_launch_split``); the forward's time with
+    and without the lse write at the train shape and at qwen3-4b's
+    prefill (B 1, S = T = 300) beside its bound, its plain version with
+    the lse and SDPA's forward (which returns no lse)."""
     F = torch.nn.functional
     rows = {}
     for key, case, dt in (("train", BWD_CASES[0], torch.bfloat16),
@@ -2623,16 +2636,57 @@ def time_flash_backward(fwd_kernel, bwd_kernel, ref_bwd, flush):
               f"plain {p_ms:.4f} ms, sdpa backward {l_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by})")
         del so, qs, ks, vs
+    for key, launches in split.items():
+        shown = ", ".join(f"{n} {ms:.4f} ms" for n, ms in launches.items())
+        print(f"flash backward launches, {key} (bf16, profiler, per call): "
+              f"{shown or 'no device time recorded: not measured'}")
     fwd = {}
     for key, shape in (("train", BWD_CASES[0][1:7]),
                        ("prefill", (1, 32, 8, PREFILL_T, PREFILL_T, 128))):
         q, k, v, _ = bwd_inputs(*shape, torch.bfloat16, seed=10)
         plain = time_ms(lambda: fwd_kernel(q, k, v), flush)
         with_lse = time_ms(lambda: fwd_kernel(q, k, v, with_lse=True), flush)
-        fwd[key] = (plain, with_lse)
+        ref = time_ms(lambda: ref_fwd(q, k, v, return_lse=True), flush,
+                      iters=10, warmup=2)
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush)
+        b_ms, b_by = flash_bound(*shape, torch.bfloat16)
+        fwd[key] = (plain, with_lse, b_ms, b_by, sdpa, ref)
         print(f"flash forward at {key} shape {shape}, bf16: {plain:.4f} ms, "
-              f"with the lse write {with_lse:.4f} ms")
+              f"with the lse write {with_lse:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), plain with the lse {ref:.4f} ms, sdpa forward "
+              f"{sdpa:.4f} ms (no lse)")
     return rows, fwd
+
+
+def bwd_launch_split(fwd_kernel, bwd_kernel, calls=10):
+    """Device ms per backward call of each kernel the call launches, from
+    ``torch.profiler`` over ``calls`` calls (bf16) at the qwen3-4b train
+    shape and whisper's encoder. Returns {shape key: {kernel: ms}}. Run
+    before any other trace of the process: late in a full run of this
+    script the profiler has recorded no device time for these launches,
+    which it records in a fresh process."""
+    from torch.profiler import ProfilerActivity, profile
+    split = {}
+    for key, case in (("train", BWD_CASES[0]), ("whisper_enc", BWD_CASES[1])):
+        _, Bq, Hq, Hkv, S, T, hd, causal, win = case
+        q, k, v, do = bwd_inputs(Bq, Hq, Hkv, S, T, hd, torch.bfloat16,
+                                 seed=9)
+        out, lse = fwd_kernel(q, k, v, causal=causal, with_lse=True)
+        bwd_kernel(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                bwd_kernel(q, k, v, out, lse, do, causal=causal)
+            torch.cuda.synchronize()
+        rows = {}
+        for t, e in device_rows(prof):
+            name = e.key.replace("(anonymous namespace)::", "") \
+                .removeprefix("void ").split("(")[0]
+            rows[name] = rows.get(name, 0.0) + t / 1e3 / calls
+        split[key] = rows
+    return split
 
 
 def main() -> int:
@@ -2678,6 +2732,8 @@ def main() -> int:
     tool_dir = Path(_build.nvcc()).parent
     print_ptxas(_build.BUILD_DIR, tool_dir)
     print_sass_checks(libs, tool_dir)
+    bwd_split = bwd_launch_split(flash_kernel.flash_attention,
+                                 flash_bwd.flash_attention_bwd)
 
     phase("3. kernels vs plain versions on the card (TF32 off)")
     max_err = check_kernel_vs_plain(paged_window_attention)
@@ -3248,7 +3304,7 @@ def main() -> int:
     time_sampler(sampling)
     bwd_times, fwd_lse_times = time_flash_backward(
         flash_kernel.flash_attention, flash_bwd.flash_attention_bwd,
-        flash_attention_bwd_ref, flush)
+        flash_attention_ref, flash_attention_bwd_ref, flush, bwd_split)
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
                                 ("qwen3-4b", HEAD_SHAPES[0])):
@@ -3334,11 +3390,14 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
         **{f"{key}_{name}": val for key in ("train_f32", "whisper_enc")
            for name, val in zip(("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms"), bwd_times[key])}})
+                                 "library_ms"), bwd_times[key])},
+        "launch_split_ms": bwd_split})
     next(r for r in rows if r["name"] == "flash_attention").update(
         train_launches=train_launches["flash_attention"],
-        **{f"{key}_{name}": val for key, pair in fwd_lse_times.items()
-           for name, val in zip(("fwd_ms", "fwd_lse_ms"), pair)})
+        **{f"{key}_{name}": val for key, vals in fwd_lse_times.items()
+           for name, val in zip(("fwd_ms", "fwd_lse_ms", "fwd_lse_bound_ms",
+                                 "fwd_lse_bound_by", "fwd_library_ms",
+                                 "fwd_lse_plain_ms"), vals)})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's flash forward in two checkouts on one card, in turns.
+"""Time the port's flash forward and backward in two checkouts on one
+card, in turns.
 
     python3 scripts/torch_flash_ab.py OTHER_CHECKOUT [--rounds 2]
 
@@ -12,8 +13,16 @@ of the bf16 flash forward as serving calls it (no log-sum-exp), on the
 model's (B, S, H, hd) views, at whisper-tiny's encoder (B 4, S = T =
 1500, 6 / 6 heads of 64, non-causal), qwen2-vl-2b's prefill (B 4, S = T
 = 320, 12 / 2 of 128) and qwen3-4b's (B 1, S = T = 300, 32 / 8 of 128),
-then the card's name and power limit. It needs one CUDA device; both
-checkouts need ``chip_smoke.time_ms`` and ``chip_smoke._frontend_qkv``.
+and the flash backward (``backward.flash_attention_bwd`` on the
+forward's out and lse, median of 20) in bf16 at qwen3-4b's train shape
+(B 2, S = T = 1024, 32 / 8 heads of 128, causal) and whisper-tiny's
+encoder (B 2, S = T = 1500, 6 / 6 of 64, non-causal), and on its
+CUDA-core routes (f32 at the train shape, bf16 at hd 192: B 1, S = T =
+256, 12 / 4 heads), each with the device time of each of its launches
+per call (``torch.profiler``, ``*_launches``), then the card's name and
+power limit. It needs one CUDA device; both checkouts need
+``chip_smoke.time_ms``, ``chip_smoke._frontend_qkv``,
+``chip_smoke.bwd_inputs`` and ``chip_smoke.BWD_CASES``.
 """
 from __future__ import annotations
 
@@ -28,6 +37,34 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = (("whisper_enc", 4, 1500, 1500, (6, 6, 64), False),
           ("qwen2vl_prefill", 4, 320, 320, (12, 2, 128), True),
           ("qwen3_prefill", 1, 300, 300, (32, 8, 128), True))
+# (key, index into chip_smoke.BWD_CASES, dtype): bf16 at the train shape
+# and whisper's encoder; the CUDA-core routes, f32 at the train shape and
+# bf16 at hd 192
+BWD_SHAPES = (("bwd_train", 0, "bfloat16"), ("bwd_whisper_enc", 1, "bfloat16"),
+              ("bwd_train_f32", 0, "float32"), ("bwd_hd192", 6, "bfloat16"))
+
+
+def launch_split(fn, calls=10):
+    """Device ms per call of each kernel ``fn`` launches
+    (``torch.profiler`` over ``calls`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "") \
+                .removeprefix("void ").split("(")[0]
+            split[name] = split.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / calls
+    return split
 
 
 def child(root: Path) -> None:
@@ -35,6 +72,7 @@ def child(root: Path) -> None:
     import torch
 
     import chip_smoke
+    from repro_torch.kernels.flash_attention import backward, kernel
     from repro_torch.kernels.flash_attention.ops import attention_bshd
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -46,6 +84,19 @@ def child(root: Path) -> None:
                                            seed=31)
         out[key] = chip_smoke.time_ms(
             lambda: attention_bshd(q, k, v, causal=causal), flush, iters=50)
+    for key, i, dtype in BWD_SHAPES:
+        _, B, Hq, Hkv, S, T, hd, causal, _ = chip_smoke.BWD_CASES[i]
+        q, k, v, do = chip_smoke.bwd_inputs(B, Hq, Hkv, S, T, hd,
+                                            getattr(torch, dtype), seed=9)
+        o, lse = kernel.flash_attention(q, k, v, causal=causal,
+                                        with_lse=True)
+        out[key] = chip_smoke.time_ms(
+            lambda: backward.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal),
+            flush, iters=20)
+        out[f"{key}_launches"] = launch_split(
+            lambda: backward.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal))
     print(json.dumps({"tree": str(root), **out}), flush=True)
 
 

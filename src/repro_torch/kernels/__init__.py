@@ -15,3 +15,26 @@ def refuse_grad(op: str, *tensors) -> None:
             f"3b lists the backward kernels still to port), and an input "
             f"requires grad; call it under torch.no_grad(), or detach the "
             f"inputs")
+
+
+# (owner, device, stream) -> the scratch tensors of ``stream_scratch``
+_SCRATCH: dict = {}
+
+
+def stream_scratch(owner: str, device, stream, specs):
+    """Scratch tensors of a kernel for its calls on one CUDA stream: one
+    per (numel, dtype, zeroed) of ``specs``, cached per (owner, device,
+    stream) and grown (all re-made) when a call needs more. A zeroed one
+    holds counters that start at 0 and that the kernel leaves at 0; the
+    calls of one stream run in order, so one allocation serves them all."""
+    key = (owner, device, stream)
+    have = _SCRATCH.get(key)
+    if have is None or any(t.numel() < n for t, (n, _, _) in
+                           zip(have, specs)):
+        have = tuple(
+            (torch.zeros if zeroed else torch.empty)(
+                max(n, 1, 0 if have is None else have[i].numel()),
+                dtype=dtype, device=device)
+            for i, (n, dtype, zeroed) in enumerate(specs))
+        _SCRATCH[key] = have
+    return have

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, refuse_grad, stream_scratch
 from repro_torch.kernels.flash_attention.kernel import (check_strided,
                                                        rows_aligned)
 
@@ -104,26 +104,14 @@ def visible_splits(p: Plan, n: int, T: int, window: int = 0) -> range:
     return range(first, (hi - 1) // p.split_len + 1 if hi > lo else first)
 
 
-# (device, stream) -> (part_o, part_lse, counters): the counters start at
-# 0 and the kernel leaves them at 0, and the calls of one stream run in
-# order, so one allocation serves every call on that stream
-_SCRATCH: dict = {}
-
-
 def _scratch(device, stream, B, Hq, ctas, hd, n_splits):
     """The f32 partials and the int32 merge counters, one per row and
-    CTA of heads (``ctas`` = Hkv * groups), for a call, from the cache,
-    grown (counters re-zeroed) when the call needs more."""
-    need = (B * Hq * n_splits * hd, B * Hq * n_splits, B * ctas)
-    have = _SCRATCH.get((device, stream))
-    if have is None or any(t.numel() < n for t, n in zip(have, need)):
-        size = need if have is None else \
-            [max(t.numel(), n) for t, n in zip(have, need)]
-        have = (torch.empty(size[0], dtype=torch.float32, device=device),
-                torch.empty(size[1], dtype=torch.float32, device=device),
-                torch.zeros(size[2], dtype=torch.int32, device=device))
-        _SCRATCH[(device, stream)] = have
-    return have
+    CTA of heads (``ctas`` = Hkv * groups), for a call
+    (``kernels.stream_scratch``)."""
+    return stream_scratch("decode_attention", device, stream, (
+        (B * Hq * n_splits * hd, torch.float32, False),
+        (B * Hq * n_splits, torch.float32, False),
+        (B * ctas, torch.int32, True)))
 
 
 @functools.cache

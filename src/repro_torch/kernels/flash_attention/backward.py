@@ -1,6 +1,6 @@
 """Binding of the CUDA flash-attention backward kernel
 (``csrc/flash_bwd.cu``, built by ``kernels._build``, loaded with
-``ctypes``): tensor cores for bf16 at hd <= 128, CUDA cores otherwise.
+``ctypes``): warpgroup MMA for bf16 at hd <= 128, CUDA cores otherwise.
 
 The kernel reads q, k, v, out and dout through their element strides
 (head-dim stride 1) and writes dq, dk, dv, allocated here contiguous in
@@ -9,23 +9,112 @@ launches twice on the current CUDA stream (dQ, which also writes the
 row sums D = rowsum(dO * O) to a scratch, then dK / dV) without
 synchronising; a launch CUDA refuses raises.
 ``flash_attention_bwd.launches`` counts successful calls.
+
+``plan`` is the dK / dV launch's work list on the bf16 route, a function
+of shapes only: a key tile's items (one query tile of one query head of
+its group each) are split into runs of at most ``chunk`` items, one CTA
+each, largest runs first, so the causal tiles that see every query no
+longer set the launch's length. A tile split over several CTAs is summed
+from f32 partials in a fixed order, so every run gives the same bits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, stream_scratch
 from repro_torch.kernels.flash_attention import kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
-# the C signature: q, k, v, out, lse, dout, dq, dk, dv, dsum; B, Hq, Hkv,
-# S, T, hd, 24 strides (q, k, v, out, dout, dq, dk, dv: batch, head,
-# position), causal, window, vec, dtype; stream
-ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 34 + [ctypes.c_void_p]
+KEY_TILE = 64           # keys of a dK / dV CTA
+QUERY_TILE = 32         # queries of a dK / dV item
+WAVES = 4               # runs planned per CTA the card holds at once
+CTAS_PER_SM = 2         # dK / dV CTAs an SM holds (registers, hd 128)
+MIN_CHUNK = 8           # items a run has at least, where a tile splits
+MAX_ENTRIES = 65535     # the launch's grid.y
+# the C signature: q, k, v, out, lse, dout, dq, dk, dv, dsum, plan, part,
+# counters; B, Hq, Hkv, S, T, hd, 24 strides (q, k, v, out, dout, dq, dk,
+# dv: batch, head, position), causal, window, vec, dtype, n_entries,
+# n_slots; stream
+ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 36 + [ctypes.c_void_p]
+
+
+def wgmma_route(dtype, hd: int) -> bool:
+    """bf16 at hd <= 128 takes the warpgroup-MMA kernels (and a plan)."""
+    return dtype == torch.bfloat16 and hd <= 128
+
+
+def query_tiles(kt: int, S: int, T: int, causal: bool, window: int) -> range:
+    """The query tiles (QUERY_TILE rows) with a row that sees a key of key
+    tile ``kt``, as the dK / dV kernel computes them."""
+    off = T - S
+    k0, k1 = kt * KEY_TILE, min(kt * KEY_TILE + KEY_TILE, T)
+    lo = max(0, k0 - off) if causal else 0
+    hi = min(S, k1 - 1 + window - off) if window > 0 else S
+    if lo >= hi:
+        return range(0)
+    return range(lo // QUERY_TILE, -(-hi // QUERY_TILE))
+
+
+class Plan(NamedTuple):
+    # per CTA row: (key tile, first item, end item, splits of the tile,
+    # this split, the tile's first partial slot); the same for every
+    # (batch row, KV head)
+    entries: tuple
+    n_slots: int       # partial slots a (batch row, KV head) needs
+    chunk: int         # items a run has at most
+
+
+def plan(B: int, Hq: int, Hkv: int, S: int, T: int, causal: bool,
+         window: int, sms: int = 132) -> Plan:
+    """The dK / dV launch's work list. Item i of key tile kt is query tile
+    ``query_tiles(kt)[i % n]`` of query head ``i // n`` of the group (n
+    tiles). Runs hold at most ``chunk`` items: the items of all tiles over
+    WAVES x the CTAs the card holds at once, at least MIN_CHUNK, so at
+    the qwen3-4b train shape key tile 0 (all 4 heads x 32 query tiles)
+    becomes 4 runs of 32. A tile splits into equal runs (within one
+    item); a tile with no item keeps one run, which writes zeros. Runs
+    are ordered longest first (launched first), ties by key tile and
+    split."""
+    G = Hq // Hkv
+    n_kt = -(-T // KEY_TILE)
+    items = [G * len(query_tiles(kt, S, T, causal, window))
+             for kt in range(n_kt)]
+    chunk = max(MIN_CHUNK,
+                -(-B * Hkv * sum(items) // (WAVES * CTAS_PER_SM * sms)))
+    while True:
+        runs, slots = [], 0
+        for kt, n_it in enumerate(items):
+            n = max(1, -(-n_it // chunk))
+            runs += [(kt, s * n_it // n, (s + 1) * n_it // n, n, s,
+                      slots if n > 1 else 0) for s in range(n)]
+            slots += n if n > 1 else 0
+        if len(runs) <= MAX_ENTRIES:
+            break
+        chunk *= 2
+    runs.sort(key=lambda r: (r[1] - r[2], r[0], r[4]))
+    return Plan(tuple(runs), slots, chunk)
+
+
+def owned(p: Plan, S: int, T: int, G: int, causal: bool, window: int):
+    """(key tile, query head of the group, query tile) for every item of
+    every run, as the kernel walks them: the coverage the tests check."""
+    for kt, i0, i1, *_ in p.entries:
+        tiles = query_tiles(kt, S, T, causal, window)
+        for i in range(i0, i1):
+            yield kt, i // len(tiles), tiles[i % len(tiles)]
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(device, B, Hq, Hkv, S, T, causal, window):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    p = plan(B, Hq, Hkv, S, T, causal, window, sms)
+    rows = [list(r) + [0, 0] for r in p.entries]
+    return p, torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 @functools.cache
@@ -68,15 +157,29 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         return dq.zero_(), dk.zero_(), dv.zero_()
     dsum = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan_ptr = part_ptr = cnt_ptr = None
+    n_entries = n_slots = 0
+    if wgmma_route(q.dtype, hd):
+        p, rows = _plan_on(q.device, B, Hq, Hkv, S, T, bool(causal),
+                           int(sliding_window))
+        hdp = 64 if hd <= 64 else 128
+        part, cnt = stream_scratch("flash_attention_bwd", q.device, stream, (
+            (B * Hkv * p.n_slots * 2 * KEY_TILE * hdp, torch.float32, False),
+            (B * Hkv * -(-T // KEY_TILE), torch.int32, True)))
+        plan_ptr, part_ptr, cnt_ptr = (rows.data_ptr(), part.data_ptr(),
+                                       cnt.data_ptr())
+        n_entries, n_slots = len(p.entries), p.n_slots
     strides = [s for t in (q, k, v, out, dout, dq, dk, dv)
                for s in t.stride()[:3]]
+    vec = kernel.rows_aligned(q, k, v, out, dout, dq, dk, dv)
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                      dsum.data_ptr(), B, Hq, Hkv, S, T, hd, *strides,
-                      int(bool(causal)), int(sliding_window),
-                      int(kernel.rows_aligned(q, k, v, dout)),
-                      kernel.DTYPES[q.dtype], stream)
+                      dsum.data_ptr(), plan_ptr, part_ptr, cnt_ptr, B, Hq,
+                      Hkv, S, T, hd, *strides, int(bool(causal)),
+                      int(sliding_window),
+                      int(vec),
+                      kernel.DTYPES[q.dtype], n_entries, n_slots, stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t "
                            f"{err}")

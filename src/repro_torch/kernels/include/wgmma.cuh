@@ -1,0 +1,211 @@
+// Hopper warpgroup MMA (wgmma) for the port's kernels: the tile layout
+// it reads from shared memory, its matrix descriptors, its fences, and
+// m64nNk16 products with bf16 operands and f32 accumulators.
+//
+// Tile layout: a bf16 tile of R rows (R a multiple of 8) by HDP columns
+// (HDP a multiple of 64) is HDP / 64 panels, one after the other, each
+// R rows of 128 bytes (64 columns). The 16-byte chunk c (0..7) of row r
+// of a panel sits at chunk c ^ (r % 8): the 128-byte swizzle of wgmma
+// and TMA, whose XOR pattern repeats every 8 rows = 1024 bytes, so every
+// panel starts 1024-byte aligned. The same tile serves as a K-major
+// operand (rows are M or N, K runs along the row: S = Q K^T reads Q and
+// K so) and as an MN-major B operand (rows are K, N runs along the row:
+// dV += P^T dO reads dO so), through different descriptors.
+//
+// Accumulators of m64nNk16 (N / 2 f32 a thread): thread t of the
+// warpgroup, warp w = t / 32, lane l, holds rows 16 w + l / 4 (+ 8) and
+// columns 8 j + 2 (l % 4) (+ 1) of every 8-column block j, as d[4 j + 2 i
+// + c] for row half i and column c: mma.sync's m16n8 C fragment, per
+// warp. Columns 16 kk .. 16 kk + 15 of such an accumulator, rounded to
+// bf16 and packed in pairs (d[8 kk + 0, 1], [+2, 3], [+4, 5], [+6, 7]),
+// are the A fragment of k-step kk of a product that takes A from
+// registers (`rs`), as FlashAttention-3 feeds P to its PV product.
+//
+// Ordering (PTX ISA, wgmma): `fence()` before a group of products whose
+// accumulator or A registers ordinary code wrote; `commit()` closes a
+// group; `wait<N>()` returns when at most N groups are still running.
+// `fence_proxy_async()` makes shared-memory writes of ordinary stores
+// and cp.async visible to the products (another proxy); with a CTA
+// barrier after it, every thread's writes are. The compiler does not
+// know that a product writes its accumulators (and reads its A
+// registers) after the instruction issues: `keep()` after the wait ties
+// every later use of those registers to the wait.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+// Element offset of the 16-byte chunk `chunk` (0 .. HDP / 8 - 1) of row
+// r in a tile of R rows.
+template <int R>
+__device__ __forceinline__ int tile_off(int r, int chunk) {
+  return (chunk >> 3) * R * 64 + r * 64 + (((chunk & 7) ^ (r & 7)) << 3);
+}
+
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  const uint32_t a = hopper::smem_addr(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand for k-step kk (16 columns) of a tile of R rows: the
+// step's 32 bytes within the panel's 128-byte rows; 8-row groups 1024
+// bytes apart (SBO). The hardware applies the swizzle to the address,
+// which is why a step may start inside a row.
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int kk) {
+  return desc(tile + (kk >> 2) * R * 64 + (kk & 3) * 16, 16, 1024);
+}
+
+// MN-major B operand for k-step kk (rows 16 kk .. 16 kk + 15) of a tile of
+// R rows: groups of 8 rows 1024 bytes apart (SBO), panels of 64 columns R
+// x 128 bytes apart (LBO).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
+  return desc(tile + kk * 16 * 64, R * 128, 1024);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d (+)= A B, m64nNk16, A and B K-major tiles in shared memory (`desc_k`);
+// acc 0 ignores d's old values.
+template <int N>
+__device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                   int acc);
+
+// d (+)= A B, m64nNk16, A from registers (one k-step's fragment), B an
+// MN-major tile in shared memory (`desc_mn`).
+template <int N>
+__device__ __forceinline__ void rs(float (&d)[N / 2], const unsigned (&a)[4],
+                                   uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void ss<32>(float (&d)[16], uint64_t a,
+                                      uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void ss<64>(float (&d)[32], uint64_t a,
+                                      uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void rs<64>(float (&d)[32],
+                                      const unsigned (&a)[4], uint64_t b,
+                                      int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void rs<128>(float (&d)[64],
+                                      const unsigned (&a)[4], uint64_t b,
+                                      int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+}  // namespace wg

@@ -1310,7 +1310,11 @@ def test_frontend_model_on_card_matches_cpu(cuda, name):
 # ------------------------------------------------- training on the card
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # of max |g|
 # B x Hq x Hkv x hd x S x T x window x causal: G 1 / 4 / 6, S < T, S > T
-# (keyless rows), a window, non-causal (whisper), the config head dims
+# (keyless rows), a window, non-causal (whisper), the config head dims;
+# then the bf16 route's edges: S and T one under and one over a multiple
+# of the 64-key tile and of the 32-query item, key tiles whose items the
+# plan splits over several CTAs (G 6 at hd 128, S 200; S 333), and a
+# 40-key window that spans items in different Q / dO stages
 BWD_GRID = [
     (2, 8, 2, 128, 100, 100, 0, True),
     (1, 6, 6, 64, 150, 150, 0, False),
@@ -1321,6 +1325,13 @@ BWD_GRID = [
     (1, 4, 1, 192, 33, 50, 24, True),
     (1, 4, 2, 64, 40, 20, 0, True),
     (2, 2, 2, 32, 17, 17, 0, True),
+    (1, 4, 2, 128, 63, 63, 0, True),
+    (1, 4, 2, 128, 65, 65, 0, True),
+    (1, 4, 2, 64, 31, 127, 0, True),
+    (1, 4, 2, 64, 33, 129, 0, False),
+    (1, 12, 2, 128, 200, 200, 0, True),
+    (2, 8, 2, 64, 333, 333, 0, True),
+    (1, 8, 2, 128, 160, 160, 40, True),
 ]
 
 
@@ -1394,6 +1405,46 @@ def test_flash_backward_takes_unaligned_rows(cuda, dt, hd):
         scale = float(w.float().abs().max())
         assert float((a.float() - w.float()).abs().max()) \
             <= BWD_TOL[dt] * scale
+
+
+@pytest.mark.parametrize("hd,causal,win", [(128, True, 0), (64, False, 0),
+                                           (128, True, 40)])
+def test_flash_backward_staging_routes_agree(cuda, hd, causal, win):
+    """bf16 at hd <= 128: the same values as contiguous tensors (16-byte
+    cp.async staging) and as views one element into their buffers
+    (element-wise staging) give the same gradients bit for bit, each
+    within BWD_TOL of the plain version; the plan splits key tile 0."""
+    from repro_torch.kernels.flash_attention import backward
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    B, Hq, Hkv, S, T = 1, 8, 2, 190, 190
+    q, k, v, do = _bwd_case(B, Hq, Hkv, hd, S, T, torch.bfloat16, hd + win)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    oq, ok_, ov, odo = (offset(t) for t in (q, k, v, do))
+    assert flash_kernel.rows_aligned(q, k, v, do)
+    assert not flash_kernel.rows_aligned(oq, ok_, ov, odo)
+    assert backward.plan(B, Hq, Hkv, S, T, causal, win).entries[0][3] > 1
+    out, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                            sliding_window=win,
+                                            with_lse=True)
+    got = backward.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       sliding_window=win)
+    staged = backward.flash_attention_bwd(oq, ok_, ov, offset(out), lse, odo,
+                                          causal=causal, sliding_window=win)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                   sliding_window=win)
+    torch.cuda.synchronize()
+    for a, c, w in zip(got, staged, want):
+        assert torch.equal(a, c)
+        scale = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) \
+            <= BWD_TOL[torch.bfloat16] * scale
 
 
 def test_flash_backward_rejects_what_it_cannot_run(cuda):

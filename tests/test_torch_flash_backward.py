@@ -24,6 +24,7 @@ import torch
 
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels import refuse_grad
+from repro_torch.kernels.flash_attention import backward
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
@@ -146,3 +147,108 @@ def test_refuse_grad_raises_only_when_autograd_records():
     with torch.no_grad():
         refuse_grad("wkv_scan", x)
     refuse_grad("wkv_scan", x.detach(), torch.zeros(3))
+
+
+# ------------------------------------------- the dK / dV launch's plan
+# (B, Hq, Hkv, S, T, causal, window): causal at the qwen3-4b train shape,
+# non-causal at whisper's encoder and cross-attention, a sliding window,
+# S < T, S > T (keyless rows), ragged S / T one under and one over the
+# tiles, G 6
+PLAN_CASES = {
+    "train": (2, 32, 8, 1024, 1024, True, 0),
+    "whisper-enc": (2, 6, 6, 1500, 1500, False, 0),
+    "whisper-xattn": (2, 6, 6, 448, 1500, False, 0),
+    "window": (1, 32, 8, 512, 512, True, 128),
+    "s<t": (2, 32, 8, 64, 300, True, 0),
+    "s>t": (1, 8, 2, 40, 20, True, 0),
+    "ragged-window": (1, 25, 5, 37, 101, True, 24),
+    "tile-edges": (1, 4, 2, 63, 65, True, 0),
+    "tile-edges-over": (1, 4, 2, 97, 129, True, 0),
+    "g6": (1, 12, 2, 320, 320, True, 0),
+    "noncausal-window": (1, 4, 2, 33, 95, False, 7),
+}
+
+
+def _visible_tiles(S, T, causal, window):
+    """(key tile, query tile) pairs with a visible (query, key) pair, by
+    brute force over the masks."""
+    i = np.arange(S)[:, None] + (T - S)
+    j = np.arange(T)[None, :]
+    m = np.ones((S, T), bool)
+    if causal:
+        m &= j <= i
+    if window:
+        m &= j > i - window
+    qi, kj = np.nonzero(m)
+    return set(zip((kj // backward.KEY_TILE).tolist(),
+                   (qi // backward.QUERY_TILE).tolist()))
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_bwd_plan_covers_every_visible_pair_once(name):
+    B, Hq, Hkv, S, T, causal, window = PLAN_CASES[name]
+    G = Hq // Hkv
+    p = backward.plan(B, Hq, Hkv, S, T, causal, window)
+    got = list(backward.owned(p, S, T, G, causal, window))
+    assert len(got) == len(set(got))
+    want = {(kt, g, qt) for kt, qt in _visible_tiles(S, T, causal, window)
+            for g in range(G)}
+    assert set(got) == want
+    # every key tile has a run (one that sees nothing writes zeros)
+    assert {r[0] for r in p.entries} == set(range(-(-T // 64)))
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_bwd_plan_runs_are_balanced_and_largest_first(name):
+    """Runs hold at most ``chunk`` items, a tile's runs differ by at most
+    one item, they launch longest first, and a split tile's runs have
+    consecutive slots from its first slot."""
+    B, Hq, Hkv, S, T, causal, window = PLAN_CASES[name]
+    p = backward.plan(B, Hq, Hkv, S, T, causal, window)
+    sizes = [i1 - i0 for _, i0, i1, *_ in p.entries]
+    assert max(sizes) <= p.chunk and sizes == sorted(sizes, reverse=True)
+    slots = set()
+    for kt in {r[0] for r in p.entries}:
+        runs = sorted((r for r in p.entries if r[0] == kt),
+                      key=lambda r: r[4])
+        n = runs[0][3]
+        assert [r[4] for r in runs] == list(range(n))
+        assert all(r[3] == n for r in runs)
+        assert runs[0][1] == 0 and all(a[2] == b[1]
+                                       for a, b in zip(runs, runs[1:]))
+        lens = [r[2] - r[1] for r in runs]
+        assert max(lens) - min(lens) <= 1
+        if n > 1:
+            mine = {r[5] + r[4] for r in runs}
+            assert len({r[5] for r in runs}) == 1 and not mine & slots
+            slots |= mine
+    assert slots == set(range(p.n_slots))
+
+
+def test_bwd_plan_splits_the_causal_train_shape():
+    """At the qwen3-4b train shape the key tiles that see every query no
+    longer set the launch's length: the longest run is at most a quarter
+    of key tile 0's items (4 heads x 32 query tiles), and the runs number
+    at least the CTAs 132 SMs hold at once."""
+    p = backward.plan(2, 32, 8, 1024, 1024, True, 0, sms=132)
+    assert max(r[2] - r[1] for r in p.entries) <= 128 // 4
+    assert len(p.entries) * 2 * 8 >= backward.CTAS_PER_SM * 132
+    # whisper's encoder: every tile alike, split so the card fills
+    p = backward.plan(2, 6, 6, 1500, 1500, False, 0, sms=132)
+    assert len(p.entries) * 12 >= backward.WAVES * backward.CTAS_PER_SM * 132
+
+
+def test_stream_scratch_is_cached_per_stream_and_grows():
+    """The per-stream scratch the bf16 backward and the decode kernel take
+    their partials and counters from: one allocation per (owner, device,
+    stream), re-made larger (counters zeroed) when a call needs more."""
+    from repro_torch.kernels import stream_scratch
+    specs = ((10, torch.float32, False), (4, torch.int32, True))
+    part, cnt = stream_scratch("test", "cpu", 1, specs)
+    assert (part.numel(), cnt.numel()) == (10, 4) and not cnt.any()
+    cnt[1] = 7
+    assert stream_scratch("test", "cpu", 1, specs)[1] is cnt
+    assert stream_scratch("test", "cpu", 2, specs)[1] is not cnt
+    part2, cnt2 = stream_scratch("test", "cpu", 1, (
+        (5, torch.float32, False), (9, torch.int32, True)))
+    assert (part2.numel(), cnt2.numel()) == (10, 9) and not cnt2.any()
