@@ -186,22 +186,39 @@ Phases (any failure exits non-zero; no result line is printed then):
    whisper-tiny's encoder (non-causal, S = T = 1500, 6 / 6 of 64) and
    cross-attention (S 448 against T 1500), qwen2-vl-2b's G 6 (12 / 2 of
    128), a 128 window inside S 512, hd 112 and 192, S 64 < T 300, a
-   ragged S 37 against T 101 with a 24 window, and S 40 > T 20 (rows
-   that see no key): each gradient within 1e-4 (f32) / 1e-2 (bf16) of
+   ragged S 37 against T 101 with a 24 window, S 40 > T 20 (rows
+   that see no key) and hymba-1.5b's train shape (B 2, S = T = 1024, 25
+   / 5 heads of 64, a 2048 window): each gradient within 1e-4 (f32) /
+   1e-2 (bf16) of
    its largest magnitude, two runs bitwise equal, nothing NaN, dq 0 on
    keyless rows; the forward's lse within 1e-4 / 1e-3 of the plain
    log-sum-exp and -inf exactly where a row sees no key; the autograd
    route (``ops.flash_attention`` on inputs that require grad) bitwise
-   equal to the direct kernel calls. Then the paged-window, decode, WKV
-   and selective-scan ops raise on an input that requires grad (no
-   backward kernel yet; no plain fallback) and run under no_grad.
+   equal to the direct kernel calls. Then the WKV and selective-scan
+   backward kernels (``wkv_bwd``, ``ssm_scan_bwd``, f32) against their
+   plain versions (``wkv_bwd_ref``, ``ssm_scan_bwd_ref``, the explicit
+   reverse-time formulas) and against autograd of the plain forwards,
+   on the same inputs and non-zero cotangents of the output and the
+   final state: WKV at rwkv6-1.6b's train shape (B 2, T 1024, 32 heads
+   of 64), B 8 T 1, T 17 (the 16-step chunk edge), T 300 and hd 32, with
+   decays in the model's range (exact zeros among them); the selective
+   scan at hymba-1.5b's train shape (B 2, T 1024, d_inner 3200, N 16),
+   B 8 T 1, T 17, T 300 and d_inner 3,204 (a ragged channel tail), with
+   hymba's A (-1 .. -16) and steps where exp(dt A) underflows to 0: each
+   gradient within 1e-4 of its largest magnitude, two calls bitwise
+   equal, nothing NaN. Then the paged-window and decode ops (which
+   serve only) and the WKV and selective-scan kernels called directly
+   raise on an input that requires grad (no plain fallback) and run
+   under no_grad, and the WKV and selective-scan ops run under grad
+   through their autograd functions.
 13b. Training, the slice's main path: full-width qwen3-4b (bf16, seed-0
    weights, remat) cut to 4 layers (1.18 B params), ``train()`` for 5
    AdamW steps of B 2 x 1024 tokens of the packed synthetic CV corpus.
    Every launch count is set to 0 just before and read just after:
    flash forward exactly 2 a layer a step (remat recomputes it), the
    backward kernel 1 a layer a step, no other kernel. Printed: the
-   losses (all finite) and grad norms, steps/s and tokens/s,
+   losses (all finite, the last below the first) and grad norms,
+   steps/s and tokens/s,
    ``max_memory_allocated``, the final checkpoint restored equal to the
    final params, then one more step under ``torch.profiler`` (device
    busy against wall: the idle share).
@@ -211,7 +228,19 @@ Phases (any failure exits non-zero; no result line is printed then):
    within 1e-4 of its largest magnitude, 2 forward and 2 backward
    launches on the kernel route and none on the plain one.
 13d. ``python -m repro_torch.launch.train --steps 3`` (reduced qwen3-4b,
-   f32) on the card as a subprocess: exit 0.
+   then ``--arch rwkv6-1.6b``, f32) on the card as subprocesses: exit 0.
+13e. The recurrent families train, as 13b: full-width rwkv6-1.6b (24
+   layers, d 2048, 32 WKV heads of 64, vocab 65,536) and hymba-1.5b (32
+   layers, d 1600, 25 / 5 heads of 64 with a 2048 window, d_inner 3200,
+   N 16, vocab 32,001), bf16, remat, 5 AdamW steps of B 2 x 1024 tokens,
+   every layer. Launches a layer a step exactly:
+   rwkv6 WKV forward 2 and WKV backward 1; hymba flash forward 2, flash
+   backward 1, scan forward 2, scan backward 1; no other kernel. The
+   same prints and checks as 13b.
+13f. As 13c for rwkv6-1.6b and hymba-1.5b, f32, 2 layers at full width, B
+   2 x S 256: the kernel route against the plain route (attention, WKV
+   and the selective scan all on their plain versions), one forward and
+   one backward launch of each kernel a layer.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
@@ -248,8 +277,14 @@ flops per visible query-key pair and query head) and SDPA's backward on
 the same inputs, with the same numbers in f32 (``train_f32_*``) and at
 whisper's encoder (``whisper_enc_*``), and the device time of each of
 its launches per call from ``torch.profiler`` at the train shape and
-whisper's encoder, bf16 (``launch_split_ms``); the flash row adds its
-launches in 13b (``train_launches``) and the forward's time with and
+whisper's encoder, bf16 (``launch_split_ms``), and at hd 192 (B 1, S =
+T = 256, 12 / 4 heads, bf16: ``hd192_*``); its launches are 13b's and
+13e's. The WKV and selective-scan backward rows (``wkv_bwd``,
+``ssm_scan_bwd``) carry their time at rwkv6-1.6b's and hymba-1.5b's
+train shapes beside their plain versions and bounds (library none), and
+their launches in 13e; the scan forward rows add their 13e launches
+(``train_launches``). The flash row adds its launches in 13b and 13e
+(``train_launches``) and the forward's time with and
 without the lse write at the train shape and at qwen3-4b's prefill
 (``train_fwd_ms`` / ``train_fwd_lse_ms``, ``prefill_fwd_*``) beside the
 forward's bound, its plain version with the lse and SDPA's forward,
@@ -269,6 +304,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from functools import partial
 from pathlib import Path
@@ -942,10 +978,13 @@ def profile_serve(run):
     """Where the time of a serve goes: ``run()`` (returning the engine
     and its wall time) again under torch.profiler (its overhead
     included), device time summed over kernels against the wall time,
-    the top kernels, and the port's own kernels below them."""
+    the top kernels, and the port's own kernels below them. Only device
+    activity is recorded (kernels, copies and the runtime calls that
+    launch them): the profiler parses its events in Python at some 70 us
+    each, and with every CPU op recorded the serves of phases 6 and 9 at
+    full depth spent minutes there."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng, wall = run()
     rows = device_rows(prof)
     busy_ms = sum(t for t, _ in rows) / 1e3
@@ -2249,6 +2288,14 @@ def time_frontends(attention_bshd, decode_attention, flush, front_lens):
 TRAIN_B, TRAIN_S = 2, 1024      # phase 13b's batch: 2 rows of 1024 tokens
 TRAIN_LAYERS, TRAIN_STEPS = 4, 5
 GRAD_B, GRAD_S, GRAD_LAYERS = 2, 512, 2     # phase 13c, f32
+REC_GRAD_S = 256                # phase 13f's sequence, f32
+# 13e: launches a layer a step of each recurrent family's train run, at
+# full depth (a forward twice under remat)
+RECURRENT_TRAIN = {
+    "rwkv6-1.6b": {"wkv_scan": 2, "wkv_bwd": 1},
+    "hymba-1.5b": {"flash_attention": 2, "flash_attention_bwd": 1,
+                   "ssm_scan": 2, "ssm_scan_bwd": 1},
+}
 # the backward kernel against its plain version, of each gradient's
 # largest |g|: f32 sum-order noise; bf16 one rounding of the output
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -2265,7 +2312,9 @@ BWD_CASES = (
     ("S < T", 2, 32, 8, 64, 300, 128, True, 0),
     ("ragged S, window 24", 1, 25, 5, 37, 101, 64, True, 24),
     ("keyless rows, S > T", 1, 8, 2, 40, 20, 64, True, 0),
+    ("hymba train", TRAIN_B, 25, 5, TRAIN_S, TRAIN_S, 64, True, 2048),
 )
+BWD_BY_NAME = {case[0]: case for case in BWD_CASES}
 
 
 def bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed):
@@ -2376,10 +2425,13 @@ def check_flash_backward(fwd_kernel, bwd_kernel, flash_op, ref_fwd,
     return worst
 
 
-def check_grad_refusals(ops):
-    """The four CUDA ops without a backward raise when autograd would
-    record them, and run under torch.no_grad()."""
-    paged, decode, wkv, ssm = ops
+def check_grad_refusals(ops, scan_ops):
+    """The paged-window and decode ops, which serve only, and the WKV and
+    selective-scan kernels called directly raise when autograd would
+    record them, and run under torch.no_grad(); the WKV and
+    selective-scan ops run under grad through their autograd functions,
+    with a finite gradient."""
+    paged, decode, wkv_direct, ssm_direct = ops
     args = {
         "paged_window_attention": (paged, list(window_case(
             4, torch.float32, [0, 17, 64, 100], seed=3))),
@@ -2390,8 +2442,10 @@ def check_grad_refusals(ops):
                                       torch.tensor([1, 17, 100, 256],
                                                    dtype=torch.int32,
                                                    device="cuda")]),
-        "wkv_scan": (wkv, wkv_case(2, 8, 4, 64, seed=3)),
-        "ssm_scan": (ssm, ssm_case(2, 8, 64, 16, seed=3)),
+        "wkv_scan (kernel called directly)": (wkv_direct,
+                                              wkv_case(2, 8, 4, 64, seed=3)),
+        "ssm_scan (kernel called directly)": (ssm_direct,
+                                              ssm_case(2, 8, 64, 16, seed=3)),
     }
     for name, (op, a) in args.items():
         a = list(a)
@@ -2407,7 +2461,147 @@ def check_grad_refusals(ops):
                                  f"grad")
         with torch.no_grad():
             op(*a)
+    for name, op, a in (("wkv", scan_ops[0], wkv_case(2, 8, 4, 64, seed=3)),
+                        ("selective_scan", scan_ops[1],
+                         ssm_case(2, 8, 64, 16, seed=3))):
+        a = list(a)
+        a[0] = a[0].clone().requires_grad_(True)
+        out, _ = op(*a)
+        (g,) = torch.autograd.grad(out.sum(), a[0])
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: gradient not finite")
+        print(f"{name} (op): runs under grad through its autograd function")
     torch.cuda.synchronize()
+
+
+# the scan backward kernels (13a): rwkv6-1.6b's and hymba-1.5b's train
+# shapes, then one step, the 16-step chunk edge, a 300-step prefill, hd
+# 32, and hymba's width with a ragged channel tail (d_inner 3,204: 200
+# CTAs of 16 channels and one of 4)
+WKV_TRAIN = (TRAIN_B, TRAIN_S, 32, 64)          # (B, T, H, hd)
+SSM_TRAIN = (TRAIN_B, TRAIN_S, 3200, 16)        # (B, T, d_inner, N)
+WKV_BWD_SHAPES = (WKV_TRAIN, (8, 1, 32, 64), (2, 17, 32, 64),
+                  (1, PREFILL_T, 32, 64), (4, 64, 4, 32))
+SSM_BWD_SHAPES = (SSM_TRAIN, (8, 1, 3200, 16), (2, 17, 3200, 16),
+                  (1, PREFILL_T, 3200, 16), (2, 64, 3204, 16))
+
+
+def wkv_bwd_case(Bq, T, H, hd, *, seed=0):
+    """``wkv_case`` with decays in the model's range (exact zeros among
+    them), and the cotangents dout and dstate_out."""
+    args = wkv_case(Bq, T, H, hd, seed=seed, decays="model")
+    g = torch.Generator().manual_seed(seed + 1)
+    cots = [torch.randn(shape, generator=g).cuda()
+            for shape in ((Bq, T, H, hd), (Bq, H, hd, hd))]
+    return args, cots
+
+
+def ssm_bwd_case(Bq, T, di, N, *, seed=0):
+    """``ssm_case`` with hymba's A (-1 .. -N on every channel, its
+    ``A_log`` init) and one step in 16 at dt 8, where exp(dt A)
+    underflows to 0, and the cotangents dy and dstate_out."""
+    u, dt, Bm, Cm, _, D, s0 = ssm_case(Bq, T, di, N, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(di, N)
+    dt = torch.where(torch.rand(dt.shape, generator=g).cuda() < 1 / 16,
+                     8.0, dt)
+    cots = [torch.randn(shape, generator=g).cuda()
+            for shape in ((Bq, T, di), (Bq, di, N))]
+    return [u, dt, Bm, Cm, A.contiguous().cuda(), D, s0], cots
+
+
+def check_scan_backward(name, bwd, bwd_ref, fwd_ref, case, shapes, labels):
+    """Phase 13a: the backward kernel ``bwd`` at each shape against its
+    plain version ``bwd_ref`` and against autograd of the plain forward
+    ``fwd_ref`` on the same inputs and cotangents: each gradient within
+    BWD_TOL (f32) of its largest |g|, two calls bitwise equal, nothing
+    NaN. Returns the largest absolute error against the plain version."""
+    tol = BWD_TOL[torch.float32]
+    worst = 0.0
+    for shape in shapes:
+        args, cots = case(*shape, seed=shape[1] + 7)
+        got = bwd(*args, *cots)
+        again = bwd(*args, *cots)
+        want = bwd_ref(*args, *cots)
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        auto = torch.autograd.grad(fwd_ref(*leaves), leaves, cots)
+        torch.cuda.synchronize()
+        errs = []
+        for label, g, g2, w, a in zip(labels, got, again, want, auto):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{name} {shape}: d{label} differs "
+                                     f"between two calls")
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {shape}: d{label} not finite")
+            scale = float(w.abs().max())
+            if not scale > 0:
+                raise AssertionError(f"{name} {shape}: the plain d{label} "
+                                     f"is all zero: nothing is checked")
+            err = float((g - w).abs().max())
+            err_auto = float((g - a).abs().max())
+            worst = max(worst, err)
+            errs.append(max(err, err_auto) / scale)
+            if max(err, err_auto) > tol * scale:
+                raise AssertionError(f"{name} {shape}: d{label} off by "
+                                     f"{err} (plain backward) / {err_auto} "
+                                     f"(autograd), largest |g| {scale}")
+        print(f"{name} backward {shape}: of each gradient's largest |g|, "
+              + " / ".join(f"d{x}" for x in labels) + " "
+              + " / ".join(f"{e:.1e}" for e in errs)
+              + f" (against the plain backward and autograd of the plain "
+              f"forward; tol {tol}); two calls bitwise equal")
+        del got, again, want, auto, leaves
+    torch.cuda.empty_cache()
+    return worst
+
+
+def wkv_bwd_bound(Bq, T, H, hd):
+    """r, k, v, w, dout and u read once, dr, dk, dv, dw and du written
+    once, the state and the final state's gradient read and dstate
+    written once, f32; 14 flops per state entry per step: the forward
+    once, for S_{t-1} (k v and the decay FMA, 3), dr, dk, dw and dv (an
+    FMA each, 8) and the dS update (r dout and an FMA, 3). The kernel's
+    second forward pass, from its checkpoints, is its own choice and not
+    counted."""
+    nbytes = 4 * (9 * Bq * T * H * hd + 2 * H * hd + 3 * Bq * H * hd * hd)
+    return _f32_bound(nbytes, 14 * Bq * T * H * hd * hd)
+
+
+def ssm_bwd_bound(Bq, T, di, N):
+    """u, dt, dy, B, C, A and D read once, du, ddt, dB, dC, dA and dD
+    written once, the state and the final state's gradient read and
+    dstate written once, f32; 23 operations per state entry per step: the
+    forward once, for h_{t-1} (dt A, exp, dt u times B and the decay FMA,
+    5), the carry of the state's gradient (C dy and an FMA, 3), dC, dB
+    and du (an FMA each, 6), ddt (a h_{t-1}, times A, u B, their sum and
+    an FMA, 6) and dA (g dt and an FMA, 3). The kernel's second forward
+    pass is its own choice and not counted."""
+    nbytes = 4 * (5 * Bq * T * di + 4 * Bq * T * N + 4 * di * N + 4 * di
+                  + 3 * Bq * di * N)
+    return _f32_bound(nbytes, 23 * Bq * T * di * N)
+
+
+def time_scan_backward(wkv_bwd, wkv_bwd_ref, ssm_bwd, ssm_bwd_ref, flush):
+    """Each scan backward kernel at its train shape beside its plain
+    version and its bound; no PyTorch call computes either gradient.
+    Returns {name: (kernel ms, plain ms, bound ms, bound by)}."""
+    rows = {}
+    for name, bwd, ref, case, bound_fn, shape in (
+            ("wkv_bwd", wkv_bwd, wkv_bwd_ref, wkv_bwd_case, wkv_bwd_bound,
+             WKV_TRAIN),
+            ("ssm_scan_bwd", ssm_bwd, ssm_bwd_ref, ssm_bwd_case,
+             ssm_bwd_bound, SSM_TRAIN)):
+        args, cots = case(*shape, seed=11)
+        k_ms = time_ms(lambda: bwd(*args, *cots), flush, iters=10, warmup=2)
+        p_ms = time_ms(lambda: ref(*args, *cots), flush, iters=3, warmup=1)
+        b_ms, b_by = bound_fn(*shape)
+        rows[name] = (k_ms, p_ms, b_ms, b_by)
+        print(f"{name} {shape} (train shape): kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), latency floor "
+              f"of {shape[1]} dependent steps {step_floor_ms(shape[1]):.5f} "
+              f"ms; no library call computes it")
+        del args, cots
+    return rows
 
 
 def _zero(fns):
@@ -2415,10 +2609,15 @@ def _zero(fns):
         fn.launches = 0
 
 
-def train_full_width(get_config, build_model, kernel_fns, bwd_fn):
-    """Phase 13b: full-width qwen3-4b, bf16, remat, TRAIN_LAYERS layers,
-    through ``train()`` for TRAIN_STEPS steps at B TRAIN_B x S TRAIN_S.
-    Returns the launch counts of that run."""
+def train_full_width(arch, n_layers, get_config, build_model, fns,
+                     per_layer):
+    """Phases 13b / 13e: ``arch`` at full width, bf16, remat, cut to
+    ``n_layers`` layers (all with None), through ``train()`` for
+    TRAIN_STEPS steps at B TRAIN_B x S TRAIN_S. Every launch count of
+    ``fns`` is set to 0 just before and read just after; ``per_layer``
+    gives each kernel's launches a layer a step ({name: n}, any other
+    kernel 0). The losses must be finite and the last below the first.
+    Returns (launches, metrics)."""
     import tempfile
 
     from repro_torch.train import checkpoint, optimizer as opt_mod, tree
@@ -2426,20 +2625,22 @@ def train_full_width(get_config, build_model, kernel_fns, bwd_fn):
                                         sharded_batches)
     from repro_torch.train.train_loop import (TrainerConfig,
                                               make_train_step, train)
-    cfg = replace(get_config("qwen3-4b"), n_layers=TRAIN_LAYERS, remat=True)
+    cfg = replace(get_config(arch), remat=True)
+    if n_layers:
+        cfg = replace(cfg, n_layers=n_layers)
+    L = cfg.n_layers
     model = build_model(cfg, device="cuda")
     params = model.init(SEED)
     n = sum(t.numel() for t in tree.leaves(params))
-    print(f"{cfg.name}: {TRAIN_LAYERS} layers at full width (d "
-          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
-          f"{cfg.hd}, vocab {cfg.vocab_size}), {cfg.dtype}, remat: "
+    print(f"{cfg.name}: {L} of {get_config(arch).n_layers} layers at full "
+          f"width (d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads "
+          f"of {cfg.hd}, vocab {cfg.vocab_size}), {cfg.dtype}, remat: "
           f"{n / 1e9:.3f} B params; params + grads + AdamW f32 moments "
           f"{n * (2 + 2 + 8) / 1e9:.2f} GB")
     ds = PackedLMDataset(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=TRAIN_S, batch_size=TRAIN_B))
     oc = opt_mod.AdamWConfig(lr=1e-4, warmup_steps=2,
                              total_steps=TRAIN_STEPS)
-    fns = (*kernel_fns, bwd_fn)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
         tc = TrainerConfig(n_steps=TRAIN_STEPS, log_every=1, ckpt_root=ck,
@@ -2456,14 +2657,15 @@ def train_full_width(get_config, build_model, kernel_fns, bwd_fn):
         print("grad norms:", " ".join(f"{h['grad_norm']:.4f}"
                                       for h in res.history))
         if len(losses) != TRAIN_STEPS or \
-                not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"losses {losses}")
-        want = {fn.__name__: 0 for fn in fns}
-        want["flash_attention"] = 2 * TRAIN_LAYERS * TRAIN_STEPS
-        want["flash_attention_bwd"] = TRAIN_LAYERS * TRAIN_STEPS
-        print("launches:", json.dumps(launches), "(expected: forward 2 a "
-              "layer a step, the second the recompute of remat; backward 1 "
-              "a layer a step)")
+                not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"losses {losses}: not all finite, or the "
+                                 f"last not below the first")
+        want = {fn.__name__: per_layer.get(fn.__name__, 0) * L * TRAIN_STEPS
+                for fn in fns}
+        print("launches:", json.dumps(launches), "(expected a layer a step:",
+              json.dumps(per_layer), "- a forward twice, the second the "
+              "recompute of remat; no other kernel)")
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         tok_s = res.steps_per_s * TRAIN_B * TRAIN_S
@@ -2499,6 +2701,10 @@ def train_full_width(get_config, build_model, kernel_fns, bwd_fn):
     dt = (time.perf_counter() - t0) / 3
     print(f"steady state: {dt * 1e3:.1f} ms a step, {1 / dt:.3f} steps/s, "
           f"{TRAIN_B * TRAIN_S / dt:.0f} tokens/s")
+    metrics = {"layers": L, "params": n, "losses": losses,
+               "steps_per_s": res.steps_per_s, "tokens_per_s": tok_s,
+               "peak_gb": peak / 1e9, "steady_ms": dt * 1e3,
+               "steady_tokens_per_s": TRAIN_B * TRAIN_S / dt}
     batch = batches[3]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2508,6 +2714,7 @@ def train_full_width(get_config, build_model, kernel_fns, bwd_fn):
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
     busy_ms = sum(t for t, _ in rows) / 1e3
+    metrics.update(wall_ms=wall * 1e3, busy_ms=busy_ms if rows else None)
     if rows:
         print(f"profiled train step: wall {wall * 1e3:.1f} ms, device busy "
               f"{busy_ms:.1f} ms (idle share "
@@ -2516,27 +2723,48 @@ def train_full_width(get_config, build_model, kernel_fns, bwd_fn):
             print(f"  {t / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     else:
         print("profiler recorded no device time: idle share not measured")
-    del params, state, res, model
+    del params, state, res, model, batches, batch
     torch.cuda.empty_cache()
-    return launches
+    return launches, metrics
 
 
-def train_grads_kernel_vs_plain(get_config, build_model, fwd_fn, bwd_fn):
-    """Phase 13c: full width, f32, GRAD_LAYERS layers: train_loss and its
-    gradient through the flash kernels against the same model with
-    attention on its plain version (``force_ref``). Loss within 1e-5
-    relative, each leaf within 1e-4 of its largest |g|."""
+@contextmanager
+def plain_routes():
+    """Inside the model modules, attention, the WKV scan and the selective
+    scan on their plain versions (``force_ref``) on any device."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.models import attention
+    from repro_torch.kernels.rwkv_scan import ops as wkv_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.models import attention, rwkv6, ssm
+    saved = attention.attention_bshd, rwkv6.wkv, ssm._scan
+    attention.attention_bshd = partial(flash_ops.attention_bshd,
+                                       force_ref=True)
+    rwkv6.wkv = partial(wkv_ops.wkv, force_ref=True)
+    ssm._scan = partial(ssm_ops.selective_scan, force_ref=True)
+    try:
+        yield
+    finally:
+        attention.attention_bshd, rwkv6.wkv, ssm._scan = saved
+
+
+def train_grads_kernel_vs_plain(arch, Bq, S, get_config, build_model, fns,
+                                per_layer):
+    """Phases 13c / 13f: ``arch`` at full width, f32, GRAD_LAYERS layers:
+    train_loss and its gradient through the kernels against the same
+    model with attention and the scans on their plain versions
+    (``plain_routes``), at B ``Bq`` x S ``S``. Loss within 1e-5
+    relative, each leaf within 1e-4 of its largest |g|; the kernels'
+    launches ``per_layer`` a layer on the kernel route, none on the plain
+    one."""
     from repro_torch.train import tree
-    cfg = replace(get_config("qwen3-4b"), n_layers=GRAD_LAYERS,
+    cfg = replace(get_config(arch), n_layers=GRAD_LAYERS,
                   dtype=torch.float32, remat=False)
     model = build_model(cfg, device="cuda")
     params = model.init(SEED + 1)
     g = torch.Generator(device="cuda").manual_seed(5)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size,
-                                     (GRAD_B, GRAD_S + 1), generator=g,
-                                     device="cuda", dtype=torch.int32)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (Bq, S + 1),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)}
     leaves = tree.leaves(params)
 
     def value_and_grad():
@@ -2548,20 +2776,17 @@ def train_grads_kernel_vs_plain(get_config, build_model, fwd_fn, bwd_fn):
             p.requires_grad_(False)
         return loss.detach(), grads
 
-    _zero((fwd_fn, bwd_fn))
+    _zero(fns)
     lk, gk = value_and_grad()
-    counts = (fwd_fn.launches, bwd_fn.launches)
-    kernel_route = attention.attention_bshd
-    attention.attention_bshd = partial(flash_ops.attention_bshd,
-                                       force_ref=True)
-    try:
+    counts = {fn.__name__: fn.launches for fn in fns}
+    with plain_routes():
         lp, gp = value_and_grad()
-    finally:
-        attention.attention_bshd = kernel_route
-    if counts != (GRAD_LAYERS, GRAD_LAYERS) or \
-            (fwd_fn.launches, bwd_fn.launches) != counts:
-        raise AssertionError(f"launches {counts}, then "
-                             f"{(fwd_fn.launches, bwd_fn.launches)}")
+    after = {fn.__name__: fn.launches for fn in fns}
+    want = {fn.__name__: per_layer.get(fn.__name__, 0) * GRAD_LAYERS
+            for fn in fns}
+    if counts != want or after != counts:
+        raise AssertionError(f"launches {counts}, then {after}; expected "
+                             f"{want}")
     worst = 0.0
     for (key, p), a, b in zip(tree.leaves_with_path(params), gk, gp):
         err = float((a - b).abs().max())
@@ -2571,27 +2796,30 @@ def train_grads_kernel_vs_plain(get_config, build_model, fwd_fn, bwd_fn):
             raise AssertionError(f"{key}: kernel-route gradient off by {err}"
                                  f" (largest |g| {scale})")
     rel = abs(float(lk) - float(lp)) / abs(float(lp))
-    print(f"loss {float(lk):.6f} (kernel route) vs {float(lp):.6f} (plain), "
-          f"relative {rel:.1e}; {len(leaves)} gradient leaves, worst "
-          f"{worst:.1e} of the leaf's largest |g| (tol 1e-4); flash "
-          f"launches {counts[0]} forward / {counts[1]} backward on the "
-          f"kernel route, none on the plain one")
+    print(f"{cfg.name}, B {Bq} S {S}: loss {float(lk):.6f} (kernel route) vs "
+          f"{float(lp):.6f} (plain), relative {rel:.1e}; {len(leaves)} "
+          f"gradient leaves, worst {worst:.1e} of the leaf's largest |g| "
+          f"(tol 1e-4); launches on the kernel route "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}, none on "
+          f"the plain one")
     if rel > 1e-5:
         raise AssertionError(f"losses differ by {rel}")
     del params, gk, gp, model
     torch.cuda.empty_cache()
 
 
-def run_train_launcher():
-    """Phase 13d: ``python -m repro_torch.launch.train --steps 3`` on the
-    card (reduced qwen3-4b, f32), as a subprocess that must exit 0."""
+def run_train_launcher(arch="qwen3-4b"):
+    """Phase 13d: ``python -m repro_torch.launch.train --arch ARCH --steps
+    3`` on the card (the reduced config, f32), as a subprocess that must
+    exit 0."""
     import os
     import tempfile
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                            "--steps", "3", "--ckpt-root", ck], cwd=ROOT,
+                            "--arch", arch, "--steps", "3", "--ckpt-root",
+                            ck], cwd=ROOT,
                            env=env, capture_output=True, text=True,
                            timeout=300)
     print(r.stdout.strip())
@@ -2603,7 +2831,7 @@ def run_train_launcher():
 def time_flash_backward(fwd_kernel, bwd_kernel, ref_fwd, ref_bwd, flush,
                         split):
     """The backward kernel's time at the qwen3-4b train shape (bf16 and
-    f32) and whisper's encoder (bf16) beside its plain version, its
+    f32), whisper's encoder and hd 192 (bf16) beside its plain version, its
     bound and SDPA's backward on the same inputs, and its per-launch
     split (``split``, from ``bwd_launch_split``); the forward's time with
     and without the lse write at the train shape and at qwen3-4b's
@@ -2613,7 +2841,8 @@ def time_flash_backward(fwd_kernel, bwd_kernel, ref_fwd, ref_bwd, flush,
     rows = {}
     for key, case, dt in (("train", BWD_CASES[0], torch.bfloat16),
                           ("train_f32", BWD_CASES[0], torch.float32),
-                          ("whisper_enc", BWD_CASES[1], torch.bfloat16)):
+                          ("whisper_enc", BWD_CASES[1], torch.bfloat16),
+                          ("hd192", BWD_BY_NAME["hd 192"], torch.bfloat16)):
         _, Bq, Hq, Hkv, S, T, hd, causal, win = case
         q, k, v, do = bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed=9)
         out, lse = fwd_kernel(q, k, v, causal=causal, with_lse=True)
@@ -2716,10 +2945,15 @@ def main() -> int:
     from repro_torch.kernels.paged_attention.ops import paged_window_attention
     from repro_torch.kernels.paged_attention.ref import (
         paged_window_attention_ref)
+    from repro_torch.kernels.rwkv_scan import backward as wkv_bwd
     from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
     from repro_torch.kernels.rwkv_scan.ops import wkv
+    from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref, wkv_ref
+    from repro_torch.kernels.ssm_scan import backward as ssm_bwd
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan.ops import selective_scan
+    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+                                                  ssm_scan_ref)
     from repro_torch.models.model import build_model
     from repro_torch.serve import prng, sampling
     from repro_torch.serve.engine import Request, ServingEngine
@@ -3166,29 +3400,60 @@ def main() -> int:
         frontend_checks(name, get_config, build_model,
                         pw_kernel.paged_window_attention)
 
-    phase("13a. the flash backward kernel vs its plain version, f32 and "
-          "bf16, at the training shapes")
+    phase("13a. the backward kernels vs their plain versions at the "
+          "training shapes: flash (f32 and bf16), WKV and the selective "
+          "scan (f32)")
     bwd_err = check_flash_backward(flash_kernel.flash_attention,
                                    flash_bwd.flash_attention_bwd,
                                    flash_attention, flash_attention_ref,
                                    flash_attention_bwd_ref)
-    check_grad_refusals((paged_window_attention, decode_attention, wkv,
-                         selective_scan))
+    wkv_bwd_err = check_scan_backward(
+        "wkv", wkv_bwd.wkv_bwd, wkv_bwd_ref, wkv_ref, wkv_bwd_case,
+        WKV_BWD_SHAPES, ("r", "k", "v", "w", "u", "state"))
+    ssm_bwd_err = check_scan_backward(
+        "selective_scan", ssm_bwd.ssm_scan_bwd, ssm_scan_bwd_ref,
+        ssm_scan_ref, ssm_bwd_case, SSM_BWD_SHAPES,
+        ("u", "dt", "B", "C", "A", "D", "state"))
+    check_grad_refusals((paged_window_attention, decode_attention,
+                         wkv_kernel.wkv_scan, ssm_kernel.ssm_scan),
+                        (wkv, selective_scan))
+    train_fns = (*kernel_fns, flash_bwd.flash_attention_bwd,
+                 wkv_bwd.wkv_bwd, ssm_bwd.ssm_scan_bwd)
+    train_launches, train_metrics = {}, {}
 
     phase(f"13b. train full-width qwen3-4b, bf16, remat, {TRAIN_LAYERS} "
           f"layers, {TRAIN_STEPS} steps of B {TRAIN_B} x S {TRAIN_S}")
-    train_launches = train_full_width(get_config, build_model, kernel_fns,
-                                      flash_bwd.flash_attention_bwd)
+    train_launches["qwen3-4b"], train_metrics["qwen3-4b"] = \
+        train_full_width("qwen3-4b", TRAIN_LAYERS, get_config, build_model,
+                         train_fns, {"flash_attention": 2,
+                                     "flash_attention_bwd": 1})
 
     phase(f"13c. train_loss gradients, kernel route vs plain route, f32, "
           f"full width, {GRAD_LAYERS} layers")
-    train_grads_kernel_vs_plain(get_config, build_model,
-                                flash_kernel.flash_attention,
-                                flash_bwd.flash_attention_bwd)
+    train_grads_kernel_vs_plain("qwen3-4b", GRAD_B, GRAD_S, get_config,
+                                build_model, train_fns,
+                                {"flash_attention": 1,
+                                 "flash_attention_bwd": 1})
 
     phase("13d. the launcher: python -m repro_torch.launch.train --steps 3 "
-          "(reduced qwen3-4b, f32) on the card")
-    run_train_launcher()
+          "(reduced qwen3-4b and rwkv6-1.6b, f32) on the card")
+    run_train_launcher("qwen3-4b")
+    run_train_launcher("rwkv6-1.6b")
+
+    for arch, per_layer in RECURRENT_TRAIN.items():
+        phase(f"13e. train full-width {arch}, bf16, remat, all layers, "
+              f"{TRAIN_STEPS} steps of B {TRAIN_B} x S {TRAIN_S}")
+        train_launches[arch], train_metrics[arch] = train_full_width(
+            arch, None, get_config, build_model, train_fns, per_layer)
+
+    phase(f"13f. train_loss gradients of the recurrent families, kernel "
+          f"route vs plain route, f32, full width, {GRAD_LAYERS} layers, "
+          f"B 2 x S {REC_GRAD_S}")
+    for arch, per_layer in RECURRENT_TRAIN.items():
+        train_grads_kernel_vs_plain(arch, 2, REC_GRAD_S, get_config,
+                                    build_model, train_fns,
+                                    {k: 1 for k in per_layer})
+    print("train runs:", json.dumps(train_metrics))
 
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
@@ -3305,6 +3570,9 @@ def main() -> int:
     bwd_times, fwd_lse_times = time_flash_backward(
         flash_kernel.flash_attention, flash_bwd.flash_attention_bwd,
         flash_attention_ref, flash_attention_bwd_ref, flush, bwd_split)
+    scan_bwd_times = time_scan_backward(wkv_bwd.wkv_bwd, wkv_bwd_ref,
+                                        ssm_bwd.ssm_scan_bwd,
+                                        ssm_scan_bwd_ref, flush)
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
                                 ("qwen3-4b", HEAD_SHAPES[0])):
@@ -3385,15 +3653,38 @@ def main() -> int:
         "replaces_note": "the gradient of _flash_kernel's function, which "
                          "the reference takes through XLA "
                          "(src/repro/models/attention.py:106)",
-        "launches": train_launches["flash_attention_bwd"],
+        "launches": sum(n["flash_attention_bwd"]
+                        for n in train_launches.values()),
         "max_abs_err": bwd_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-        **{f"{key}_{name}": val for key in ("train_f32", "whisper_enc")
+        **{f"{key}_{name}": val
+           for key in ("train_f32", "whisper_enc", "hd192")
            for name, val in zip(("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms"), bwd_times[key])},
         "launch_split_ms": bwd_split})
+    for name, source, replaces, note, err in (
+            ("wkv_bwd", "rwkv_scan/csrc/wkv_bwd.cu", "rwkv_scan/kernel.py:29",
+             "_wkv_kernel's function, which the reference takes through "
+             "XLA's lax.scan (src/repro/models/rwkv6.py:80)", wkv_bwd_err),
+            ("ssm_scan_bwd", "ssm_scan/csrc/ssm_scan_bwd.cu",
+             "ssm_scan/kernel.py:36", "_ssm_kernel's function, which the "
+             "reference takes through XLA's lax.scan "
+             "(src/repro/models/ssm.py:34)", ssm_bwd_err)):
+        k_ms, p_ms, b_ms, b_by = scan_bwd_times[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "replaces_note": f"the gradient of {note}",
+            "launches": sum(n[name] for n in train_launches.values()),
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for name in ("wkv_scan", "ssm_scan"):
+        next(r for r in rows if r["name"] == name).update(
+            train_launches=sum(n[name] for n in train_launches.values()))
     next(r for r in rows if r["name"] == "flash_attention").update(
-        train_launches=train_launches["flash_attention"],
+        train_launches=sum(n["flash_attention"]
+                           for n in train_launches.values()),
         **{f"{key}_{name}": val for key, vals in fwd_lse_times.items()
            for name, val in zip(("fwd_ms", "fwd_lse_ms", "fwd_lse_bound_ms",
                                  "fwd_lse_bound_by", "fwd_library_ms",

@@ -6,15 +6,19 @@ import torch
 
 def refuse_grad(op: str, *tensors) -> None:
     """Raise if autograd would record a call of ``op``, a CUDA kernel
-    without a backward: its output would carry no gradient to its inputs,
-    so a loss through it would train nothing below it without an error.
-    Serving runs under ``torch.no_grad()`` and never trips this."""
+    without a backward of its own: its output would carry no gradient to
+    its inputs, so a loss through it would train nothing below it without
+    an error. The paged-window and stripe-decode kernels serve only; the
+    flash, WKV and selective-scan kernels train through the autograd
+    functions of their ops, never by a direct kernel call. Serving runs
+    under ``torch.no_grad()`` and never trips this."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{op}: the CUDA kernel has no backward (ROADMAP Queue 1, item "
-            f"3b lists the backward kernels still to port), and an input "
-            f"requires grad; call it under torch.no_grad(), or detach the "
-            f"inputs")
+            f"{op}: this CUDA kernel call has no backward, and an input "
+            f"requires grad. The paged-window and stripe-decode kernels "
+            f"serve only; the flash, WKV and selective-scan kernels train "
+            f"through their ops (kernels/*/ops.py). Call it under "
+            f"torch.no_grad(), or detach the inputs")
 
 
 # (owner, device, stream) -> the scratch tensors of ``stream_scratch``

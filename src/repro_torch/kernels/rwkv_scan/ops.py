@@ -1,18 +1,43 @@
 """Public op for the WKV6 recurrence.
 
-Tensors on the CPU take the plain PyTorch version in ``ref.py``; CUDA
-tensors take the CUDA kernel in ``kernel.py``, which raises on what it
-cannot run. There is no fallback from one to the other. Unlike the
-reference's TPU route, no sequence-length gate applies: the kernel takes
-any T >= 1. ``force_ref`` (tests and ``chip_smoke.py`` only) takes the
-plain version on any device.
+Tensors on the CPU take the plain PyTorch version in ``ref.py`` (autograd
+differentiates it); CUDA tensors take the CUDA kernel in ``kernel.py``,
+which raises on what it cannot run. When grad mode is on and an input
+requires grad, the CUDA call goes through ``WKV``, an autograd function
+whose backward is the CUDA kernel in ``backward.py``; otherwise the
+forward launches alone, as serving runs it. There is no fallback from
+one to the other. Unlike the reference's TPU route, no sequence-length
+gate applies: the kernel takes any T >= 1. ``force_ref`` (tests and
+``chip_smoke.py`` only) takes the plain version on any device.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.rwkv_scan import kernel
+import torch
+
+from repro_torch.kernels.rwkv_scan import backward, kernel
 from repro_torch.kernels.rwkv_scan.ref import wkv_ref
 
-__all__ = ["wkv"]
+__all__ = ["WKV", "wkv"]
+
+
+class WKV(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one differentiable op.
+    The backward runs the forward again from the saved inputs for the
+    states it needs; autograd hands it zeros for an output the loss does
+    not reach (the final state, in training), and a non-contiguous
+    upstream gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        out, state_out = kernel.wkv_scan(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return out, state_out
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        return backward.wkv_bwd(r, k, v, w, u, state, dout.contiguous(),
+                                dstate.contiguous())
 
 
 def wkv(r, k, v, w, u, state, *, force_ref: bool = False):
@@ -20,4 +45,7 @@ def wkv(r, k, v, w, u, state, *, force_ref: bool = False):
     (out (B,T,H,hd) f32, final state)."""
     if force_ref or r.device.type == "cpu":
         return wkv_ref(r, k, v, w, u, state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        return WKV.apply(r, k, v, w, u, state)
     return kernel.wkv_scan(r, k, v, w, u, state)

@@ -1503,9 +1503,10 @@ def test_flash_autograd_route_matches_plain_autograd(cuda, dt):
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """paged-window, decode, WKV and selective-scan ops refuse a call
+    """The paged-window and decode ops, which serve only, refuse a call
     autograd would record (no plain-version fallback), and run under
-    no_grad; the flash forward refuses it when called directly."""
+    no_grad; the flash, WKV and selective-scan kernels refuse it when
+    called directly (their ops train through autograd functions)."""
     q, pk, pv, table, base = _case(2, 4, 8, 2, 64, 16, 4, torch.float32)
     g = torch.Generator().manual_seed(2)
     kst = torch.randn((2, 2, 64, 64), generator=g).cuda()
@@ -1516,8 +1517,8 @@ def test_kernels_without_backward_raise_under_grad(cuda):
         "paged_window_attention": lambda a: paged_window_attention(
             a, pk, pv, table, base),
         "decode_attention": lambda a: decode_attention(a, kst, kst, n),
-        "wkv_scan": lambda a: wkv(a, k, v, w, u, s),
-        "ssm_scan": lambda a: selective_scan(a, *x[1:]),
+        "wkv_scan": lambda a: wkv_kernel.wkv_scan(a, k, v, w, u, s),
+        "ssm_scan": lambda a: ssm_kernel.ssm_scan(a, *x[1:]),
         "flash_attention": lambda a: flash_kernel.flash_attention(
             a, kst, kst),
     }
@@ -1533,6 +1534,177 @@ def test_kernels_without_backward_raise_under_grad(cuda):
         with torch.no_grad():
             call(a)
     torch.cuda.synchronize()
+
+
+# (B, T, H, hd, decays) of the WKV backward: T 1, the 16-step chunk edge,
+# several chunks with a partial last one, hd off the 16-row blocks (40)
+# and at every padded head dim (32, 64, 128)
+WKV_BWD_GRID = [
+    (2, 1, 4, 64, "mid"),
+    (2, 17, 3, 32, "model"),
+    (1, 40, 2, 64, "model"),
+    (1, 33, 2, 128, "mid"),
+    (2, 9, 2, 40, "model"),
+    (1, 300, 4, 64, "model"),
+]
+# (B, T, di, N) of the selective-scan backward: every lane layout, a
+# ragged channel tail, T 1 and the chunk edges
+SSM_BWD_GRID = [
+    (2, 1, 3200, 16),
+    (2, 17, 40, 16),
+    (1, 40, 130, 64),
+    (2, 7, 200, 5),
+    (1, 33, 70, 1),
+    (1, 16, 48, 2),
+    (2, 300, 3200, 16),
+]
+
+
+def _grad_err(got, want):
+    """Largest |got - want| over largest |want|, per gradient."""
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("B,T,H,hd,decays", WKV_BWD_GRID)
+def test_wkv_backward_matches_plain_version(cuda, B, T, H, hd, decays):
+    """The backward kernel against ``wkv_bwd_ref`` on the same inputs and
+    cotangents (decays down to exactly 0 in the model's range), each
+    gradient within 1e-4 of its largest magnitude; two calls bitwise
+    equal; nothing NaN."""
+    from repro_torch.kernels.rwkv_scan import backward
+    from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref
+    args = _wkv_case(B, T, H, hd, seed=T + hd, decays=decays)
+    g = torch.Generator().manual_seed(T)
+    dout = torch.randn((B, T, H, hd), generator=g).cuda()
+    ds = torch.randn((B, H, hd, hd), generator=g).cuda()
+    before = backward.wkv_bwd.launches
+    got = backward.wkv_bwd(*args, dout, ds)
+    again = backward.wkv_bwd(*args, dout, ds)
+    assert backward.wkv_bwd.launches == before + 2
+    want = wkv_bwd_ref(*args, dout, ds)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+    assert max(_grad_err(got, want)) <= 1e-4
+
+
+@pytest.mark.parametrize("B,T,di,N", SSM_BWD_GRID)
+def test_ssm_backward_matches_plain_version(cuda, B, T, di, N):
+    """The backward kernel against ``ssm_scan_bwd_ref`` on the same inputs
+    and cotangents (A in hymba's [-16, -1] with steps where exp(dt A)
+    underflows to 0), each gradient within 1e-4 of its largest
+    magnitude; two calls bitwise equal; nothing NaN."""
+    from repro_torch.kernels.ssm_scan import backward
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    u, dt, Bm, Cm, A, D, s0 = _ssm_case(B, T, di, N, seed=T + N)
+    g = torch.Generator().manual_seed(T)
+    A = -(1.0 + 15.0 * torch.rand((di, N), generator=g)).cuda()
+    dt = torch.where(torch.rand((B, T, di), generator=g).cuda() < 0.1,
+                     8.0, dt)
+    dy = torch.randn((B, T, di), generator=g).cuda()
+    ds = torch.randn((B, di, N), generator=g).cuda()
+    args = (u, dt, Bm, Cm / math.sqrt(N), A, D, s0)
+    before = backward.ssm_scan_bwd.launches
+    got = backward.ssm_scan_bwd(*args, dy, ds)
+    again = backward.ssm_scan_bwd(*args, dy, ds)
+    assert backward.ssm_scan_bwd.launches == before + 2
+    want = ssm_scan_bwd_ref(*args, dy, ds)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b) and torch.isfinite(a).all()
+    assert max(_grad_err(got, want)) <= 1e-4
+
+
+@pytest.mark.parametrize("op", ["wkv", "ssm"])
+def test_scan_backward_scratch_sizing_refuses_what_the_kernel_does_not_take(
+        cuda, op):
+    """The CUDA sources size their own scratch: every shape of the grids
+    above gets positive sizes, and a head dim past 128, a state past 64,
+    an empty axis or a batch past the grid's 65535 is refused with a
+    ValueError before anything is launched."""
+    if op == "wkv":
+        from repro_torch.kernels.rwkv_scan import backward
+        fn, good = backward.wkv_bwd, [c[:4] for c in WKV_BWD_GRID]
+        bad = [(1, 8, 2, 129), (1, 0, 2, 64), (65536, 1, 1, 64),
+               (1, 1, 65536, 64)]
+    else:
+        from repro_torch.kernels.ssm_scan import backward
+        fn, good = backward.ssm_scan_bwd, SSM_BWD_GRID
+        bad = [(1, 8, 40, 65), (1, 8, 0, 16), (65536, 1, 40, 16)]
+    before = fn.launches
+    for shape in good:
+        assert all(n > 0 for n in backward._scratch_sizes(*shape)), shape
+    for shape in bad:
+        with pytest.raises(ValueError, match="takes no"):
+            backward._scratch_sizes(*shape)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("op", ["wkv", "ssm"])
+def test_scan_autograd_route_matches_plain_autograd(cuda, op):
+    """On CUDA inputs that require grad the op takes its autograd function
+    (one forward and one backward launch; the final state's gradient
+    None), within 1e-4 of autograd of the plain version on the same
+    inputs; a non-contiguous upstream gradient is taken; under no_grad
+    the forward launches alone."""
+    from repro_torch.kernels.rwkv_scan import backward as wkv_bwd
+    from repro_torch.kernels.ssm_scan import backward as ssm_bwd
+    if op == "wkv":
+        xs = _wkv_case(2, 40, 3, 64, seed=5, decays="model")
+        fn, fns = wkv, (wkv_kernel.wkv_scan, wkv_bwd.wkv_bwd)
+    else:
+        xs = _ssm_case(2, 40, 130, 16, seed=5)
+        fn, fns = selective_scan, (ssm_kernel.ssm_scan, ssm_bwd.ssm_scan_bwd)
+    g = torch.Generator().manual_seed(6)
+    up = torch.randn(xs[0].shape[:-1] + (2 * xs[0].shape[-1],),
+                     generator=g).cuda()[..., ::2]        # strided
+    grads = []
+    for force_ref in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in xs]
+        before = [f.launches for f in fns]
+        out, _ = fn(*leaves, force_ref=force_ref)
+        grads.append(torch.autograd.grad(out, leaves, up))
+        assert [f.launches - b for f, b in zip(fns, before)] == \
+            ([0, 0] if force_ref else [1, 1])
+    assert max(_grad_err(*grads)) <= 1e-4
+    with torch.no_grad():
+        before = [f.launches for f in fns]
+        fn(*(t.clone().requires_grad_(True) for t in xs))
+        assert [f.launches - b for f, b in zip(fns, before)] == [1, 0]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_train_loss_grads_on_card_match_cpu(cuda, arch):
+    """Reduced configs, f32: train_loss and every gradient through the scan
+    kernels (and hymba's flash kernels) on the card against the port on
+    the CPU (plain loops), 1e-4 of each leaf's largest |g|; one scan
+    forward and one scan backward launch a layer."""
+    from repro_torch.kernels.rwkv_scan import backward as wkv_bwd
+    from repro_torch.kernels.ssm_scan import backward as ssm_bwd
+    from repro_torch.train import tree
+    cfg = get_config(arch).reduced()
+    fns = ((wkv_kernel.wkv_scan, wkv_bwd.wkv_bwd) if arch == "rwkv6-1.6b"
+           else (ssm_kernel.ssm_scan, ssm_bwd.ssm_scan_bwd))
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (2, 33),
+                                     generator=g)}
+    params = build_model(cfg, device="cpu").init(0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        p = _to(params, dev)
+        leaves = tree.leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = [f.launches for f in fns]
+        loss, _ = model.train_loss(p, _to(batch, dev))
+        grads = torch.autograd.grad(loss, leaves)
+        n = [f.launches - b for f, b in zip(fns, before)]
+        out[dev] = (float(loss.detach()), [t.cpu() for t in grads], n)
+    assert out["cuda"][2] == [cfg.n_layers] * 2 and out["cpu"][2] == [0, 0]
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) \
+            <= 1e-4 * max(float(b.abs().max()), 1e-30)
 
 
 @pytest.mark.parametrize("arch,kw", [("qwen3-4b", {"use_kernel": True}),

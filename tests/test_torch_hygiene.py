@@ -19,7 +19,9 @@ from repro_torch.kernels.decode_attention import kernel as decode_kernel
 from repro_torch.kernels.flash_attention import backward as flash_bwd
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.paged_attention import kernel as pw_kernel
+from repro_torch.kernels.rwkv_scan import backward as wkv_bwd
 from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
+from repro_torch.kernels.ssm_scan import backward as ssm_bwd
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.models.model import build_model, init_params
 
@@ -133,6 +135,16 @@ def _flash_args():
     return q, kv, kv
 
 
+def _wkv_bwd_args():
+    a = _wkv_args()
+    return (*a, a[0], a[-1])
+
+
+def _ssm_bwd_args():
+    a = _ssm_args()
+    return (*a, a[0], a[-1])
+
+
 def _flash_bwd_args():
     q = torch.zeros((1, 4, 3, 32))
     kv = torch.zeros((1, 2, 5, 32))
@@ -150,6 +162,8 @@ KERNELS = {
     "paged_window": (pw_kernel, "paged_window_attention", _paged_args),
     "wkv": (wkv_kernel, "wkv_scan", _wkv_args),
     "ssm_scan": (ssm_kernel, "ssm_scan", _ssm_args),
+    "wkv_bwd": (wkv_bwd, "wkv_bwd", _wkv_bwd_args),
+    "ssm_scan_bwd": (ssm_bwd, "ssm_scan_bwd", _ssm_bwd_args),
     "flash": (flash_kernel, "flash_attention", _flash_args),
     "flash_bwd": (flash_bwd, "flash_attention_bwd", _flash_bwd_args),
     "decode": (decode_kernel, "decode_attention", _decode_args),
@@ -183,7 +197,7 @@ def test_build_path_follows_included_headers(tmp_path):
     """A library is named by the headers its source includes too, and
     theirs in turn: editing one builds anew, an unrelated file does
     not. The attention sources (the flash backward too) and both scans
-    share the helpers header."""
+    (their backwards too) share the helpers header."""
     (tmp_path / "inc").mkdir()
     a, b = tmp_path / "inc" / "a.cuh", tmp_path / "inc" / "b.cuh"
     a.write_text('#include "b.cuh"\n// a')
@@ -202,7 +216,9 @@ def test_build_path_follows_included_headers(tmp_path):
             if header in _build.includes(p)} == {"decode.cu", "flash.cu",
                                                  "flash_bwd.cu",
                                                  "paged_window.cu",
-                                                 "ssm_scan.cu", "wkv.cu"}
+                                                 "ssm_scan.cu",
+                                                 "ssm_scan_bwd.cu", "wkv.cu",
+                                                 "wkv_bwd.cu"}
 
 
 @pytest.mark.parametrize("kernel", list(KERNELS))
@@ -210,9 +226,22 @@ def test_binding_matches_the_c_signature(kernel):
     """The ctypes argtypes mirror the CUDA source's extern "C" entry:
     pointers as c_void_p, ints as c_int, in order."""
     module, name, _ = KERNELS[kernel]
-    src = module.SOURCE.read_text()
-    sig = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,
-                    re.S).group(1)
-    params = [" ".join(p.split()) for p in sig.split(",")]
-    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-    assert module.ARGTYPES == want, params
+    assert module.ARGTYPES == _c_argtypes(module.SOURCE, name)
+
+
+def _c_argtypes(source, name):
+    """ctypes argtypes of the extern "C" entry ``name`` in ``source``:
+    pointers as c_void_p, ints as c_int, in order."""
+    sig = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{',
+                    source.read_text(), re.S).group(1)
+    return [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in sig.split(",")]
+
+
+@pytest.mark.parametrize("module", [wkv_bwd, ssm_bwd],
+                         ids=["wkv_bwd", "ssm_scan_bwd"])
+def test_scratch_sizing_matches_the_c_signature(module):
+    """The scan backwards' scratch is sized by the CUDA source itself
+    (``<kernel>_scratch``): its ctypes argtypes mirror that entry."""
+    name = module.SOURCE.stem + "_scratch"
+    assert module.SCRATCH_ARGTYPES == _c_argtypes(module.SOURCE, name)

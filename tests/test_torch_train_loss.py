@@ -174,7 +174,7 @@ def test_train_loss_and_grads_match_reference(case):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "grok-1-314b", "hymba-1.5b",
-                                  "whisper-tiny"])
+                                  "whisper-tiny", "rwkv6-1.6b"])
 def test_remat_gradients_equal_plain(arch):
     cfg = get_config(arch).reduced()
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 6).items()}
