@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``cuobjdump`` exists, whether the flash, flash backward and paged
    kernels' SASS holds tensor-core ``HMMA`` (mma.sync) or ``HGMMA``
    (wgmma: the bf16 backward) and asynchronous copies (``LDGSTS`` /
-   ``UTMALDG``); the flash backward's per-launch device times
+   ``UTMALDG``). The flash backward must show ``HGMMA`` in every bf16
+   instantiation (hd 64 to 256), ``LDGSTS`` in every f32 one, and no
+   spill stores in any; the flash backward's per-launch device times
    (``bwd_launch_split``, before any other trace), printed with the
    timing rows.
 3. Kernel vs plain version on the card: ``paged_window_attention`` at
@@ -187,8 +189,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    cross-attention (S 448 against T 1500), qwen2-vl-2b's G 6 (12 / 2 of
    128), a 128 window inside S 512, hd 112 and 192, S 64 < T 300, a
    ragged S 37 against T 101 with a 24 window, S 40 > T 20 (rows
-   that see no key) and hymba-1.5b's train shape (B 2, S = T = 1024, 25
-   / 5 heads of 64, a 2048 window): each gradient within 1e-4 (f32) /
+   that see no key), hymba-1.5b's train shape (B 2, S = T = 1024, 25
+   / 5 heads of 64, a 2048 window), nemotron-4-340b's attention (B 1, S
+   = T = 2048, 96 / 8 heads of 192, causal) and hd 256 (B 2, S 300
+   against T 333, 8 / 2 heads): each gradient within 1e-4 (f32) /
    1e-2 (bf16) of
    its largest magnitude, two runs bitwise equal, nothing NaN, dq 0 on
    keyless rows; the forward's lse within 1e-4 / 1e-3 of the plain
@@ -278,8 +282,13 @@ the same inputs, with the same numbers in f32 (``train_f32_*``) and at
 whisper's encoder (``whisper_enc_*``), and the device time of each of
 its launches per call from ``torch.profiler`` at the train shape and
 whisper's encoder, bf16 (``launch_split_ms``), and at hd 192 (B 1, S =
-T = 256, 12 / 4 heads, bf16: ``hd192_*``); its launches are 13b's and
-13e's. The WKV and selective-scan backward rows (``wkv_bwd``,
+T = 256, 12 / 4 heads, bf16: ``hd192_*``) and nemotron-4-340b's
+attention at its training length (B 1, S = T = 4096, 96 / 8 heads of
+192, causal, bf16: ``nemotron_*``; the plain version there needs about
+35 GB and is timed at S = T = 2048 if the card cannot hold it then,
+``nemotron_plain_S`` saying which); its launches are 13b's and 13e's
+(bf16), and ``train_launches`` adds 13c's and 13f's (f32,
+``train_f32_launches``). The WKV and selective-scan backward rows (``wkv_bwd``,
 ``ssm_scan_bwd``) carry their time at rwkv6-1.6b's and hymba-1.5b's
 train shapes beside their plain versions and bounds (library none), and
 their launches in 13e; the scan forward rows add their 13e launches
@@ -368,7 +377,9 @@ def _demangle(names, tool_dir):
 
 def print_ptxas(build_dir, tool_dir):
     """Registers and spills of every compiled kernel, from each source's
-    ``-Xptxas -v`` log."""
+    ``-Xptxas -v`` log. Raises if a flash backward instantiation spills
+    (its register plan keeps every accumulator in registers)."""
+    spilled = []
     for log in sorted(Path(build_dir).glob("*.log")):
         entries, name = [], None
         for line in log.read_text().splitlines():
@@ -383,16 +394,25 @@ def print_ptxas(build_dir, tool_dir):
         for (_, regs, spill), short in zip(
                 entries, _demangle([e[0] for e in entries], tool_dir)):
             print(f"  ptxas {log.stem}: {short}: {regs} registers; {spill}")
+            m = re.search(r"(\d+) bytes spill stores", spill)
+            if log.stem == "flash_bwd" and (not m or int(m.group(1))):
+                spilled.append(f"{short}: {spill}")
+    if spilled:
+        raise AssertionError("flash backward instantiations spill: "
+                             + "; ".join(spilled))
 
 
 def print_sass_checks(libs, tool_dir):
     """Which attention kernels' SASS holds tensor-core MMAs (HMMA for
     mma.sync, HGMMA for wgmma) and asynchronous copies (LDGSTS, or
-    UTMALDG for TMA), where cuobjdump exists."""
+    UTMALDG for TMA), where cuobjdump exists. Raises unless every bf16
+    flash backward kernel (``*_wg*``, hd 64 to 256) holds HGMMA and
+    LDGSTS and every f32 one (``*_f32``) LDGSTS."""
     tool = Path(tool_dir) / "cuobjdump"
     if not tool.is_file():
         print("  sass: cuobjdump not available")
         return
+    missing, seen = [], set()
     for src, lib in libs.items():
         if src.stem not in ("flash", "flash_bwd", "paged_window"):
             continue
@@ -408,6 +428,14 @@ def print_sass_checks(libs, tool_dir):
                    for op in ("HMMA", "HGMMA", "LDGSTS", "UTMALDG")}
             print(f"  sass {src.stem}: {short}: " + ", ".join(
                 f"{op} {'yes' if yes else 'no'}" for op, yes in has.items()))
+            if src.stem != "flash_bwd":
+                continue
+            need = ("HGMMA", "LDGSTS") if "_wg" in short else ("LDGSTS",)
+            missing += [f"{short} lacks {op}" for op in need if not has[op]]
+            seen.add("wg" if "_wg" in short else "f32")
+    if seen != {"wg", "f32"} or missing:
+        raise AssertionError(f"flash backward SASS: routes seen {seen}; "
+                             + "; ".join(missing))
 
 
 # ------------------------------------------------------------ kernel cases
@@ -2313,8 +2341,13 @@ BWD_CASES = (
     ("ragged S, window 24", 1, 25, 5, 37, 101, 64, True, 24),
     ("keyless rows, S > T", 1, 8, 2, 40, 20, 64, True, 0),
     ("hymba train", TRAIN_B, 25, 5, TRAIN_S, TRAIN_S, 64, True, 2048),
+    ("nemotron attention", 1, 96, 8, 2048, 2048, 192, True, 0),
+    ("hd 256", 2, 8, 2, 300, 333, 256, True, 0),
 )
 BWD_BY_NAME = {case[0]: case for case in BWD_CASES}
+# nemotron-4-340b's attention at its 4,096-token training length: timed
+# only (13a checks it at 2048)
+NEMOTRON_TRAIN = ("nemotron attention", 1, 96, 8, 4096, 4096, 192, True, 0)
 
 
 def bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed):
@@ -2755,7 +2788,7 @@ def train_grads_kernel_vs_plain(arch, Bq, S, get_config, build_model, fns,
     (``plain_routes``), at B ``Bq`` x S ``S``. Loss within 1e-5
     relative, each leaf within 1e-4 of its largest |g|; the kernels'
     launches ``per_layer`` a layer on the kernel route, none on the plain
-    one."""
+    one. Returns the kernel route's launches ({name: n})."""
     from repro_torch.train import tree
     cfg = replace(get_config(arch), n_layers=GRAD_LAYERS,
                   dtype=torch.float32, remat=False)
@@ -2806,6 +2839,7 @@ def train_grads_kernel_vs_plain(arch, Bq, S, get_config, build_model, fns,
         raise AssertionError(f"losses differ by {rel}")
     del params, gk, gp, model
     torch.cuda.empty_cache()
+    return counts
 
 
 def run_train_launcher(arch="qwen3-4b"):
@@ -2842,16 +2876,21 @@ def time_flash_backward(fwd_kernel, bwd_kernel, ref_fwd, ref_bwd, flush,
     for key, case, dt in (("train", BWD_CASES[0], torch.bfloat16),
                           ("train_f32", BWD_CASES[0], torch.float32),
                           ("whisper_enc", BWD_CASES[1], torch.bfloat16),
-                          ("hd192", BWD_BY_NAME["hd 192"], torch.bfloat16)):
+                          ("hd192", BWD_BY_NAME["hd 192"], torch.bfloat16),
+                          ("nemotron", NEMOTRON_TRAIN, torch.bfloat16)):
         _, Bq, Hq, Hkv, S, T, hd, causal, win = case
         q, k, v, do = bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed=9)
         out, lse = fwd_kernel(q, k, v, causal=causal, with_lse=True)
         k_ms = time_ms(lambda: bwd_kernel(q, k, v, out, lse, do,
                                           causal=causal), flush, iters=10,
                        warmup=2)
-        p_ms = time_ms(lambda: ref_bwd(q, k, v, out, lse, do,
-                                       causal=causal), flush, iters=5,
-                       warmup=1)
+        if key == "nemotron":
+            p_ms, plain_S = nemotron_plain_ms(ref_bwd, out, lse, q, k, v, do,
+                                              flush)
+        else:
+            p_ms = time_ms(lambda: ref_bwd(q, k, v, out, lse, do,
+                                           causal=causal), flush, iters=5,
+                           warmup=1)
         qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
         so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                             enable_gqa=Hq != Hkv)
@@ -2860,11 +2899,14 @@ def time_flash_backward(fwd_kernel, bwd_kernel, ref_fwd, ref_bwd, flush,
             warmup=2)
         b_ms, b_by = flash_bwd_bound(Bq, Hq, Hkv, S, T, hd, dt, causal, win)
         rows[key] = (k_ms, p_ms, b_ms, b_by, l_ms)
+        at = f" at S = T = {plain_S}" if key == "nemotron" else ""
         print(f"flash backward, {case[0]} (B {Bq}, {Hq} / {Hkv} heads of "
               f"{hd}, S {S}, T {T}, {str(dt)[6:]}): kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, sdpa backward {l_ms:.4f} ms, bound "
+              f"plain{at} {p_ms:.4f} ms, sdpa backward {l_ms:.4f} ms, bound "
               f"{b_ms:.5f} ms ({b_by})")
-        del so, qs, ks, vs
+        del so, qs, ks, vs, q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    rows["nemotron_plain_S"] = plain_S
     for key, launches in split.items():
         shown = ", ".join(f"{n} {ms:.4f} ms" for n, ms in launches.items())
         print(f"flash backward launches, {key} (bf16, profiler, per call): "
@@ -2886,6 +2928,21 @@ def time_flash_backward(fwd_kernel, bwd_kernel, ref_fwd, ref_bwd, flush,
               f"({b_by}), plain with the lse {ref:.4f} ms, sdpa forward "
               f"{sdpa:.4f} ms (no lse)")
     return rows, fwd
+
+
+def nemotron_plain_ms(ref_bwd, out, lse, q, k, v, do, flush):
+    """The plain backward's time at nemotron's attention: at S = T = 4096
+    it needs about 35 GB; where the card cannot hold that beside what the
+    script holds then, at S = T = 2048 (the last 2048 queries and keys:
+    the same causal band's shape). Returns (ms, the S it ran at)."""
+    try:
+        return time_ms(lambda: ref_bwd(q, k, v, out, lse, do), flush,
+                       iters=3, warmup=1), q.shape[2]
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+    half = [t[:, :, -2048:] for t in (out, lse, q, k, v, do)]
+    return time_ms(lambda: ref_bwd(*half[2:5], half[0], half[1], half[5]),
+                   flush, iters=3, warmup=1), 2048
 
 
 def bwd_launch_split(fwd_kernel, bwd_kernel, calls=10):
@@ -3420,6 +3477,7 @@ def main() -> int:
     train_fns = (*kernel_fns, flash_bwd.flash_attention_bwd,
                  wkv_bwd.wkv_bwd, ssm_bwd.ssm_scan_bwd)
     train_launches, train_metrics = {}, {}
+    grad_launches = {}   # 13c / 13f, f32
 
     phase(f"13b. train full-width qwen3-4b, bf16, remat, {TRAIN_LAYERS} "
           f"layers, {TRAIN_STEPS} steps of B {TRAIN_B} x S {TRAIN_S}")
@@ -3430,10 +3488,9 @@ def main() -> int:
 
     phase(f"13c. train_loss gradients, kernel route vs plain route, f32, "
           f"full width, {GRAD_LAYERS} layers")
-    train_grads_kernel_vs_plain("qwen3-4b", GRAD_B, GRAD_S, get_config,
-                                build_model, train_fns,
-                                {"flash_attention": 1,
-                                 "flash_attention_bwd": 1})
+    grad_launches["qwen3-4b"] = train_grads_kernel_vs_plain(
+        "qwen3-4b", GRAD_B, GRAD_S, get_config, build_model, train_fns,
+        {"flash_attention": 1, "flash_attention_bwd": 1})
 
     phase("13d. the launcher: python -m repro_torch.launch.train --steps 3 "
           "(reduced qwen3-4b and rwkv6-1.6b, f32) on the card")
@@ -3450,9 +3507,9 @@ def main() -> int:
           f"route vs plain route, f32, full width, {GRAD_LAYERS} layers, "
           f"B 2 x S {REC_GRAD_S}")
     for arch, per_layer in RECURRENT_TRAIN.items():
-        train_grads_kernel_vs_plain(arch, 2, REC_GRAD_S, get_config,
-                                    build_model, train_fns,
-                                    {k: 1 for k in per_layer})
+        grad_launches[arch] = train_grads_kernel_vs_plain(
+            arch, 2, REC_GRAD_S, get_config, build_model, train_fns,
+            {k: 1 for k in per_layer})
     print("train runs:", json.dumps(train_metrics))
 
     phase("timing at the shape of each serve")
@@ -3655,12 +3712,17 @@ def main() -> int:
                          "(src/repro/models/attention.py:106)",
         "launches": sum(n["flash_attention_bwd"]
                         for n in train_launches.values()),
+        "train_launches": sum(n["flash_attention_bwd"] for n in (
+            *train_launches.values(), *grad_launches.values())),
+        "train_f32_launches": sum(n["flash_attention_bwd"]
+                                  for n in grad_launches.values()),
         "max_abs_err": bwd_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
         **{f"{key}_{name}": val
-           for key in ("train_f32", "whisper_enc", "hd192")
+           for key in ("train_f32", "whisper_enc", "hd192", "nemotron")
            for name, val in zip(("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms"), bwd_times[key])},
+        "nemotron_plain_S": bwd_times["nemotron_plain_S"],
         "launch_split_ms": bwd_split})
     for name, source, replaces, note, err in (
             ("wkv_bwd", "rwkv_scan/csrc/wkv_bwd.cu", "rwkv_scan/kernel.py:29",

@@ -16,13 +16,14 @@ model's (B, S, H, hd) views, at whisper-tiny's encoder (B 4, S = T =
 and the flash backward (``backward.flash_attention_bwd`` on the
 forward's out and lse, median of 20) in bf16 at qwen3-4b's train shape
 (B 2, S = T = 1024, 32 / 8 heads of 128, causal) and whisper-tiny's
-encoder (B 2, S = T = 1500, 6 / 6 of 64, non-causal), and on its
-CUDA-core routes (f32 at the train shape, bf16 at hd 192: B 1, S = T =
-256, 12 / 4 heads), each with the device time of each of its launches
-per call (``torch.profiler``, ``*_launches``), then the card's name and
-power limit. It needs one CUDA device; both checkouts need
-``chip_smoke.time_ms``, ``chip_smoke._frontend_qkv``,
-``chip_smoke.bwd_inputs`` and ``chip_smoke.BWD_CASES``.
+encoder (B 2, S = T = 1500, 6 / 6 of 64, non-causal), in f32 at the
+train shape, in bf16 at hd 192 (B 1, S = T = 256, 12 / 4 heads) and at
+nemotron-4-340b's attention (B 1, S = T = 4096, 96 / 8 heads of 192,
+causal), each with the device time of each of its launches per call
+(``torch.profiler``, ``*_launches``), then the card's name and power
+limit. It needs one CUDA device; both checkouts need
+``chip_smoke.time_ms``, ``chip_smoke._frontend_qkv`` and
+``chip_smoke.bwd_inputs``.
 """
 from __future__ import annotations
 
@@ -37,11 +38,17 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = (("whisper_enc", 4, 1500, 1500, (6, 6, 64), False),
           ("qwen2vl_prefill", 4, 320, 320, (12, 2, 128), True),
           ("qwen3_prefill", 1, 300, 300, (32, 8, 128), True))
-# (key, index into chip_smoke.BWD_CASES, dtype): bf16 at the train shape
-# and whisper's encoder; the CUDA-core routes, f32 at the train shape and
-# bf16 at hd 192
-BWD_SHAPES = (("bwd_train", 0, "bfloat16"), ("bwd_whisper_enc", 1, "bfloat16"),
-              ("bwd_train_f32", 0, "float32"), ("bwd_hd192", 6, "bfloat16"))
+# (key, (B, Hq, Hkv, S, T, hd, causal), dtype): bf16 at the train shape
+# and whisper's encoder, f32 at the train shape, bf16 at hd 192 and at
+# nemotron's attention
+TRAIN = (2, 32, 8, 1024, 1024, 128, True)
+BWD_SHAPES = (("bwd_train", TRAIN, "bfloat16"),
+              ("bwd_whisper_enc", (2, 6, 6, 1500, 1500, 64, False),
+               "bfloat16"),
+              ("bwd_train_f32", TRAIN, "float32"),
+              ("bwd_hd192", (1, 12, 4, 256, 256, 192, True), "bfloat16"),
+              ("bwd_nemotron", (1, 96, 8, 4096, 4096, 192, True),
+               "bfloat16"))
 
 
 def launch_split(fn, calls=10):
@@ -84,8 +91,7 @@ def child(root: Path) -> None:
                                            seed=31)
         out[key] = chip_smoke.time_ms(
             lambda: attention_bshd(q, k, v, causal=causal), flush, iters=50)
-    for key, i, dtype in BWD_SHAPES:
-        _, B, Hq, Hkv, S, T, hd, causal, _ = chip_smoke.BWD_CASES[i]
+    for key, (B, Hq, Hkv, S, T, hd, causal), dtype in BWD_SHAPES:
         q, k, v, do = chip_smoke.bwd_inputs(B, Hq, Hkv, S, T, hd,
                                             getattr(torch, dtype), seed=9)
         o, lse = kernel.flash_attention(q, k, v, causal=causal,

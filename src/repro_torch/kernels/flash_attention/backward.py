@@ -1,6 +1,7 @@
 """Binding of the CUDA flash-attention backward kernel
 (``csrc/flash_bwd.cu``, built by ``kernels._build``, loaded with
-``ctypes``): warpgroup MMA for bf16 at hd <= 128, CUDA cores otherwise.
+``ctypes``): warpgroup MMA for bf16 (hd <= 256), register-tiled CUDA
+cores for f32.
 
 The kernel reads q, k, v, out and dout through their element strides
 (head-dim stride 1) and writes dq, dk, dv, allocated here contiguous in
@@ -10,8 +11,9 @@ row sums D = rowsum(dO * O) to a scratch, then dK / dV) without
 synchronising; a launch CUDA refuses raises.
 ``flash_attention_bwd.launches`` counts successful calls.
 
-``plan`` is the dK / dV launch's work list on the bf16 route, a function
-of shapes only: a key tile's items (one query tile of one query head of
+``plan`` is the dK / dV launch's work list on both routes, a function of
+shapes and of the route (``route``: the keys of a CTA, the queries of an
+item and the CTAs an SM holds): a key tile's items (one query tile of one query head of
 its group each) are split into runs of at most ``chunk`` items, one CTA
 each, largest runs first, so the causal tiles that see every query no
 longer set the launch's length. A tile split over several CTAs is summed
@@ -30,10 +32,7 @@ from repro_torch.kernels import _build, stream_scratch
 from repro_torch.kernels.flash_attention import kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
-KEY_TILE = 64           # keys of a dK / dV CTA
-QUERY_TILE = 32         # queries of a dK / dV item
 WAVES = 4               # runs planned per CTA the card holds at once
-CTAS_PER_SM = 2         # dK / dV CTAs an SM holds (registers, hd 128)
 MIN_CHUNK = 8           # items a run has at least, where a tile splits
 MAX_ENTRIES = 65535     # the launch's grid.y
 # the C signature: q, k, v, out, lse, dout, dq, dk, dv, dsum, plan, part,
@@ -43,21 +42,62 @@ MAX_ENTRIES = 65535     # the launch's grid.y
 ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 36 + [ctypes.c_void_p]
 
 
+class Route(NamedTuple):
+    """The kernels one (dtype, head dim) takes, as the dK / dV plan and the
+    scratch sizes see them (``csrc/flash_bwd.cu``'s WgCfg / F32Cfg)."""
+    wgmma: bool         # bf16 on warpgroup MMA, else f32 on CUDA cores
+    hdp: int            # hd zero-padded to 64, 128, 192 or 256
+    key_tile: int       # keys of a dK / dV CTA
+    query_tile: int     # queries of a dK / dV item
+    ctas_per_sm: int    # dK / dV CTAs an SM holds (registers, shared memory)
+
+
+def _hdp(hd: int) -> int:
+    if not 1 <= hd <= kernel.MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd}: the backward kernel takes "
+                         f"1..{kernel.MAX_HEAD_DIM}")
+    return -(-hd // 64) * 64
+
+
+def route(dtype, hd: int) -> Route:
+    """bf16: wgmma, 64-key tiles, items of 32 queries (64 at HDP 192),
+    two CTAs an SM at HDP 64 / 128 (one warpgroup, 82 KB) and one at 192
+    / 256 (two warpgroups, up to 255 registers a thread). f32: CUDA
+    cores, items of 32 queries, 64-key tiles at HDP 64 / 128 and 32-key
+    tiles at 192 / 256; two CTAs an SM at HDP 64 (88 KB), one above
+    (155-216 KB of f32 tiles). A head dim past 256 raises."""
+    hdp = _hdp(hd)
+    if dtype == torch.bfloat16:
+        return Route(True, hdp, 64, 64 if hdp == 192 else 32,
+                     2 if hdp <= 128 else 1)
+    if dtype == torch.float32:
+        return Route(False, hdp, 64 if hdp <= 128 else 32, 32,
+                     2 if hdp == 64 else 1)
+    raise ValueError(f"dtype {dtype}: float32 or bfloat16 only")
+
+
+# the qwen3-4b train shape's route, the plan's default
+BF16_128 = route(torch.bfloat16, 128)
+
+
 def wgmma_route(dtype, hd: int) -> bool:
-    """bf16 at hd <= 128 takes the warpgroup-MMA kernels (and a plan)."""
-    return dtype == torch.bfloat16 and hd <= 128
+    """bf16 at hd <= 256 takes the warpgroup-MMA kernels, f32 the CUDA-core
+    ones; a head dim past 256 raises."""
+    return route(dtype, hd).wgmma
 
 
-def query_tiles(kt: int, S: int, T: int, causal: bool, window: int) -> range:
-    """The query tiles (QUERY_TILE rows) with a row that sees a key of key
-    tile ``kt``, as the dK / dV kernel computes them."""
+def query_tiles(kt: int, S: int, T: int, causal: bool, window: int,
+                key_tile: int, query_tile: int) -> range:
+    """The query tiles (``query_tile`` rows) with a row that sees a key of
+    key tile ``kt`` (``key_tile`` keys), as the dK / dV kernels compute
+    them."""
     off = T - S
-    k0, k1 = kt * KEY_TILE, min(kt * KEY_TILE + KEY_TILE, T)
+    k0, k1 = kt * key_tile, min(kt * key_tile + key_tile, T)
     lo = max(0, k0 - off) if causal else 0
     hi = min(S, k1 - 1 + window - off) if window > 0 else S
     if lo >= hi:
         return range(0)
-    return range(lo // QUERY_TILE, -(-hi // QUERY_TILE))
+    return range(lo // query_tile, -(-hi // query_tile))
 
 
 class Plan(NamedTuple):
@@ -67,25 +107,30 @@ class Plan(NamedTuple):
     entries: tuple
     n_slots: int       # partial slots a (batch row, KV head) needs
     chunk: int         # items a run has at most
+    key_tile: int      # keys of a CTA
+    query_tile: int    # queries of an item
 
 
 def plan(B: int, Hq: int, Hkv: int, S: int, T: int, causal: bool,
-         window: int, sms: int = 132) -> Plan:
-    """The dK / dV launch's work list. Item i of key tile kt is query tile
-    ``query_tiles(kt)[i % n]`` of query head ``i // n`` of the group (n
-    tiles). Runs hold at most ``chunk`` items: the items of all tiles over
-    WAVES x the CTAs the card holds at once, at least MIN_CHUNK, so at
-    the qwen3-4b train shape key tile 0 (all 4 heads x 32 query tiles)
+         window: int, sms: int = 132, rt: Route = BF16_128) -> Plan:
+    """The dK / dV launch's work list on route ``rt``. Item i of key tile
+    kt is query tile ``query_tiles(kt, ...)[i % n]`` of query head ``i // n``
+    of the group (n tiles). Runs hold at most ``chunk`` items: the items
+    of all tiles over WAVES x the CTAs the card holds at once
+    (``rt.ctas_per_sm`` an SM), at least MIN_CHUNK, so at the qwen3-4b
+    train shape in bf16 key tile 0 (all 4 heads x 32 query tiles)
     becomes 4 runs of 32. A tile splits into equal runs (within one
     item); a tile with no item keeps one run, which writes zeros. Runs
     are ordered longest first (launched first), ties by key tile and
     split."""
     G = Hq // Hkv
-    n_kt = -(-T // KEY_TILE)
-    items = [G * len(query_tiles(kt, S, T, causal, window))
+    kt_n = rt.key_tile
+    n_kt = -(-T // kt_n)
+    items = [G * len(query_tiles(kt, S, T, causal, window, kt_n,
+                                 rt.query_tile))
              for kt in range(n_kt)]
     chunk = max(MIN_CHUNK,
-                -(-B * Hkv * sum(items) // (WAVES * CTAS_PER_SM * sms)))
+                -(-B * Hkv * sum(items) // (WAVES * rt.ctas_per_sm * sms)))
     while True:
         runs, slots = [], 0
         for kt, n_it in enumerate(items):
@@ -97,22 +142,23 @@ def plan(B: int, Hq: int, Hkv: int, S: int, T: int, causal: bool,
             break
         chunk *= 2
     runs.sort(key=lambda r: (r[1] - r[2], r[0], r[4]))
-    return Plan(tuple(runs), slots, chunk)
+    return Plan(tuple(runs), slots, chunk, kt_n, rt.query_tile)
 
 
 def owned(p: Plan, S: int, T: int, G: int, causal: bool, window: int):
     """(key tile, query head of the group, query tile) for every item of
     every run, as the kernel walks them: the coverage the tests check."""
     for kt, i0, i1, *_ in p.entries:
-        tiles = query_tiles(kt, S, T, causal, window)
+        tiles = query_tiles(kt, S, T, causal, window, p.key_tile,
+                            p.query_tile)
         for i in range(i0, i1):
             yield kt, i // len(tiles), tiles[i % len(tiles)]
 
 
 @functools.lru_cache(maxsize=64)
-def _plan_on(device, B, Hq, Hkv, S, T, causal, window):
+def _plan_on(device, B, Hq, Hkv, S, T, causal, window, rt):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    p = plan(B, Hq, Hkv, S, T, causal, window, sms)
+    p = plan(B, Hq, Hkv, S, T, causal, window, sms, rt)
     rows = [list(r) + [0, 0] for r in p.entries]
     return p, torch.tensor(rows, dtype=torch.int32, device=device)
 
@@ -157,29 +203,24 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         return dq.zero_(), dk.zero_(), dv.zero_()
     dsum = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    plan_ptr = part_ptr = cnt_ptr = None
-    n_entries = n_slots = 0
-    if wgmma_route(q.dtype, hd):
-        p, rows = _plan_on(q.device, B, Hq, Hkv, S, T, bool(causal),
-                           int(sliding_window))
-        hdp = 64 if hd <= 64 else 128
-        part, cnt = stream_scratch("flash_attention_bwd", q.device, stream, (
-            (B * Hkv * p.n_slots * 2 * KEY_TILE * hdp, torch.float32, False),
-            (B * Hkv * -(-T // KEY_TILE), torch.int32, True)))
-        plan_ptr, part_ptr, cnt_ptr = (rows.data_ptr(), part.data_ptr(),
-                                       cnt.data_ptr())
-        n_entries, n_slots = len(p.entries), p.n_slots
+    rt = route(q.dtype, hd)
+    p, rows = _plan_on(q.device, B, Hq, Hkv, S, T, bool(causal),
+                       int(sliding_window), rt)
+    part, cnt = stream_scratch("flash_attention_bwd", q.device, stream, (
+        (B * Hkv * p.n_slots * 2 * rt.key_tile * rt.hdp, torch.float32,
+         False),
+        (B * Hkv * -(-T // rt.key_tile), torch.int32, True)))
     strides = [s for t in (q, k, v, out, dout, dq, dk, dv)
                for s in t.stride()[:3]]
     vec = kernel.rows_aligned(q, k, v, out, dout, dq, dk, dv)
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                      dsum.data_ptr(), plan_ptr, part_ptr, cnt_ptr, B, Hq,
-                      Hkv, S, T, hd, *strides, int(bool(causal)),
-                      int(sliding_window),
-                      int(vec),
-                      kernel.DTYPES[q.dtype], n_entries, n_slots, stream)
+                      dsum.data_ptr(), rows.data_ptr(), part.data_ptr(),
+                      cnt.data_ptr(), B, Hq, Hkv, S, T, hd, *strides,
+                      int(bool(causal)), int(sliding_window), int(vec),
+                      kernel.DTYPES[q.dtype], len(p.entries), p.n_slots,
+                      stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t "
                            f"{err}")

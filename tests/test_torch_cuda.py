@@ -1314,7 +1314,13 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # of max |g|
 # then the bf16 route's edges: S and T one under and one over a multiple
 # of the 64-key tile and of the 32-query item, key tiles whose items the
 # plan splits over several CTAs (G 6 at hd 128, S 200; S 333), and a
-# 40-key window that spans items in different Q / dO stages
+# 40-key window that spans items in different Q / dO stages; then hd 160
+# / 192 / 256 (bf16 on two warpgroups in dK / dV and 32-key tiles in dQ;
+# f32 on 32-key tiles at hd > 128): S and T one over and one under the
+# 32-key dQ tile and the 32-query item (64 in bf16 at hd 192), GQA 12 /
+# 4, a sliding window,
+# non-causal S < T, and split tiles on both routes (hd 192 S 300: key
+# tile 0's 30 items; f32 hd 64 S 333 and hd 128 S 200 split too)
 BWD_GRID = [
     (2, 8, 2, 128, 100, 100, 0, True),
     (1, 6, 6, 64, 150, 150, 0, False),
@@ -1332,6 +1338,15 @@ BWD_GRID = [
     (1, 12, 2, 128, 200, 200, 0, True),
     (2, 8, 2, 64, 333, 333, 0, True),
     (1, 8, 2, 128, 160, 160, 40, True),
+    (1, 12, 4, 192, 33, 63, 0, True),
+    (1, 12, 4, 192, 97, 95, 24, True),
+    (1, 12, 4, 192, 300, 300, 0, True),
+    (1, 12, 4, 192, 65, 127, 0, True),
+    (1, 12, 4, 192, 63, 129, 16, True),
+    (2, 12, 4, 160, 129, 129, 0, True),
+    (1, 4, 1, 160, 31, 150, 0, False),
+    (1, 8, 2, 256, 65, 129, 0, True),
+    (1, 8, 2, 256, 200, 200, 40, True),
 ]
 
 
@@ -1380,7 +1395,7 @@ def test_flash_backward_matches_plain_version(cuda, dt, B, Hq, Hkv, hd, S,
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 100])
+@pytest.mark.parametrize("hd", [64, 100, 192, 256])
 def test_flash_backward_takes_unaligned_rows(cuda, dt, hd):
     """Rows that do not start 16-byte aligned (views one element into
     their buffers), and hd 100 (no whole 16-byte loads), take the
@@ -1408,12 +1423,14 @@ def test_flash_backward_takes_unaligned_rows(cuda, dt, hd):
 
 
 @pytest.mark.parametrize("hd,causal,win", [(128, True, 0), (64, False, 0),
-                                           (128, True, 40)])
+                                           (128, True, 40), (192, True, 0),
+                                           (256, True, 40)])
 def test_flash_backward_staging_routes_agree(cuda, hd, causal, win):
-    """bf16 at hd <= 128: the same values as contiguous tensors (16-byte
-    cp.async staging) and as views one element into their buffers
-    (element-wise staging) give the same gradients bit for bit, each
-    within BWD_TOL of the plain version; the plan splits key tile 0."""
+    """bf16 (one warpgroup in dK / dV at hd <= 128, two above): the same
+    values as contiguous tensors (16-byte cp.async staging) and as views
+    one element into their buffers (element-wise staging) give the same
+    gradients bit for bit, each within BWD_TOL of the plain version; the
+    plan splits key tile 0."""
     from repro_torch.kernels.flash_attention import backward
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref)
@@ -1429,7 +1446,9 @@ def test_flash_backward_staging_routes_agree(cuda, hd, causal, win):
     oq, ok_, ov, odo = (offset(t) for t in (q, k, v, do))
     assert flash_kernel.rows_aligned(q, k, v, do)
     assert not flash_kernel.rows_aligned(oq, ok_, ov, odo)
-    assert backward.plan(B, Hq, Hkv, S, T, causal, win).entries[0][3] > 1
+    rt = backward.route(torch.bfloat16, hd)
+    p = backward.plan(B, Hq, Hkv, S, T, causal, win, rt=rt)
+    assert all(r[3] > 1 for r in p.entries if r[0] == 0)
     out, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
                                             sliding_window=win,
                                             with_lse=True)

@@ -150,12 +150,14 @@ def test_refuse_grad_raises_only_when_autograd_records():
 
 
 # ------------------------------------------- the dK / dV launch's plan
-# (B, Hq, Hkv, S, T, causal, window): causal at the qwen3-4b train shape,
+# (B, Hq, Hkv, S, T, causal, window): causal at the qwen3-4b train shape
+# and at nemotron-4-340b's attention (96 / 8 heads at 4096 tokens),
 # non-causal at whisper's encoder and cross-attention, a sliding window,
 # S < T, S > T (keyless rows), ragged S / T one under and one over the
 # tiles, G 6
 PLAN_CASES = {
     "train": (2, 32, 8, 1024, 1024, True, 0),
+    "nemotron": (1, 96, 8, 4096, 4096, True, 0),
     "whisper-enc": (2, 6, 6, 1500, 1500, False, 0),
     "whisper-xattn": (2, 6, 6, 448, 1500, False, 0),
     "window": (1, 32, 8, 512, 512, True, 128),
@@ -167,44 +169,84 @@ PLAN_CASES = {
     "g6": (1, 12, 2, 320, 320, True, 0),
     "noncausal-window": (1, 4, 2, 33, 95, False, 7),
 }
+# the routes' plan constants: bf16 at HDP 128 (two CTAs an SM) and at
+# HDP 192 / 256 (one, two warpgroups; 64-query items at 192), f32 at HDP
+# 128 (64-key tiles) and at HDP 256 (32-key tiles)
+ROUTES = {
+    "bf16-hd128": backward.route(torch.bfloat16, 128),
+    "bf16-hd192": backward.route(torch.bfloat16, 192),
+    "bf16-hd256": backward.route(torch.bfloat16, 256),
+    "f32-hd128": backward.route(torch.float32, 128),
+    "f32-hd256": backward.route(torch.float32, 256),
+}
 
 
-def _visible_tiles(S, T, causal, window):
-    """(key tile, query tile) pairs with a visible (query, key) pair, by
-    brute force over the masks."""
-    i = np.arange(S)[:, None] + (T - S)
-    j = np.arange(T)[None, :]
-    m = np.ones((S, T), bool)
-    if causal:
-        m &= j <= i
-    if window:
-        m &= j > i - window
-    qi, kj = np.nonzero(m)
-    return set(zip((kj // backward.KEY_TILE).tolist(),
-                   (qi // backward.QUERY_TILE).tolist()))
+def _visible_tiles(S, T, causal, window, key_tile, query_tile):
+    """(key tile, query tile) pairs with a visible (query, key) pair, from
+    each query's visible keys j (j <= i + T - S when causal, j > i + T - S
+    - window with a window)."""
+    seen = set()
+    for i in range(S):
+        pos = i + T - S
+        lo = max(0, pos - window + 1) if window else 0
+        hi = min(T - 1, pos) if causal else T - 1
+        seen.update((kt, i // query_tile)
+                    for kt in range(lo // key_tile, hi // key_tile + 1)
+                    if lo <= hi)
+    return seen
 
 
+@pytest.mark.parametrize("dtype,hd,wgmma", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 112, True),
+    (torch.bfloat16, 128, True), (torch.bfloat16, 192, True),
+    (torch.bfloat16, 256, True), (torch.float32, 32, False),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.float32, 192, False), (torch.float32, 256, False)])
+def test_wgmma_route_truth_table(dtype, hd, wgmma):
+    """bf16 at every hd up to 256 takes the warpgroup-MMA kernels, f32
+    never; the route's plan constants follow the kernels' geometry."""
+    assert backward.wgmma_route(dtype, hd) is wgmma
+    rt = backward.route(dtype, hd)
+    assert rt.hdp == -(-hd // 64) * 64 and rt.hdp >= hd
+    wide = rt.hdp > 128
+    assert rt.key_tile == (32 if wide and not wgmma else 64)
+    assert rt.query_tile == (64 if wgmma and rt.hdp == 192 else 32)
+    assert rt.ctas_per_sm == (2 if rt.hdp <= (128 if wgmma else 64) else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wgmma_route_refuses_head_dims_past_256(dtype):
+    with pytest.raises(ValueError, match="head dim"):
+        backward.wgmma_route(dtype, 264)
+
+
+@pytest.mark.parametrize("rt", list(ROUTES))
 @pytest.mark.parametrize("name", list(PLAN_CASES))
-def test_bwd_plan_covers_every_visible_pair_once(name):
+def test_bwd_plan_covers_every_visible_pair_once(name, rt):
     B, Hq, Hkv, S, T, causal, window = PLAN_CASES[name]
     G = Hq // Hkv
-    p = backward.plan(B, Hq, Hkv, S, T, causal, window)
+    route = ROUTES[rt]
+    p = backward.plan(B, Hq, Hkv, S, T, causal, window, rt=route)
+    assert (p.key_tile, p.query_tile) == (route.key_tile, route.query_tile)
     got = list(backward.owned(p, S, T, G, causal, window))
     assert len(got) == len(set(got))
-    want = {(kt, g, qt) for kt, qt in _visible_tiles(S, T, causal, window)
+    want = {(kt, g, qt)
+            for kt, qt in _visible_tiles(S, T, causal, window,
+                                         route.key_tile, route.query_tile)
             for g in range(G)}
     assert set(got) == want
     # every key tile has a run (one that sees nothing writes zeros)
-    assert {r[0] for r in p.entries} == set(range(-(-T // 64)))
+    assert {r[0] for r in p.entries} == set(range(-(-T // route.key_tile)))
 
 
+@pytest.mark.parametrize("rt", list(ROUTES))
 @pytest.mark.parametrize("name", list(PLAN_CASES))
-def test_bwd_plan_runs_are_balanced_and_largest_first(name):
+def test_bwd_plan_runs_are_balanced_and_largest_first(name, rt):
     """Runs hold at most ``chunk`` items, a tile's runs differ by at most
     one item, they launch longest first, and a split tile's runs have
     consecutive slots from its first slot."""
     B, Hq, Hkv, S, T, causal, window = PLAN_CASES[name]
-    p = backward.plan(B, Hq, Hkv, S, T, causal, window)
+    p = backward.plan(B, Hq, Hkv, S, T, causal, window, rt=ROUTES[rt])
     sizes = [i1 - i0 for _, i0, i1, *_ in p.entries]
     assert max(sizes) <= p.chunk and sizes == sorted(sizes, reverse=True)
     slots = set()
@@ -230,12 +272,30 @@ def test_bwd_plan_splits_the_causal_train_shape():
     longer set the launch's length: the longest run is at most a quarter
     of key tile 0's items (4 heads x 32 query tiles), and the runs number
     at least the CTAs 132 SMs hold at once."""
+    rt = backward.BF16_128
     p = backward.plan(2, 32, 8, 1024, 1024, True, 0, sms=132)
     assert max(r[2] - r[1] for r in p.entries) <= 128 // 4
-    assert len(p.entries) * 2 * 8 >= backward.CTAS_PER_SM * 132
+    assert len(p.entries) * 2 * 8 >= rt.ctas_per_sm * 132
     # whisper's encoder: every tile alike, split so the card fills
     p = backward.plan(2, 6, 6, 1500, 1500, False, 0, sms=132)
-    assert len(p.entries) * 12 >= backward.WAVES * backward.CTAS_PER_SM * 132
+    assert len(p.entries) * 12 >= backward.WAVES * rt.ctas_per_sm * 132
+
+
+@pytest.mark.parametrize("rt", list(ROUTES))
+@pytest.mark.parametrize("name", ["train", "nemotron"])
+def test_bwd_plan_splits_causal_key_tile_0(name, rt):
+    """On every route, at the causal train shapes, key tile 0 (which every
+    query sees) is split into runs of at most ``chunk`` items, fewer than
+    it has: the tile that sees the most queries no longer sets the
+    launch's length, and the runs fill every CTA slot of the card."""
+    B, Hq, Hkv, S, T, causal, window = PLAN_CASES[name]
+    route = ROUTES[rt]
+    p = backward.plan(B, Hq, Hkv, S, T, causal, window, sms=132, rt=route)
+    tile0 = [r for r in p.entries if r[0] == 0]
+    items0 = sum(r[2] - r[1] for r in tile0)
+    assert len(tile0) > 1 and tile0[0][3] == len(tile0)
+    assert max(r[2] - r[1] for r in p.entries) <= p.chunk < items0
+    assert len(p.entries) * B * Hkv >= route.ctas_per_sm * 132
 
 
 def test_stream_scratch_is_cached_per_stream_and_grows():
