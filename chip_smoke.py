@@ -14,9 +14,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    (wgmma: the bf16 backward) and asynchronous copies (``LDGSTS`` /
    ``UTMALDG``). The flash backward must show ``HGMMA`` in every bf16
    instantiation (hd 64 to 256), ``LDGSTS`` in every f32 one, and no
-   spill stores in any; the flash backward's per-launch device times
-   (``bwd_launch_split``, before any other trace), printed with the
-   timing rows.
+   spill stores in any; nor may any WKV or selective-scan backward
+   instantiation spill, or the scan forwards' checkpoint instantiations;
+   the flash backward's and the scan backwards' per-launch device times
+   (``bwd_launch_split``, ``scan_bwd_launch_split``, before any other
+   trace), printed with the timing rows.
 3. Kernel vs plain version on the card: ``paged_window_attention`` at
    the full qwen3-4b head shape (Hq 32, Hkv 8, hd 128, bs 16, B 8) for
    S in {1, 4, 64}, ragged base lengths, one sliding window, f32
@@ -198,13 +200,18 @@ Phases (any failure exits non-zero; no result line is printed then):
    keyless rows; the forward's lse within 1e-4 / 1e-3 of the plain
    log-sum-exp and -inf exactly where a row sees no key; the autograd
    route (``ops.flash_attention`` on inputs that require grad) bitwise
-   equal to the direct kernel calls. Then the WKV and selective-scan
-   backward kernels (``wkv_bwd``, ``ssm_scan_bwd``, f32) against their
-   plain versions (``wkv_bwd_ref``, ``ssm_scan_bwd_ref``, the explicit
-   reverse-time formulas) and against autograd of the plain forwards,
-   on the same inputs and non-zero cotangents of the output and the
-   final state: WKV at rwkv6-1.6b's train shape (B 2, T 1024, 32 heads
-   of 64), B 8 T 1, T 17 (the 16-step chunk edge), T 300 and hd 32, with
+   equal to the direct kernel calls. Then the scans' training forwards
+   (``checkpoints=True``): their checkpoints (the state every 8 steps)
+   against the plain states (``wkv_checkpoints_ref``,
+   ``ssm_scan_checkpoints_ref``) within the scan tolerance, out and final
+   state bitwise the serving forward's; and the WKV and selective-scan
+   backward kernels (``wkv_bwd``, ``ssm_scan_bwd``, f32) fed those
+   checkpoints, against their plain versions (``wkv_bwd_ref``,
+   ``ssm_scan_bwd_ref``, the explicit reverse-time formulas) and against
+   autograd of the plain forwards, on the same inputs and non-zero
+   cotangents of the output and the final state: WKV at rwkv6-1.6b's
+   train shape (B 2, T 1024, 32 heads of 64), B 8 T 1, T 17 (across the
+   8-step chunk edges), T 300 and hd 32, with
    decays in the model's range (exact zeros among them); the selective
    scan at hymba-1.5b's train shape (B 2, T 1024, d_inner 3200, N 16),
    B 8 T 1, T 17, T 300 and d_inner 3,204 (a ragged channel tail), with
@@ -290,9 +297,14 @@ attention at its training length (B 1, S = T = 4096, 96 / 8 heads of
 (bf16), and ``train_launches`` adds 13c's and 13f's (f32,
 ``train_f32_launches``). The WKV and selective-scan backward rows (``wkv_bwd``,
 ``ssm_scan_bwd``) carry their time at rwkv6-1.6b's and hymba-1.5b's
-train shapes beside their plain versions and bounds (library none), and
-their launches in 13e; the scan forward rows add their 13e launches
-(``train_launches``). The flash row adds its launches in 13b and 13e
+train shapes beside their plain versions and bounds (library none), their
+launches in 13e, the forward's time at the train shape as serving calls
+it and with checkpoints beside its bound and its plain version
+(``train_fwd_ms``, ``train_fwd_ck_ms``, ``train_fwd_bound_*``,
+``train_fwd_plain_ms``), the autograd forward +
+backward pair (``train_pair_ms``) and the device time of each of their
+launches per call (``launch_split_ms``, profiler); the scan forward rows
+add their 13e launches (``train_launches``). The flash row adds its launches in 13b and 13e
 (``train_launches``) and the forward's time with and
 without the lse write at the train shape and at qwen3-4b's prefill
 (``train_fwd_ms`` / ``train_fwd_lse_ms``, ``prefill_fwd_*``) beside the
@@ -377,8 +389,10 @@ def _demangle(names, tool_dir):
 
 def print_ptxas(build_dir, tool_dir):
     """Registers and spills of every compiled kernel, from each source's
-    ``-Xptxas -v`` log. Raises if a flash backward instantiation spills
-    (its register plan keeps every accumulator in registers)."""
+    ``-Xptxas -v`` log. Raises if a flash backward, WKV backward or
+    selective-scan backward instantiation spills, or a scan forward's
+    checkpoint instantiation (the training forward: template flag true)
+    does (their register plans keep every accumulator in registers)."""
     spilled = []
     for log in sorted(Path(build_dir).glob("*.log")):
         entries, name = [], None
@@ -391,14 +405,17 @@ def print_ptxas(build_dir, tool_dir):
                 regs = line.split("Used")[1].split("registers")[0].strip()
                 entries.append((name, regs, spill))
                 name = None
-        for (_, regs, spill), short in zip(
+        for (name, regs, spill), short in zip(
                 entries, _demangle([e[0] for e in entries], tool_dir)):
             print(f"  ptxas {log.stem}: {short}: {regs} registers; {spill}")
             m = re.search(r"(\d+) bytes spill stores", spill)
-            if log.stem == "flash_bwd" and (not m or int(m.group(1))):
-                spilled.append(f"{short}: {spill}")
+            checked = log.stem in ("flash_bwd", "wkv_bwd", "ssm_scan_bwd") \
+                or (log.stem in ("wkv", "ssm_scan")
+                    and ("true" in short or "Lb1E" in name))
+            if checked and (not m or int(m.group(1))):
+                spilled.append(f"{log.stem} {short}: {spill}")
     if spilled:
-        raise AssertionError("flash backward instantiations spill: "
+        raise AssertionError("instantiations that must not spill do: "
                              + "; ".join(spilled))
 
 
@@ -2543,8 +2560,12 @@ def ssm_bwd_case(Bq, T, di, N, *, seed=0):
     return [u, dt, Bm, Cm, A.contiguous().cuda(), D, s0], cots
 
 
-def check_scan_backward(name, bwd, bwd_ref, fwd_ref, case, shapes, labels):
-    """Phase 13a: the backward kernel ``bwd`` at each shape against its
+def check_scan_backward(name, fwd, bwd, bwd_ref, fwd_ref, ck_ref, case,
+                        shapes, labels):
+    """Phase 13a: the training forward ``fwd`` (``checkpoints=True``) at
+    each shape, its checkpoints against the plain states ``ck_ref`` (within
+    ``scan_tol``) and its out and final state bitwise the serving call's;
+    then the backward kernel ``bwd`` fed those checkpoints against its
     plain version ``bwd_ref`` and against autograd of the plain forward
     ``fwd_ref`` on the same inputs and cotangents: each gradient within
     BWD_TOL (f32) of its largest |g|, two calls bitwise equal, nothing
@@ -2553,8 +2574,18 @@ def check_scan_backward(name, bwd, bwd_ref, fwd_ref, case, shapes, labels):
     worst = 0.0
     for shape in shapes:
         args, cots = case(*shape, seed=shape[1] + 7)
-        got = bwd(*args, *cots)
-        again = bwd(*args, *cots)
+        out, st, ck = fwd(*args, checkpoints=True)
+        out2, st2 = fwd(*args)
+        if not (torch.equal(out, out2) and torch.equal(st, st2)):
+            raise AssertionError(f"{name} {shape}: the training forward's "
+                                 f"out / state differ from serving's")
+        want_ck = ck_ref(*args)
+        ck_err = float((ck - want_ck).abs().max()) if ck.numel() else 0.0
+        if ck.shape != want_ck.shape or not ck_err <= scan_tol(shape[1]):
+            raise AssertionError(f"{name} {shape}: checkpoints {ck.shape} "
+                                 f"off by {ck_err}")
+        got = bwd(*args, ck, *cots)
+        again = bwd(*args, ck, *cots)
         want = bwd_ref(*args, *cots)
         leaves = [t.clone().requires_grad_(True) for t in args]
         auto = torch.autograd.grad(fwd_ref(*leaves), leaves, cots)
@@ -2578,12 +2609,15 @@ def check_scan_backward(name, bwd, bwd_ref, fwd_ref, case, shapes, labels):
                 raise AssertionError(f"{name} {shape}: d{label} off by "
                                      f"{err} (plain backward) / {err_auto} "
                                      f"(autograd), largest |g| {scale}")
-        print(f"{name} backward {shape}: of each gradient's largest |g|, "
-              + " / ".join(f"d{x}" for x in labels) + " "
+        n_ck = ck.shape[2 if name == "wkv" else 1]
+        print(f"{name} backward {shape}: {n_ck} checkpoints within "
+              f"{ck_err:.1e} of the plain states, out and state bitwise "
+              f"serving's; of each gradient's largest "
+              f"|g|, " + " / ".join(f"d{x}" for x in labels) + " "
               + " / ".join(f"{e:.1e}" for e in errs)
               + f" (against the plain backward and autograd of the plain "
               f"forward; tol {tol}); two calls bitwise equal")
-        del got, again, want, auto, leaves
+        del got, again, want, auto, leaves, ck, want_ck
     torch.cuda.empty_cache()
     return worst
 
@@ -2614,27 +2648,81 @@ def ssm_bwd_bound(Bq, T, di, N):
     return _f32_bound(nbytes, 23 * Bq * T * di * N)
 
 
-def time_scan_backward(wkv_bwd, wkv_bwd_ref, ssm_bwd, ssm_bwd_ref, flush):
-    """Each scan backward kernel at its train shape beside its plain
-    version and its bound; no PyTorch call computes either gradient.
-    Returns {name: (kernel ms, plain ms, bound ms, bound by)}."""
+def time_scan_backward(fwds, bwds, refs, fwd_refs, ops, flush):
+    """Each scan's training pieces at its train shape: the backward kernel
+    fed the forward's checkpoints beside its plain version and its bound
+    (no PyTorch call computes either gradient); the serving forward and
+    the training forward (with checkpoints) beside the forward's bound and
+    its plain version; the autograd pair (the op on inputs that require
+    grad, then ``torch.autograd.grad`` of its output). ``fwds``, ``bwds``,
+    ``refs``, ``fwd_refs`` and ``ops`` hold (wkv, selective scan). Returns
+    {name: (kernel ms, plain ms, bound ms, bound by, forward ms, forward
+    with checkpoints ms, forward bound ms, forward bound by, pair ms,
+    plain forward ms)}."""
     rows = {}
-    for name, bwd, ref, case, bound_fn, shape in (
-            ("wkv_bwd", wkv_bwd, wkv_bwd_ref, wkv_bwd_case, wkv_bwd_bound,
-             WKV_TRAIN),
-            ("ssm_scan_bwd", ssm_bwd, ssm_bwd_ref, ssm_bwd_case,
-             ssm_bwd_bound, SSM_TRAIN)):
+    for (name, fwd, bwd, ref, fwd_ref, op, case, bound_fn, fbound_fn,
+         shape) in (
+            ("wkv_bwd", fwds[0], bwds[0], refs[0], fwd_refs[0], ops[0],
+             wkv_bwd_case, wkv_bwd_bound, wkv_bound, WKV_TRAIN),
+            ("ssm_scan_bwd", fwds[1], bwds[1], refs[1], fwd_refs[1], ops[1],
+             ssm_bwd_case, ssm_bwd_bound, ssm_bound, SSM_TRAIN)):
         args, cots = case(*shape, seed=11)
-        k_ms = time_ms(lambda: bwd(*args, *cots), flush, iters=10, warmup=2)
+        ck = fwd(*args, checkpoints=True)[2]
+        k_ms = time_ms(lambda: bwd(*args, ck, *cots), flush, iters=10,
+                       warmup=2)
         p_ms = time_ms(lambda: ref(*args, *cots), flush, iters=3, warmup=1)
+        f_ms = time_ms(lambda: fwd(*args), flush)
+        fc_ms = time_ms(lambda: fwd(*args, checkpoints=True), flush)
+        pf_ms = time_ms(lambda: fwd_ref(*args), flush, iters=3, warmup=1)
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        pair_ms = time_ms(lambda: torch.autograd.grad(
+            op(*leaves)[0], leaves, cots[0]), flush, iters=10, warmup=2)
         b_ms, b_by = bound_fn(*shape)
-        rows[name] = (k_ms, p_ms, b_ms, b_by)
+        fb_ms, fb_by = fbound_fn(*shape)
+        rows[name] = (k_ms, p_ms, b_ms, b_by, f_ms, fc_ms, fb_ms, fb_by,
+                      pair_ms, pf_ms)
         print(f"{name} {shape} (train shape): kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), latency floor "
               f"of {shape[1]} dependent steps {step_floor_ms(shape[1]):.5f} "
-              f"ms; no library call computes it")
-        del args, cots
+              f"ms; no library call computes it. Forward: serving "
+              f"{f_ms:.4f} ms, with checkpoints {fc_ms:.4f} ms "
+              f"({ck.numel() * 4 / 1e6:.1f} MB), bound {fb_ms:.5f} ms "
+              f"({fb_by}), plain {pf_ms:.4f} ms; autograd forward + "
+              f"backward {pair_ms:.4f} ms")
+        del args, cots, ck, leaves
+        torch.cuda.empty_cache()
     return rows
+
+
+def scan_bwd_launch_split(fwds, bwds, calls=10):
+    """Device ms per backward call of each kernel the WKV and
+    selective-scan backwards launch at their train shapes, from
+    ``torch.profiler`` over ``calls`` calls, as ``bwd_launch_split`` does
+    for flash (and, like it, before any other trace). Returns {name:
+    {kernel: ms}}."""
+    from torch.profiler import ProfilerActivity, profile
+    split = {}
+    for name, fwd, bwd, case, shape in (
+            ("wkv_bwd", fwds[0], bwds[0], wkv_bwd_case, WKV_TRAIN),
+            ("ssm_scan_bwd", fwds[1], bwds[1], ssm_bwd_case, SSM_TRAIN)):
+        args, cots = case(*shape, seed=11)
+        ck = fwd(*args, checkpoints=True)[2]
+        bwd(*args, ck, *cots)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                bwd(*args, ck, *cots)
+            torch.cuda.synchronize()
+        rows = {}
+        for t, e in device_rows(prof):
+            key = e.key.replace("(anonymous namespace)::", "") \
+                .removeprefix("void ").split("(")[0]
+            rows[key] = rows.get(key, 0.0) + t / 1e3 / calls
+        split[name] = rows
+        del args, cots, ck
+    torch.cuda.empty_cache()
+    return split
 
 
 def _zero(fns):
@@ -3005,11 +3093,14 @@ def main() -> int:
     from repro_torch.kernels.rwkv_scan import backward as wkv_bwd
     from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
     from repro_torch.kernels.rwkv_scan.ops import wkv
-    from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref, wkv_ref
+    from repro_torch.kernels.rwkv_scan.ref import (wkv_bwd_ref,
+                                                   wkv_checkpoints_ref,
+                                                   wkv_ref)
     from repro_torch.kernels.ssm_scan import backward as ssm_bwd
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     from repro_torch.kernels.ssm_scan.ops import selective_scan
     from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+                                                  ssm_scan_checkpoints_ref,
                                                   ssm_scan_ref)
     from repro_torch.models.model import build_model
     from repro_torch.serve import prng, sampling
@@ -3025,6 +3116,9 @@ def main() -> int:
     print_sass_checks(libs, tool_dir)
     bwd_split = bwd_launch_split(flash_kernel.flash_attention,
                                  flash_bwd.flash_attention_bwd)
+    scan_split = scan_bwd_launch_split(
+        (wkv_kernel.wkv_scan, ssm_kernel.ssm_scan),
+        (wkv_bwd.wkv_bwd, ssm_bwd.ssm_scan_bwd))
 
     phase("3. kernels vs plain versions on the card (TF32 off)")
     max_err = check_kernel_vs_plain(paged_window_attention)
@@ -3465,11 +3559,15 @@ def main() -> int:
                                    flash_attention, flash_attention_ref,
                                    flash_attention_bwd_ref)
     wkv_bwd_err = check_scan_backward(
-        "wkv", wkv_bwd.wkv_bwd, wkv_bwd_ref, wkv_ref, wkv_bwd_case,
-        WKV_BWD_SHAPES, ("r", "k", "v", "w", "u", "state"))
+        "wkv", wkv_kernel.wkv_scan, wkv_bwd.wkv_bwd, wkv_bwd_ref, wkv_ref,
+        lambda r, k, v, w, u, s: wkv_checkpoints_ref(r, k, v, w, s),
+        wkv_bwd_case, WKV_BWD_SHAPES, ("r", "k", "v", "w", "u", "state"))
     ssm_bwd_err = check_scan_backward(
-        "selective_scan", ssm_bwd.ssm_scan_bwd, ssm_scan_bwd_ref,
-        ssm_scan_ref, ssm_bwd_case, SSM_BWD_SHAPES,
+        "selective_scan", ssm_kernel.ssm_scan, ssm_bwd.ssm_scan_bwd,
+        ssm_scan_bwd_ref, ssm_scan_ref,
+        lambda u, dt, Bm, Cm, A, D, s: ssm_scan_checkpoints_ref(u, dt, Bm,
+                                                                A, s),
+        ssm_bwd_case, SSM_BWD_SHAPES,
         ("u", "dt", "B", "C", "A", "D", "state"))
     check_grad_refusals((paged_window_attention, decode_attention,
                          wkv_kernel.wkv_scan, ssm_kernel.ssm_scan),
@@ -3627,9 +3725,15 @@ def main() -> int:
     bwd_times, fwd_lse_times = time_flash_backward(
         flash_kernel.flash_attention, flash_bwd.flash_attention_bwd,
         flash_attention_ref, flash_attention_bwd_ref, flush, bwd_split)
-    scan_bwd_times = time_scan_backward(wkv_bwd.wkv_bwd, wkv_bwd_ref,
-                                        ssm_bwd.ssm_scan_bwd,
-                                        ssm_scan_bwd_ref, flush)
+    scan_bwd_times = time_scan_backward(
+        (wkv_kernel.wkv_scan, ssm_kernel.ssm_scan),
+        (wkv_bwd.wkv_bwd, ssm_bwd.ssm_scan_bwd),
+        (wkv_bwd_ref, ssm_scan_bwd_ref), (wkv_ref, ssm_scan_ref),
+        (wkv, selective_scan), flush)
+    for name, launches in scan_split.items():
+        shown = ", ".join(f"{n} {ms:.4f} ms" for n, ms in launches.items())
+        print(f"{name} launches at the train shape (profiler, per call): "
+              f"{shown or 'no device time recorded: not measured'}")
     dec_times = {}
     for arch, (Hq, Hkv, hd) in (("hymba-1.5b", HEAD_SHAPES[1]),
                                 ("qwen3-4b", HEAD_SHAPES[0])):
@@ -3732,7 +3836,8 @@ def main() -> int:
              "ssm_scan/kernel.py:36", "_ssm_kernel's function, which the "
              "reference takes through XLA's lax.scan "
              "(src/repro/models/ssm.py:34)", ssm_bwd_err)):
-        k_ms, p_ms, b_ms, b_by = scan_bwd_times[name]
+        (k_ms, p_ms, b_ms, b_by, f_ms, fc_ms, fb_ms, fb_by, pair_ms,
+         pf_ms) = scan_bwd_times[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{source}",
@@ -3740,7 +3845,11 @@ def main() -> int:
             "replaces_note": f"the gradient of {note}",
             "launches": sum(n[name] for n in train_launches.values()),
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "train_fwd_ms": f_ms, "train_fwd_ck_ms": fc_ms,
+            "train_fwd_bound_ms": fb_ms, "train_fwd_bound_by": fb_by,
+            "train_fwd_plain_ms": pf_ms,
+            "train_pair_ms": pair_ms, "launch_split_ms": scan_split[name]})
     for name in ("wkv_scan", "ssm_scan"):
         next(r for r in rows if r["name"] == name).update(
             train_launches=sum(n[name] for n in train_launches.values()))

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's flash forward and backward in two checkouts on one
-card, in turns.
+"""Time the port's flash forward and backward, and the WKV6 and
+selective-scan training and serving calls, in two checkouts on one card,
+in turns.
 
     python3 scripts/torch_flash_ab.py OTHER_CHECKOUT [--rounds 2]
+        [--only flash|scan]
 
 OTHER_CHECKOUT is another tree of this repository (for instance the
 parent commit unpacked with ``git archive``). Each round runs OTHER,
@@ -20,10 +22,18 @@ encoder (B 2, S = T = 1500, 6 / 6 of 64, non-causal), in f32 at the
 train shape, in bf16 at hd 192 (B 1, S = T = 256, 12 / 4 heads) and at
 nemotron-4-340b's attention (B 1, S = T = 4096, 96 / 8 heads of 192,
 causal), each with the device time of each of its launches per call
-(``torch.profiler``, ``*_launches``), then the card's name and power
-limit. It needs one CUDA device; both checkouts need
-``chip_smoke.time_ms``, ``chip_smoke._frontend_qkv`` and
-``chip_smoke.bwd_inputs``.
+(``torch.profiler``, ``*_launches``); then the scans, f32: the autograd
+forward + backward pair (``ops.wkv`` / ``ops.selective_scan`` on inputs
+that require grad, then ``torch.autograd.grad`` of the output, median of
+20) at rwkv6-1.6b's train shape (B 2, T 1024, 32 heads of 64) and
+hymba-1.5b's (B 2, T 1024, d_inner 3200, N 16), with the device time of
+each launch of a pair (``*_pair_launches``), and the serving forward
+(``kernel.wkv_scan`` / ``kernel.ssm_scan``, median of 50) at a 300-token
+prefill (B 1) and at the train shape; then the card's name and power
+limit. ``--only`` times one of the two groups. It needs one CUDA device;
+both checkouts need ``chip_smoke.time_ms``, ``chip_smoke._frontend_qkv``,
+``chip_smoke.bwd_inputs``, ``chip_smoke.wkv_bwd_case`` and
+``chip_smoke.ssm_bwd_case``.
 """
 from __future__ import annotations
 
@@ -49,6 +59,12 @@ BWD_SHAPES = (("bwd_train", TRAIN, "bfloat16"),
               ("bwd_hd192", (1, 12, 4, 256, 256, 192, True), "bfloat16"),
               ("bwd_nemotron", (1, 96, 8, 4096, 4096, 192, True),
                "bfloat16"))
+# the scans: (key, shape); the train shapes, then a 300-token prefill
+SCAN_TRAIN = (("wkv", (2, 1024, 32, 64)), ("ssm", (2, 1024, 3200, 16)))
+SCAN_SERVE = (("wkv_t300", "wkv", (1, 300, 32, 64)),
+              ("wkv_train", "wkv", (2, 1024, 32, 64)),
+              ("ssm_t300", "ssm", (1, 300, 3200, 16)),
+              ("ssm_train", "ssm", (2, 1024, 3200, 16)))
 
 
 def launch_split(fn, calls=10):
@@ -74,7 +90,36 @@ def launch_split(fn, calls=10):
     return split
 
 
-def child(root: Path) -> None:
+def scans(chip_smoke, flush, out) -> None:
+    """The scans' autograd pairs at the train shapes and serving forwards
+    into ``out``."""
+    import torch
+    from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv_scan.ops import wkv
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    ops = {"wkv": (wkv, chip_smoke.wkv_bwd_case, wkv_kernel.wkv_scan),
+           "ssm": (selective_scan, chip_smoke.ssm_bwd_case,
+                   ssm_kernel.ssm_scan)}
+    for key, shape in SCAN_TRAIN:
+        op, case, _ = ops[key]
+        args, cots = case(*shape, seed=11)
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        pair = lambda: torch.autograd.grad(op(*leaves)[0], leaves, cots[0])
+        out[f"{key}_pair"] = chip_smoke.time_ms(pair, flush, iters=20)
+        out[f"{key}_pair_launches"] = launch_split(pair)
+        del args, cots, leaves
+    for key, which, shape in SCAN_SERVE:
+        _, case, fwd = ops[which]
+        args, _ = case(*shape, seed=12)
+        with torch.no_grad():
+            out[key] = chip_smoke.time_ms(lambda: fwd(*args), flush,
+                                          iters=50)
+        del args
+    torch.cuda.empty_cache()
+
+
+def child(root: Path, only: str | None) -> None:
     sys.path[:0] = [str(root), str(root / "src")]
     import torch
 
@@ -86,6 +131,11 @@ def child(root: Path) -> None:
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
     out = {}
+    if only != "flash":
+        scans(chip_smoke, flush, out)
+    if only == "scan":
+        print(json.dumps({"tree": str(root), **out}), flush=True)
+        return
     for key, B, S, T, heads, causal in SHAPES:
         q, k, v = chip_smoke._frontend_qkv(B, S, T, heads, torch.bfloat16,
                                            seed=31)
@@ -110,10 +160,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", nargs="?")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", choices=("flash", "scan"))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(Path(args.child).resolve())
+        child(Path(args.child).resolve(), args.only)
         return 0
     if not args.other:
         ap.error("name the other checkout")
@@ -121,8 +172,9 @@ def main() -> int:
     for _ in range(args.rounds):
         for tree in (other, ROOT, ROOT, other):
             r = subprocess.run([sys.executable, __file__, "--child",
-                                str(tree)], capture_output=True, text=True,
-                               timeout=900)
+                                str(tree), *(["--only", args.only]
+                                             if args.only else [])],
+                               capture_output=True, text=True, timeout=900)
             if r.returncode:
                 print(r.stdout + r.stderr, file=sys.stderr)
                 return r.returncode

@@ -1,7 +1,8 @@
 // Shared device helpers of the port's kernels: cp.async with zero fill
-// (16 bytes for the attention kernels' K/V tiles and the WKV scan's rows,
-// 4 bytes for the scans' unaligned rows), the scans' transpose-reduce of
-// per-step partials over a group of lanes, and for the tensor-core attention
+// (16 bytes for the attention kernels' K/V tiles and the scans' rows, 4
+// bytes for the scans' unaligned rows), the scans' transpose-reduce of
+// per-step partials over a group of lanes, the scan backwards' split
+// cluster barrier and compile-time flag, and for the tensor-core attention
 // kernels (flash_attention/csrc/flash.cu,
 // paged_attention/csrc/paged_window.cu) ldmatrix, mma.sync m16n8k16
 // (bf16 in, f32 accumulate) and the XOR-swizzled tile layout they read.
@@ -54,6 +55,24 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// Barriers of the thread-block cluster, split so that a CTA can work
+// between its arrival and its wait (release / acquire: shared-memory
+// writes before the arrival are seen by peers after their wait).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A compile-time bool as a type: a generic lambda called with Flag<true>{}
+// or Flag<false>{} compiles one body twice (say, with and without a
+// bounds check) and picks one at run time.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
 
 // Barrier `id` (1..15) over the `threads` threads of a warp group.
 __device__ __forceinline__ void group_sync(int id, int threads) {

@@ -70,6 +70,13 @@
 // scheduler leaves the chain's latencies exposed (6.3x the bound). The
 // chunked tensor-core form of the reference's note needs TF32 / bf16
 // operands and divides by cumulative decays, which underflow: not used.
+// Training: the checkpoint instantiation (CK, ops.WKV's forward) also
+// writes the state every 8 steps, transposed, for wkv_bwd.cu, which walks
+// back from them: 133 MB a layer at rwkv6-1.6b's train shape (B 2, T
+// 1024), kept from a layer's forward (under remat its recompute) to its
+// backward; 0.1234 ms there against the serving call's 0.1037
+// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W). The serving
+// instantiation is unchanged.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -87,6 +94,7 @@ constexpr int kThreads = 128;
 constexpr int kE = 4;       // rows of a column a lane holds
 constexpr int kC = 2;       // columns a lane holds
 constexpr int kChunk = 16;  // time steps a staged chunk above T 1
+constexpr int kCk = 8;      // steps between the training forward's checkpoints
 
 // L lanes a column pair, TC time steps a staged chunk: 1 at T 1 (one
 // stage, the whole scan), else kChunk (a ring of two stages).
@@ -106,13 +114,19 @@ struct Geo {
   static constexpr int kSmem = 4 * (kStages * kStage + kCh * kSs);
 };
 
-template <int L, int TC>
+// CK: the training forward, which also writes the state after every 8th
+// step short of the last, S_{8 c} for c = 1 .. ceil(T / 8) - 1, to ck (B,
+// H, ceil(T / 8) - 1, hd, hd) for wkv_bwd.cu, transposed (S[i][j] at [...,
+// j, i]): a lane's 4 rows of a column are one 16-byte store, and a
+// half-warp writes a column's 256 bytes at hd 64. The serving forward (CK
+// false) writes nothing more.
+template <int L, int TC, bool CK>
 __global__ void __launch_bounds__(kThreads, TC == 1 ? 8 : 1)
     wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ w,
                const float* __restrict__ u, const float* state,
-               float* __restrict__ out, float* state_out, int T, int H,
-               int hd, int vec) {
+               float* __restrict__ out, float* state_out,
+               float* __restrict__ ck, int T, int H, int hd, int vec) {
   using Gm = Geo<L, TC>;
   constexpr int HDP = Gm::kHdp, CH = Gm::kCh, W = Gm::kW, SS = Gm::kSs;
   constexpr int kTC = TC, kK = Gm::kK, kStages = Gm::kStages;
@@ -270,14 +284,42 @@ __global__ void __launch_bounds__(kThreads, TC == 1 ? 8 : 1)
         part[x * kTC + tt] = acc;
       }
     };
+    // CK: S after step t0 + tt, tt + 1 a multiple of kCk, short of the
+    // last step: a backward chunk's start, column by column (S^T)
+    auto save = [&](int tt) {
+      const int tc = t0 + tt + 1;
+      if (tc >= T) return;
+      float* dst = ck + (bh * ((T - 1) / kCk) + tc / kCk - 1) * hd * hd +
+                   g * kE;
+#pragma unroll
+      for (int x = 0; x < kC; ++x) {
+        const int j = j0 + c + x;
+        if (j >= hd) continue;
+        if (vec) {  // hd % 4 == 0: the lane's 4 rows, 16-byte aligned
+          if (g * kE < hd)
+            *reinterpret_cast<float4*>(dst + (size_t)j * hd) =
+                make_float4(S[x][0], S[x][1], S[x][2], S[x][3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kE; ++e)
+            if (g * kE + e < hd) dst[(size_t)j * hd + e] = S[x][e];
+        }
+      }
+    };
     if (nt == kTC) {
 #pragma unroll
-      for (int tt = 0; tt < kTC; ++tt) step(tt);
+      for (int tt = 0; tt < kTC; ++tt) {
+        step(tt);
+        if constexpr (CK)
+          if (tt % kCk == kCk - 1) save(tt);
+      }
     } else {  // the last chunk: steps past T are neither staged nor run
 #pragma unroll
       for (int tt = 0; tt < kTC; ++tt) {
         if (tt < nt) {
           step(tt);
+          if constexpr (CK)
+            if (tt % kCk == kCk - 1) save(tt);
         } else {
 #pragma unroll
           for (int x = 0; x < kC; ++x) part[x * kTC + tt] = 0.f;
@@ -325,51 +367,67 @@ __global__ void __launch_bounds__(kThreads, TC == 1 ? 8 : 1)
   }
 }
 
-template <int L, int TC>
+template <int L, int TC, bool CK>
 cudaError_t launch(const float* r, const float* k, const float* v,
                    const float* w, const float* u, const float* state,
-                   float* out, float* state_out, int B, int T, int H,
-                   int hd, int vec, cudaStream_t stream) {
+                   float* out, float* state_out, float* ck, int B, int T,
+                   int H, int hd, int vec, cudaStream_t stream) {
   using Gm = Geo<L, TC>;
   if (Gm::kSmem > 48 * 1024) {  // above the default: opt in
     const cudaError_t err = cudaFuncSetAttribute(
-        wkv_kernel<L, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wkv_kernel<L, TC, CK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         Gm::kSmem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((hd + Gm::kCh - 1) / Gm::kCh, H, B);
-  wkv_kernel<L, TC><<<grid, kThreads, Gm::kSmem, stream>>>(
-      r, k, v, w, u, state, out, state_out, T, H, hd, vec);
+  wkv_kernel<L, TC, CK><<<grid, kThreads, Gm::kSmem, stream>>>(
+      r, k, v, w, u, state, out, state_out, ck, T, H, hd, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The checkpoints the training forward writes for T steps: the state
+// after every 8th step short of the last (wkv_bwd.cu walks back over the
+// same 8-step chunks).
+extern "C" int wkv_scan_checkpoints(int T) {
+  return T < 1 ? 0 : (T - 1) / kCk;
+}
+
 // Launches on `stream` and returns the launch's cudaError_t (0 = queued).
 // lanes (8, 16 or 32: the head dim padded to 4 * lanes >= hd) and chunk
 // (1 at T 1, else 16) come from kernel.py::plan; vec is 1 when hd % 4 ==
-// 0 and every tensor starts 16-byte aligned.
+// 0 and every tensor starts 16-byte aligned. ck is null (serving) or
+// (B, H, wkv_scan_checkpoints(T), hd, hd) floats (training), each state
+// transposed.
 extern "C" int wkv_scan(const float* r, const float* k, const float* v,
                         const float* w, const float* u, const float* state,
-                        float* out, float* state_out, int B, int T, int H,
-                        int hd, int lanes, int chunk, int vec,
+                        float* out, float* state_out, float* ck, int B,
+                        int T, int H, int hd, int lanes, int chunk, int vec,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd < 1 || hd > kE * lanes || T < 1 || B < 1 || H < 1 || B > 65535 ||
       H > 65535 || chunk != (T == 1 ? 1 : kChunk) || (vec && hd % 4 != 0))
     return (int)cudaErrorInvalidValue;
-#define WKV_LAUNCH(L_, TC_)                                                \
-  launch<L_, TC_>(r, k, v, w, u, state, out, state_out, B, T, H, hd, vec, \
-                  st)
+#define WKV_LAUNCH(L_, TC_, CK_)                                         \
+  launch<L_, TC_, CK_>(r, k, v, w, u, state, out, state_out, ck, B, T, H, \
+                       hd, vec, st)
+  // T 1 writes no checkpoint: one instantiation serves both callers (so
+  // does T <= 8, where ck is null)
+#define WKV_LANES(L_)                                 \
+  (T == 1 ? WKV_LAUNCH(L_, 1, false)                  \
+   : ck   ? WKV_LAUNCH(L_, kChunk, true)              \
+          : WKV_LAUNCH(L_, kChunk, false))
   cudaError_t err;
   if (lanes == 8)
-    err = T == 1 ? WKV_LAUNCH(8, 1) : WKV_LAUNCH(8, kChunk);
+    err = WKV_LANES(8);
   else if (lanes == 16)
-    err = T == 1 ? WKV_LAUNCH(16, 1) : WKV_LAUNCH(16, kChunk);
+    err = WKV_LANES(16);
   else if (lanes == 32)
-    err = T == 1 ? WKV_LAUNCH(32, 1) : WKV_LAUNCH(32, kChunk);
+    err = WKV_LANES(32);
   else
     err = cudaErrorInvalidValue;
+#undef WKV_LANES
 #undef WKV_LAUNCH
   return (int)err;
 }

@@ -12,6 +12,13 @@ shape and contiguity, allocates ``out`` / the final state with
 ``torch.empty``, and launches on the current CUDA stream without
 synchronising; a launch CUDA refuses raises. ``wkv_scan.launches``
 counts successful launches.
+
+With ``checkpoints=True`` (the training forward of ``ops.WKV``) the
+kernel's checkpoint instantiation also writes the state after every 8th
+step short of the last, ``checkpoint_count(T)`` states of
+(hd, hd) a (b, h), each transposed (S[i][j] at [..., j, i], so the
+kernel's stores are whole 16-byte runs), which ``backward.wkv_bwd`` walks
+back from; the serving call (the default) writes nothing more.
 """
 from __future__ import annotations
 
@@ -31,9 +38,10 @@ THREADS = 128                  # per CTA
 ROWS = 4                       # rows of a column a lane holds
 PAIR = 2                       # columns a lane holds
 CHUNK = 16                     # time steps a staged chunk above T 1
-# the C signature: r, k, v, w, u, state, out, state_out; B, T, H, hd,
+CHECKPOINT_STEPS = 8           # the training forward's checkpoint interval
+# the C signature: r, k, v, w, u, state, out, state_out, ck; B, T, H, hd,
 # lanes, chunk, vec; stream
-ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 class Plan(NamedTuple):
@@ -81,11 +89,24 @@ def owned(p: Plan, hd: int, cta: tuple, thread: int) -> list[tuple]:
             for i in range(i0, i0 + p.rows) if i < hd and j < hd]
 
 
+def checkpoint_count(T: int) -> int:
+    """The states the training forward writes for T steps: S_{8 c} for
+    c = 1 .. ceil(T / 8) - 1 (none at T <= 8)."""
+    return max(T - 1, 0) // CHECKPOINT_STEPS
+
+
 @functools.cache
 def _launcher():
-    fn = _build.load(SOURCE).wkv_scan
+    lib = _build.load(SOURCE)
+    fn = lib.wkv_scan
     fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
+    lib.wkv_scan_checkpoints.argtypes = [ctypes.c_int]
+    lib.wkv_scan_checkpoints.restype = ctypes.c_int
+    if any(lib.wkv_scan_checkpoints(T) != checkpoint_count(T)
+           for T in (1, 16, 17, 33, 1024)):
+        raise RuntimeError("wkv.cu's checkpoint interval is not "
+                           "CHECKPOINT_STEPS")
     return fn
 
 
@@ -114,28 +135,33 @@ def _check(r, k, v, w, u, state):
         raise ValueError(f"head dim {hd}: the kernel takes 1..{MAX_HEAD_DIM}")
 
 
-def wkv_scan(r, k, v, w, u, state):
+def wkv_scan(r, k, v, w, u, state, *, checkpoints: bool = False):
     """The CUDA kernel. r/k/v/w (B,T,H,hd), u (H,hd), state (B,H,hd,hd):
     contiguous float32 on one CUDA device. Returns (out (B,T,H,hd),
-    final state (B,H,hd,hd)), both float32."""
+    final state (B,H,hd,hd)), both float32, and with ``checkpoints`` the
+    states after every 8th step short of the last, transposed, (B, H,
+    checkpoint_count(T), hd, hd) float32."""
     _check(r, k, v, w, u, state)
     refuse_grad("wkv_scan", r, k, v, w, u, state)
     B, T, H, hd = r.shape
     out = torch.empty_like(r)
+    ck = (r.new_empty((B, H, checkpoint_count(T), hd, hd)) if checkpoints
+          else None)
     if B == 0 or T == 0:
-        return out, state.clone()
+        return (out, state.clone()) + ((ck,) if checkpoints else ())
     p = plan(B, T, H, hd)
     state_out = torch.empty_like(state)
-    vec = rows_aligned(r, k, v, w, state, out, state_out)
+    vec = rows_aligned(r, k, v, w, state, out, state_out)  # ck too: fresh
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                       u.data_ptr(), state.data_ptr(), out.data_ptr(),
-                      state_out.data_ptr(), B, T, H, hd, p.lanes, p.chunk,
-                      int(vec), stream)
+                      state_out.data_ptr(),
+                      ck.data_ptr() if ck is not None and ck.numel() else None,
+                      B, T, H, hd, p.lanes, p.chunk, int(vec), stream)
     if err:
         raise RuntimeError(f"wkv_scan launch failed: cudaError_t {err}")
     wkv_scan.launches += 1
-    return out, state_out
+    return (out, state_out) + ((ck,) if checkpoints else ())
 
 
 wkv_scan.launches = 0

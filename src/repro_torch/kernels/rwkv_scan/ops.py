@@ -1,14 +1,16 @@
 """Public op for the WKV6 recurrence.
 
-Tensors on the CPU take the plain PyTorch version in ``ref.py`` (autograd
-differentiates it); CUDA tensors take the CUDA kernel in ``kernel.py``,
-which raises on what it cannot run. When grad mode is on and an input
-requires grad, the CUDA call goes through ``WKV``, an autograd function
-whose backward is the CUDA kernel in ``backward.py``; otherwise the
-forward launches alone, as serving runs it. There is no fallback from
-one to the other. Unlike the reference's TPU route, no sequence-length
-gate applies: the kernel takes any T >= 1. ``force_ref`` (tests and
-``chip_smoke.py`` only) takes the plain version on any device.
+Tensors on the CPU take the plain PyTorch version in ``ref.py``
+(autograd differentiates it); CUDA tensors take the CUDA kernel in
+``kernel.py``, which raises on what it cannot run. When grad mode is on
+and an input requires grad, the CUDA call goes through ``WKV``, an
+autograd function whose forward also writes the state every 8 steps and
+whose backward, the CUDA kernel in ``backward.py``, walks back from
+those checkpoints; otherwise the forward launches alone, as serving runs
+it, and writes nothing more. There is no fallback from one to the other.
+Unlike the reference's TPU route, no sequence-length gate applies: the
+kernel takes any T >= 1. ``force_ref`` (tests and ``chip_smoke.py``
+only) takes the plain version on any device.
 """
 from __future__ import annotations
 
@@ -22,21 +24,24 @@ __all__ = ["WKV", "wkv"]
 
 class WKV(torch.autograd.Function):
     """The CUDA forward and backward kernels as one differentiable op.
-    The backward runs the forward again from the saved inputs for the
-    states it needs; autograd hands it zeros for an output the loss does
-    not reach (the final state, in training), and a non-contiguous
+    The forward saves its checkpoints (B, H, ceil(T / 8) - 1, hd, hd)
+    beside the inputs, so the backward runs no pass over all of T to
+    recover the states; under ``torch.utils.checkpoint`` they are the
+    recompute's. Autograd hands the backward zeros for an output the loss
+    does not reach (the final state, in training), and a non-contiguous
     upstream gradient is made contiguous."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
-        out, state_out = kernel.wkv_scan(r, k, v, w, u, state)
-        ctx.save_for_backward(r, k, v, w, u, state)
+        out, state_out, ck = kernel.wkv_scan(r, k, v, w, u, state,
+                                             checkpoints=True)
+        ctx.save_for_backward(r, k, v, w, u, state, ck)
         return out, state_out
 
     @staticmethod
     def backward(ctx, dout, dstate):
-        r, k, v, w, u, state = ctx.saved_tensors
-        return backward.wkv_bwd(r, k, v, w, u, state, dout.contiguous(),
+        r, k, v, w, u, state, ck = ctx.saved_tensors
+        return backward.wkv_bwd(r, k, v, w, u, state, ck, dout.contiguous(),
                                 dstate.contiguous())
 
 

@@ -6,7 +6,8 @@ over time in float32. The CPU path of ``ops`` runs it, and
 
 ``wkv_bwd_ref`` is the plain version of the backward kernel: the
 gradient by its explicit reverse-time formulas, in float32, with no
-autograd. Only tests and ``chip_smoke.py`` use it.
+autograd; ``wkv_checkpoints_ref`` that of the states the training
+forward writes for it. Only tests and ``chip_smoke.py`` use them.
 """
 from __future__ import annotations
 
@@ -29,6 +30,23 @@ def wkv_ref(r, k, v, w, u, state):
     if not outs:
         return torch.empty_like(r, dtype=torch.float32), S.clone()
     return torch.stack(outs, dim=1), S
+
+
+def wkv_checkpoints_ref(r, k, v, w, state, every=8):
+    """The states after steps every, 2 every, ... short of the last step
+    (S_{every c} for c = 1 .. ceil(T / every) - 1), as the training
+    forward writes them: (B, H, n, hd, hd) f32, each transposed (S[i][j]
+    at [..., j, i])."""
+    S = state.float()
+    cks = []
+    for t in range(r.shape[1] - 1):
+        S = w[:, t, :, :, None] * S + k[:, t, :, :, None] * v[:, t, :, None, :]
+        if (t + 1) % every == 0:
+            cks.append(S)
+    B, _, H, hd = r.shape
+    if not cks:
+        return state.new_zeros((B, H, 0, hd, hd), dtype=torch.float32)
+    return torch.stack(cks, dim=2).transpose(-1, -2).contiguous()
 
 
 def wkv_bwd_ref(r, k, v, w, u, state, dout, dstate_out):

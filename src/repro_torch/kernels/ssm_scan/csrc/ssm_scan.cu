@@ -60,6 +60,13 @@
 // - No split of T into chunks scanned in parallel (the two-pass chunked
 //   scan): at the served shapes B * di * N / 2 threads already fill the
 //   card, and a 300-step chain at one FMA per step is ~1,200 cycles.
+// - Training: the checkpoint instantiation (CK, ops.SelectiveScan's
+//   forward) also writes the state every 8 steps for ssm_scan_bwd.cu,
+//   which walks back from them: 52 MB a layer at hymba-1.5b's train shape
+//   (B 2, T 1024), kept from a layer's forward (under remat its
+//   recompute) to its backward; 0.1522 ms there against the serving
+//   call's 0.1389 (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W). The
+//   serving instantiation is unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -72,6 +79,8 @@ using hopper::cp_async4;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 using hopper::reduce_steps;
+
+constexpr int kCk = 8;  // steps between the training forward's checkpoints
 
 // L lanes a channel, E entries a lane, TC time steps a staged chunk
 // (16 at T <= 16, else 32: a chunk costs a barrier and a reduction, a
@@ -105,13 +114,17 @@ __device__ __forceinline__ void load_e(const float* p, float (&v)[E]) {
   }
 }
 
-template <int L, int E, int TC>
+// CK: the training forward, which also writes the state after every
+// kCk-th step short of the last, h_{8 c} for c = 1 .. ceil(T / 8) - 1, to
+// ck (B, ceil(T / 8) - 1, di, N) for ssm_scan_bwd.cu; the serving forward
+// (CK false) writes nothing more.
+template <int L, int E, int TC, bool CK>
 __global__ void __launch_bounds__(Geo<L, E, TC>::kThreads)
     ssm_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                const float* __restrict__ Bm, const float* __restrict__ Cm,
                const float* __restrict__ A, const float* __restrict__ D,
                const float* state, float* __restrict__ y, float* state_out,
-               int T, int di, int N) {
+               float* __restrict__ ck, int T, int di, int N) {
   using Gm = Geo<L, E, TC>;
   constexpr int NT = Gm::kThreads, CH = Gm::kCh, W = Gm::kW;
   constexpr int kTC = TC, kRS = Gm::kRS, kStages = Gm::kStages;
@@ -212,6 +225,16 @@ __global__ void __launch_bounds__(Geo<L, E, TC>::kThreads)
         }
         v[tt + j] = acc;
       }
+      if constexpr (CK) {
+        const int tc = t0 + tt + 4;  // steps done
+        if ((tt + 4) % kCk == 0 && tc < T && on) {
+          float* dst = ck + (((size_t)b * ((T - 1) / kCk) + tc / kCk - 1) *
+                                 di + d) * N;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            if (g * E + e < N) dst[g * E + e] = h[e];
+        }
+      }
     }
     reduce_steps<L, TC>(v, g);
 #pragma unroll
@@ -230,42 +253,61 @@ __global__ void __launch_bounds__(Geo<L, E, TC>::kThreads)
   }
 }
 
-template <int L, int E, int TC>
+template <int L, int E, int TC, bool CK>
 cudaError_t launch_tc(const float* u, const float* dt, const float* Bm,
                       const float* Cm, const float* A, const float* D,
-                      const float* state, float* y, float* state_out, int B,
-                      int T, int di, int N, cudaStream_t stream) {
+                      const float* state, float* y, float* state_out,
+                      float* ck, int B, int T, int di, int N,
+                      cudaStream_t stream) {
   using Gm = Geo<L, E, TC>;
   const dim3 grid((di + Gm::kCh - 1) / Gm::kCh, B);
-  ssm_kernel<L, E, TC><<<grid, Gm::kThreads, Gm::kSmem, stream>>>(
-      u, dt, Bm, Cm, A, D, state, y, state_out, T, di, N);
+  ssm_kernel<L, E, TC, CK><<<grid, Gm::kThreads, Gm::kSmem, stream>>>(
+      u, dt, Bm, Cm, A, D, state, y, state_out, ck, T, di, N);
   return cudaGetLastError();
 }
 
 template <int L, int E>
 cudaError_t launch(const float* u, const float* dt, const float* Bm,
                    const float* Cm, const float* A, const float* D,
-                   const float* state, float* y, float* state_out, int B,
-                   int T, int di, int N, cudaStream_t stream) {
-  if (T <= 16)  // one chunk: the one-stage instantiation
-    return launch_tc<L, E, 16>(u, dt, Bm, Cm, A, D, state, y, state_out, B,
-                               T, di, N, stream);
-  return launch_tc<L, E, 32>(u, dt, Bm, Cm, A, D, state, y, state_out, B, T,
-                             di, N, stream);
+                   const float* state, float* y, float* state_out, float* ck,
+                   int B, int T, int di, int N, cudaStream_t stream) {
+  if (T <= 16)  // one chunk: the one-stage instantiation (T <= kCk writes
+               // no checkpoint: the serving one serves both callers)
+    return ck && T > kCk
+               ? launch_tc<L, E, 16, true>(u, dt, Bm, Cm, A, D, state, y,
+                                           state_out, ck, B, T, di, N, stream)
+               : launch_tc<L, E, 16, false>(u, dt, Bm, Cm, A, D, state, y,
+                                            state_out, ck, B, T, di, N,
+                                            stream);
+  return ck ? launch_tc<L, E, 32, true>(u, dt, Bm, Cm, A, D, state, y,
+                                        state_out, ck, B, T, di, N, stream)
+            : launch_tc<L, E, 32, false>(u, dt, Bm, Cm, A, D, state, y,
+                                         state_out, ck, B, T, di, N, stream);
 }
 
 }  // namespace
 
+// The checkpoints the training forward writes for T steps: the state
+// after every kCk-th step short of the last (ssm_scan_bwd.cu walks back
+// over the same kCk-step chunks).
+extern "C" int ssm_scan_checkpoints(int T) {
+  return T < 1 ? 0 : (T - 1) / kCk;
+}
+
 // Launches on `stream` and returns the launch's cudaError_t (0 = queued).
+// ck is null (serving) or (B, ssm_scan_checkpoints(T), di, N) floats
+// (training).
 extern "C" int ssm_scan(const float* u, const float* dt, const float* Bm,
                         const float* Cm, const float* A, const float* D,
                         const float* state, float* y, float* state_out,
-                        int B, int T, int di, int N, void* stream) {
+                        float* ck, int B, int T, int di, int N,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N < 1 || N > 64 || di < 1 || T < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
 #define SSM_LAUNCH(L_, E_) \
-  launch<L_, E_>(u, dt, Bm, Cm, A, D, state, y, state_out, B, T, di, N, st)
+  launch<L_, E_>(u, dt, Bm, Cm, A, D, state, y, state_out, ck, B, T, di, N, \
+                 st)
   cudaError_t err;
   if (N == 1)
     err = SSM_LAUNCH(1, 1);

@@ -6,7 +6,8 @@ loop over time in float32. The CPU path of ``ops`` runs it, and
 
 ``ssm_scan_bwd_ref`` is the plain version of the backward kernel: the
 gradient by its explicit reverse-time formulas, in float32, with no
-autograd. Only tests and ``chip_smoke.py`` use it.
+autograd; ``ssm_scan_checkpoints_ref`` that of the states the training
+forward writes for it. Only tests and ``chip_smoke.py`` use them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,24 @@ def ssm_scan_ref(u, dt, Bm, Cm, A, D, state):
     if not ys:
         return torch.empty_like(u, dtype=torch.float32), h.clone()
     return torch.stack(ys, dim=1), h
+
+
+def ssm_scan_checkpoints_ref(u, dt, Bm, A, state, every=8):
+    """The states after steps every, 2 every, ... short of the last step
+    (h_{every c} for c = 1 .. ceil(T / every) - 1), as the training
+    forward writes them: (B, n, di, N) f32."""
+    h = state.float()
+    cks = []
+    for t in range(u.shape[1] - 1):
+        dt_t = dt[:, t]
+        h = torch.exp(dt_t[..., None] * A) * h \
+            + (dt_t * u[:, t])[..., None] * Bm[:, t, None, :]
+        if (t + 1) % every == 0:
+            cks.append(h)
+    if not cks:
+        return state.new_zeros((state.shape[0], 0, *state.shape[1:]),
+                               dtype=torch.float32)
+    return torch.stack(cks, dim=1)
 
 
 def ssm_scan_bwd_ref(u, dt, Bm, Cm, A, D, state, dy, dstate_out):

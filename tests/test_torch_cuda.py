@@ -352,9 +352,9 @@ def test_wkv_kernel_element_staging(cuda, hd, T):
 
 @pytest.mark.parametrize("hd,T", [(64, 1), (64, 40), (30, 40), (128, 17)])
 def test_wkv_state_out_aliases_state(cuda, hd, T):
-    """The C entry point with the final state written over the initial
-    one in place (``state_out`` is ``state``): one launch, the plain
-    version's result."""
+    """The C entry point (serving: no checkpoints) with the final state
+    written over the initial one in place (``state_out`` is ``state``):
+    one launch, the plain version's result."""
     *args, s0 = _wkv_case(2, T, 3, hd, seed=hd + T, decays="model")
     ro, rs = wkv(*args, s0, force_ref=True)
     state = s0.clone()
@@ -365,8 +365,8 @@ def test_wkv_state_out_aliases_state(cuda, hd, T):
     stream = torch.cuda.current_stream().cuda_stream
     err = wkv_kernel._launcher()(*(t.data_ptr() for t in args),
                                  state.data_ptr(), out.data_ptr(),
-                                 state.data_ptr(), B, T, H, hd, p.lanes,
-                                 p.chunk, int(vec), stream)
+                                 state.data_ptr(), None, B, T, H, hd,
+                                 p.lanes, p.chunk, int(vec), stream)
     assert err == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ro, atol=1e-4, rtol=1e-4)
@@ -431,9 +431,9 @@ def test_ssm_kernel_over_state_sizes(cuda, N, T, di):
 
 @pytest.mark.parametrize("N", [16, 33])
 def test_ssm_state_out_aliases_state(cuda, N):
-    """The C entry point with the final state written over the initial
-    one in place (``state_out`` is ``state``): one launch, the plain
-    version's result."""
+    """The C entry point (serving: no checkpoints) with the final state
+    written over the initial one in place (``state_out`` is ``state``):
+    one launch, the plain version's result."""
     *args, s0 = _ssm_case(2, 40, 333, N, seed=N)
     ry, rs = selective_scan(*args, s0, force_ref=True)
     state = s0.clone()
@@ -442,7 +442,8 @@ def test_ssm_state_out_aliases_state(cuda, N):
     stream = torch.cuda.current_stream().cuda_stream
     err = ssm_kernel._launcher()(*(t.data_ptr() for t in args),
                                  state.data_ptr(), y.data_ptr(),
-                                 state.data_ptr(), B, T, di, N, stream)
+                                 state.data_ptr(), None, B, T, di, N,
+                                 stream)
     assert err == 0
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
@@ -1555,9 +1556,12 @@ def test_kernels_without_backward_raise_under_grad(cuda):
     torch.cuda.synchronize()
 
 
-# (B, T, H, hd, decays) of the WKV backward: T 1, the 16-step chunk edge,
-# several chunks with a partial last one, hd off the 16-row blocks (40)
-# and at every padded head dim (32, 64, 128)
+# (B, T, H, hd, decays) of the WKV backward: T 1, the 8-step chunk edge,
+# several chunks with a partial last one, the 4-chunk groups whose dv
+# partials cross the cluster at once (T 40 and 300: a partial last
+# group), hd off the row blocks (40) and at every padded head dim (32, 64,
+# 128): clusters of 1, 2, 8 and 2 CTAs; hd 8 and 16, one CTA a head; hd
+# 30, whose rows take the 4-byte staging path
 WKV_BWD_GRID = [
     (2, 1, 4, 64, "mid"),
     (2, 17, 3, 32, "model"),
@@ -1565,9 +1569,16 @@ WKV_BWD_GRID = [
     (1, 33, 2, 128, "mid"),
     (2, 9, 2, 40, "model"),
     (1, 300, 4, 64, "model"),
+    (2, 24, 2, 8, "model"),
+    (1, 41, 3, 16, "mid"),
+    (2, 21, 3, 30, "model"),
 ]
 # (B, T, di, N) of the selective-scan backward: every lane layout, a
-# ragged channel tail, T 1 and the chunk edges
+# ragged channel tail, T 1, the 8-step chunk edges and partial 4-chunk
+# groups (T 300); clusters padded
+# with CTAs that hold no channel (520 channels at N 16: 33 CTAs of 16
+# channels, 5 clusters of 8) and clusters of fewer than 8 CTAs (24
+# channels: 2)
 SSM_BWD_GRID = [
     (2, 1, 3200, 16),
     (2, 17, 40, 16),
@@ -1576,6 +1587,9 @@ SSM_BWD_GRID = [
     (1, 33, 70, 1),
     (1, 16, 48, 2),
     (2, 300, 3200, 16),
+    (1, 20, 520, 16),
+    (2, 9, 24, 16),
+    (1, 12, 300, 32),
 ]
 
 
@@ -1585,21 +1599,35 @@ def _grad_err(got, want):
             for a, b in zip(got, want)]
 
 
+def _ssm_bwd_case(B, T, di, N, seed):
+    """``_ssm_case`` with A in hymba's [-16, -1], steps where exp(dt A)
+    underflows to 0 (dt 8), and the cotangents dy and dstate_out."""
+    u, dt, Bm, Cm, A, D, s0 = _ssm_case(B, T, di, N, seed=seed)
+    g = torch.Generator().manual_seed(T)
+    A = -(1.0 + 15.0 * torch.rand((di, N), generator=g)).cuda()
+    dt = torch.where(torch.rand((B, T, di), generator=g).cuda() < 0.1,
+                     8.0, dt)
+    dy = torch.randn((B, T, di), generator=g).cuda()
+    ds = torch.randn((B, di, N), generator=g).cuda()
+    return (u, dt, Bm, Cm / math.sqrt(N), A, D, s0), (dy, ds)
+
+
 @pytest.mark.parametrize("B,T,H,hd,decays", WKV_BWD_GRID)
 def test_wkv_backward_matches_plain_version(cuda, B, T, H, hd, decays):
-    """The backward kernel against ``wkv_bwd_ref`` on the same inputs and
-    cotangents (decays down to exactly 0 in the model's range), each
-    gradient within 1e-4 of its largest magnitude; two calls bitwise
-    equal; nothing NaN."""
+    """The backward kernel, fed the checkpoints the training forward wrote,
+    against ``wkv_bwd_ref`` on the same inputs and cotangents (decays
+    down to exactly 0 in the model's range), each gradient within 1e-4
+    of its largest magnitude; two calls bitwise equal; nothing NaN."""
     from repro_torch.kernels.rwkv_scan import backward
     from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref
     args = _wkv_case(B, T, H, hd, seed=T + hd, decays=decays)
     g = torch.Generator().manual_seed(T)
     dout = torch.randn((B, T, H, hd), generator=g).cuda()
     ds = torch.randn((B, H, hd, hd), generator=g).cuda()
+    ck = wkv_kernel.wkv_scan(*args, checkpoints=True)[2]
     before = backward.wkv_bwd.launches
-    got = backward.wkv_bwd(*args, dout, ds)
-    again = backward.wkv_bwd(*args, dout, ds)
+    got = backward.wkv_bwd(*args, ck, dout, ds)
+    again = backward.wkv_bwd(*args, ck, dout, ds)
     assert backward.wkv_bwd.launches == before + 2
     want = wkv_bwd_ref(*args, dout, ds)
     for a, b in zip(got, again):
@@ -1609,23 +1637,18 @@ def test_wkv_backward_matches_plain_version(cuda, B, T, H, hd, decays):
 
 @pytest.mark.parametrize("B,T,di,N", SSM_BWD_GRID)
 def test_ssm_backward_matches_plain_version(cuda, B, T, di, N):
-    """The backward kernel against ``ssm_scan_bwd_ref`` on the same inputs
-    and cotangents (A in hymba's [-16, -1] with steps where exp(dt A)
-    underflows to 0), each gradient within 1e-4 of its largest
-    magnitude; two calls bitwise equal; nothing NaN."""
+    """The backward kernel, fed the checkpoints the training forward wrote,
+    against ``ssm_scan_bwd_ref`` on the same inputs and cotangents (A in
+    hymba's [-16, -1] with steps where exp(dt A) underflows to 0), each
+    gradient within 1e-4 of its largest magnitude; two calls bitwise
+    equal; nothing NaN."""
     from repro_torch.kernels.ssm_scan import backward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
-    u, dt, Bm, Cm, A, D, s0 = _ssm_case(B, T, di, N, seed=T + N)
-    g = torch.Generator().manual_seed(T)
-    A = -(1.0 + 15.0 * torch.rand((di, N), generator=g)).cuda()
-    dt = torch.where(torch.rand((B, T, di), generator=g).cuda() < 0.1,
-                     8.0, dt)
-    dy = torch.randn((B, T, di), generator=g).cuda()
-    ds = torch.randn((B, di, N), generator=g).cuda()
-    args = (u, dt, Bm, Cm / math.sqrt(N), A, D, s0)
+    args, (dy, ds) = _ssm_bwd_case(B, T, di, N, seed=T + N)
+    ck = ssm_kernel.ssm_scan(*args, checkpoints=True)[2]
     before = backward.ssm_scan_bwd.launches
-    got = backward.ssm_scan_bwd(*args, dy, ds)
-    again = backward.ssm_scan_bwd(*args, dy, ds)
+    got = backward.ssm_scan_bwd(*args, ck, dy, ds)
+    again = backward.ssm_scan_bwd(*args, ck, dy, ds)
     assert backward.ssm_scan_bwd.launches == before + 2
     want = ssm_scan_bwd_ref(*args, dy, ds)
     for a, b in zip(got, again):
@@ -1634,24 +1657,71 @@ def test_ssm_backward_matches_plain_version(cuda, B, T, di, N):
 
 
 @pytest.mark.parametrize("op", ["wkv", "ssm"])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 33, 300])
+def test_scan_checkpoints_match_plain_states(cuda, op, T):
+    """The training forward's checkpoints equal the plain recurrence's
+    states at the backward's 8-step chunk starts (none at T up to one
+    chunk; WKV's transposed),
+    within the scan tolerance, with an
+    exact-zero decay (WKV) or dt 8 (exp(dt A) = 0) at every chunk's first
+    step; its out and final state are the serving forward's, bitwise."""
+    if op == "wkv":
+        from repro_torch.kernels.rwkv_scan.ref import wkv_checkpoints_ref
+        args = _wkv_case(2, T, 3, 64, seed=T, decays="model")
+        every = wkv_kernel.CHECKPOINT_STEPS
+        args[3][:, ::every] = 0.0
+        fn = wkv_kernel.wkv_scan
+        want = wkv_checkpoints_ref(*args[:4], args[5], every=every)
+        count = wkv_kernel.checkpoint_count(T)
+    else:
+        from repro_torch.kernels.ssm_scan.ref import ssm_scan_checkpoints_ref
+        args = list(_ssm_bwd_case(2, T, 130, 16, seed=T)[0])
+        every = ssm_kernel.CHECKPOINT_STEPS
+        args[1][:, ::every] = 8.0
+        fn = ssm_kernel.ssm_scan
+        want = ssm_scan_checkpoints_ref(args[0], args[1], args[2], args[4],
+                                        args[6], every=every)
+        count = ssm_kernel.checkpoint_count(T)
+    assert count == max(T - 1, 0) // every
+    before = fn.launches
+    out, st, ck = fn(*args, checkpoints=True)
+    with torch.no_grad():
+        out2, st2 = fn(*args)
+    assert fn.launches == before + 2
+    assert ck.shape == want.shape
+    assert ck.shape[2 if op == "wkv" else 1] == count
+    assert torch.equal(out, out2) and torch.equal(st, st2)
+    if count:
+        assert float((ck - want).abs().max()) <= _scan_tol(T)
+
+
+@pytest.mark.parametrize("op", ["wkv", "ssm"])
 def test_scan_backward_scratch_sizing_refuses_what_the_kernel_does_not_take(
         cuda, op):
-    """The CUDA sources size their own scratch: every shape of the grids
-    above gets positive sizes, and a head dim past 128, a state past 64,
-    an empty axis or a batch past the grid's 65535 is refused with a
-    ValueError before anything is launched."""
+    """The CUDA sources size their own scratch (WKV: the du partials;
+    the selective scan: the clusters' dB / dC partials and the batch
+    rows' dA / dD partials): every shape of the grids above gets positive
+    sizes, and a head dim past 128, a state past 64, an empty axis or a
+    batch past the grid's 65535 is refused with a ValueError before
+    anything is launched."""
     if op == "wkv":
         from repro_torch.kernels.rwkv_scan import backward
         fn, good = backward.wkv_bwd, [c[:4] for c in WKV_BWD_GRID]
         bad = [(1, 8, 2, 129), (1, 0, 2, 64), (65536, 1, 1, 64),
                (1, 1, 65536, 64)]
+        sizes = {(2, 1, 4, 64): (2 * 4 * 64,)}
     else:
         from repro_torch.kernels.ssm_scan import backward
         fn, good = backward.ssm_scan_bwd, SSM_BWD_GRID
         bad = [(1, 8, 40, 65), (1, 8, 0, 16), (65536, 1, 40, 16)]
+        # 200 CTAs of 16 channels a batch row: 25 clusters of 8
+        sizes = {(2, 300, 3200, 16): (2 * 25 * 300 * 16, 2 * 25 * 300 * 16,
+                                      2 * 3200 * 16, 2 * 3200)}
     before = fn.launches
     for shape in good:
         assert all(n > 0 for n in backward._scratch_sizes(*shape)), shape
+    for shape, want in sizes.items():
+        assert backward._scratch_sizes(*shape) == want
     for shape in bad:
         with pytest.raises(ValueError, match="takes no"):
             backward._scratch_sizes(*shape)
@@ -1659,12 +1729,34 @@ def test_scan_backward_scratch_sizing_refuses_what_the_kernel_does_not_take(
 
 
 @pytest.mark.parametrize("op", ["wkv", "ssm"])
+def test_scan_backward_geometry_is_the_sources(cuda, op):
+    """``backward.geometry`` (what the CPU tests cover) is the geometry the
+    CUDA source launches, and the card holds at least one cluster of it at
+    every shape of the grids above."""
+    if op == "wkv":
+        from repro_torch.kernels.rwkv_scan import backward
+        for B, T, H, hd, _ in WKV_BWD_GRID:
+            p = backward.geometry(hd)
+            rows, threads, _, cluster = backward.source_geometry(hd)
+            assert (rows, threads, cluster) == tuple(p)
+            assert backward.max_active_clusters(B, T, H, hd) >= 1
+    else:
+        from repro_torch.kernels.ssm_scan import backward
+        for B, T, di, N in SSM_BWD_GRID:
+            p = backward.geometry(di, N)
+            lanes, channels, _, cluster, clusters = \
+                backward.source_geometry(B, T, di, N)
+            assert (lanes, channels, cluster, clusters) == tuple(p)
+            assert backward.max_active_clusters(B, T, di, N) >= 1
+
+
+@pytest.mark.parametrize("op", ["wkv", "ssm"])
 def test_scan_autograd_route_matches_plain_autograd(cuda, op):
     """On CUDA inputs that require grad the op takes its autograd function
-    (one forward and one backward launch; the final state's gradient
-    None), within 1e-4 of autograd of the plain version on the same
-    inputs; a non-contiguous upstream gradient is taken; under no_grad
-    the forward launches alone."""
+    (one forward launch, with checkpoints, and one backward launch; the
+    final state's gradient None), within 1e-4 of autograd of the plain
+    version on the same inputs; a non-contiguous upstream gradient is
+    taken; under no_grad the forward launches alone."""
     from repro_torch.kernels.rwkv_scan import backward as wkv_bwd
     from repro_torch.kernels.ssm_scan import backward as ssm_bwd
     if op == "wkv":

@@ -17,7 +17,11 @@ d_inner 40 (a ragged channel tail on the card) and A in hymba's range
 [-16, -1] with steps whose exp(dt A) underflows to 0. B 0 and T 0 give
 zero gradients and dstate = dstate_out. The ops on CPU tensors that
 require grad take the plain loop, which autograd differentiates, and
-launch nothing. The kernels themselves are checked on the card
+launch nothing. The plain versions of the checkpoints the training
+forwards write for the backward kernels (every 8 steps) hold the
+reference's states after those prefixes, and the backward kernels'
+launch geometry (clusters of CTAs that add cross-CTA sums on chip)
+covers every shape they take. The kernels themselves are checked on the card
 (``chip_smoke.py`` phase 13a, ``tests/test_torch_cuda.py``).
 """
 import jax
@@ -31,11 +35,14 @@ from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_ssm_ref
 from repro_torch.kernels.rwkv_scan import backward as wkv_backward
 from repro_torch.kernels.rwkv_scan import kernel as wkv_kernel
 from repro_torch.kernels.rwkv_scan.ops import wkv
-from repro_torch.kernels.rwkv_scan.ref import wkv_bwd_ref, wkv_ref
+from repro_torch.kernels.rwkv_scan.ref import (wkv_bwd_ref,
+                                               wkv_checkpoints_ref, wkv_ref)
 from repro_torch.kernels.ssm_scan import backward as ssm_backward
 from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ops import selective_scan
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+                                              ssm_scan_checkpoints_ref,
+                                              ssm_scan_ref)
 
 TOL = 3e-5                      # of each gradient's largest |g|
 # (B, T, H, hd, decays)
@@ -205,3 +212,94 @@ def test_ops_on_cpu_take_the_plain_route(op):
     want = _autograd(plain, xs[:n_in], xs[n_in:])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [f.launches for f in counters] == before
+
+
+# ---------------------------------------- the training forward's checkpoints
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 17, 40])
+def test_wkv_checkpoints_ref_matches_jax_prefix_states(T):
+    """``wkv_checkpoints_ref`` (the plain version of what the training
+    forward writes for the backward kernel) holds, transposed, the
+    reference's final state after each 8-step prefix short of the last
+    step, with exact-zero decays at every chunk start: within 3e-5 of the
+    largest state entry; none up to one chunk."""
+    xs = _wkv_inputs(2, T, 3, 8, "model", seed=T)
+    xs[3][:, ::8] = 0.0
+    got = wkv_checkpoints_ref(*_torch(xs[:4]), _torch(xs[5:6])[0])
+    n = wkv_kernel.checkpoint_count(T)
+    assert got.shape == (2, 3, n, 8, 8)
+    for c in range(n):
+        t = 8 * (c + 1)
+        _, want = jax_wkv_ref(*(jnp.asarray(x[:, :t]) for x in xs[:4]),
+                              jnp.asarray(xs[4]), jnp.asarray(xs[5]))
+        want = np.swapaxes(np.asarray(want), -1, -2)
+        scale = float(np.abs(want).max())
+        assert float(np.abs(got[:, :, c].numpy() - want).max()) \
+            <= TOL * scale
+
+
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 17, 40])
+def test_ssm_checkpoints_ref_matches_jax_prefix_states(T):
+    """``ssm_scan_checkpoints_ref`` holds the reference's final state after
+    each 8-step prefix short of the last step, with dt 8 (exp(dt A) = 0)
+    at every chunk start: within 3e-5 of the largest state entry; none up
+    to one chunk."""
+    xs = _ssm_inputs(2, T, 40, 16, seed=T)
+    xs[1][:, ::8] = 8.0
+    u, dt, Bm, Cm, A, D, s0 = _torch(xs[:7])
+    got = ssm_scan_checkpoints_ref(u, dt, Bm, A, s0)
+    n = ssm_kernel.checkpoint_count(T)
+    assert got.shape == (2, n, 40, 16)
+    for c in range(n):
+        t = 8 * (c + 1)
+        _, want = jax_ssm_ref(*(jnp.asarray(x[:, :t]) for x in xs[:4]),
+                              *(jnp.asarray(x) for x in xs[4:7]))
+        want = np.asarray(want)
+        scale = float(np.abs(want).max())
+        assert float(np.abs(got[:, c].numpy() - want).max()) <= TOL * scale
+
+
+@pytest.mark.parametrize("T", [0, 1, 8, 9, 15, 16, 17, 32, 33, 1024])
+def test_checkpoint_counts(T):
+    """The training forwards write one state per 8-step backward chunk
+    after the first, ceil(T / 8) - 1 (none at T up to 8)."""
+    for kernel in (wkv_kernel, ssm_kernel):
+        assert kernel.checkpoint_count(T) == max(-(-T // 8) - 1, 0)
+
+
+@pytest.mark.parametrize("hd", [1, 8, 16, 17, 32, 40, 63, 64, 65, 100, 128])
+def test_wkv_backward_geometry_covers_the_head(hd):
+    """The WKV backward's CTAs cover every row of a head once, as one
+    cluster of at most 8 (1 / 2 / 2 / 8 at hd 32 / 40 / 64 / 128): two rows
+    and 4 columns a lane, 32 rows a CTA up to hd 64, 16 above; a head dim
+    past 128 is refused."""
+    g = wkv_backward.geometry(hd)
+    rows, cols = (32, 4) if hd <= 64 else (16, 4)
+    hdp = next(p for p in (32, 64, 128) if hd <= p)
+    assert g.rows == rows and g.threads * 2 * cols == g.rows * hdp
+    assert g.cluster == -(-hd // g.rows)
+    assert (g.cluster - 1) * g.rows < hd <= g.cluster * g.rows
+    assert g.cluster <= wkv_backward.MAX_CLUSTER
+    assert {32: 1, 40: 2, 64: 2, 128: 8}.get(hd, g.cluster) == g.cluster
+    with pytest.raises(ValueError):
+        wkv_backward.geometry(129)
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 5, 16, 17, 33, 64])
+@pytest.mark.parametrize("di", [1, 40, 130, 520, 3200, 3204])
+def test_ssm_backward_geometry_covers_the_channels(di, N):
+    """The selective-scan backward lays a channel's N entries over the
+    forward's lanes (two a lane, one at N 1), 128 threads a CTA, and
+    clusters of at most 8 consecutive channel blocks: the grid covers
+    every channel, pads less than one cluster, and a cluster holds 8
+    blocks unless the row has fewer."""
+    g = ssm_backward.geometry(di, N)
+    per, lanes = (1 if N == 1 else 2), 1
+    while lanes * per < N:
+        lanes *= 2
+    assert g.lanes == lanes
+    assert g.lanes * g.channels == ssm_backward.THREADS
+    blocks = -(-di // g.channels)
+    assert g.cluster == min(blocks, ssm_backward.MAX_CLUSTER)
+    assert g.clusters * g.cluster >= blocks > (g.clusters - 1) * g.cluster
+    with pytest.raises(ValueError):
+        ssm_backward.geometry(di, 65)
