@@ -151,15 +151,18 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``build_deployment`` on the port — tika, bert, the five Bi-LSTM-LAN
    NER services with 2 replicas each (the second a backup) behind
    balancers, ``cv_parser`` with the thread dispatcher, under the
-   Supervisor — parses ``make_corpus(40, seed=1)`` after one warm-up
-   parse: every document returns all 5 fields; the flash kernel
+   Supervisor — parses ``make_corpus(40, seed=1)`` after
+   ``MultiModelServer.lower_all`` warms the encoder and the five NER
+   models and one warm-up parse: every document returns all 5 fields; the flash kernel
    launches exactly once per encoder layer per parse (4 x 40) and no
    other kernel launches; the fields equal the sequential dispatcher's
    and those of the port on the CPU with the same weights, label for
    label (a difference prints the logit margins). Printed: p50 / p95 of
    every stage's time beside the paper's 700 ms, the dispatch speedup,
    and one parse's device busy time, idle share and top device ops
-   under ``torch.profiler``.
+   under ``torch.profiler``; the first parse of a fresh process (a
+   subprocess: ``chip_smoke.py --first-parse cold|lower_all``) without
+   and with ``lower_all`` before it.
 12. The frontends at full width, bf16, random weights from seed 0:
    whisper-tiny (4 encoder + 4 decoder layers, d 384, 6 heads of 64,
    vocab 51,865, 1500 frames) and qwen2-vl-2b (28 layers, d 1536, 12 / 2
@@ -252,6 +255,44 @@ Phases (any failure exits non-zero; no result line is printed then):
    2 x S 256: the kernel route against the plain route (attention, WKV
    and the selective scan all on their plain versions), one forward and
    one backward launch of each kernel a layer.
+14. The sharded path: a ``ParallelPlan`` (``repro_torch.sharding``) on a
+   1 x 1 ``DeviceMesh`` of one NCCL rank (NCCL refuses two ranks on one
+   GPU; the multi-rank runs are the CPU tests' and
+   ``scripts/torch_multirank_card.py``'s), so every shard body and
+   placement runs, each kernel on its whole local shard, and DTensor's
+   code runs as on any mesh; a collective over an axis of one rank is
+   skipped, as DTensor skips it. One collective on each mesh group
+   first sets up its communicator.
+   14a full-width qwen3-4b, bf16, 36 layers, DTensor params
+   (``param_shardings``), through ``ServingEngine(plan=...)`` with phase
+   4's prompts, paged (kernel) and on stripes: greedy streams identical
+   to the serve without a plan, launches by phase 4's / 6's rule. 14a
+   and 14b serve in turns (no plan, plan, plan, no plan) and time the
+   median of each pair.
+   14b full-width grok-1-314b, 2 layers, bf16, paged, under a decode plan
+   (EP, E_loc 8; every MoE call takes ``moe_decode_ffn``): tokens
+   identical to the serve without a plan; at 1 layer, f32, the MoE FFN
+   and one decode step's logits within 1e-4 of the largest. 14c
+   full-width hymba-1.5b and rwkv6-1.6b decode steps under a decode plan
+   with the stripe cache placed by ``cache_spec`` (DTensors: the stripes'
+   sequence over model, the SSM state's channels / the WKV state's heads
+   over model), greedy, against the same steps without a plan: tokens
+   identical, scan and decode launches exactly L a step. 14d the
+   sequence-sharded decode body (``attention.seq_shard_decode``) for 4
+   simulated ranks at hymba-1.5b's decode shape (25 / 5 heads of 64, B 8,
+   a 4096 stripe, window 2048), lengths straddling each shard edge and
+   the window edge, merged: against the unsharded kernel and the plain
+   version, f32 (3e-5) and bf16 (3e-2; about one key's weight in a
+   merged row at this window, so only f32 catches a window or merge
+   error of one key). 14e full-width qwen3-4b, 4
+   layers, bf16, remat, 2 AdamW steps of B 2 x 1024 under a train plan
+   (DTensor params and state) against ``plan=None``: losses within 1e-5
+   relative, flash forward 2 and backward 1 launches a layer a step.
+   14f ``python -m repro_torch.launch.train --mesh-shape 1,1 --steps 2``:
+   the reference's lines. One line of times: serve tok/s with and
+   without the plan, the second train step's ms, beside the card's name
+   and power limit. The kernel rows carry each kernel's launches in phase 14
+   (``plan_launches``).
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
@@ -337,8 +378,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+                                     PEAK_FLOPS_F32)
+
+HBM_BYTES_PER_S = HBM_BW        # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS_BF16, torch.float32: PEAK_FLOPS_F32}
 SM_CLOCK_HZ = 1.98e9            # H100 SXM boost clock
 FMA_CYCLES = 4                  # latency of one dependent f32 FMA
 SPIN_CYCLES = 2_000_000         # ~1 ms at the boost clock: longer than the
@@ -1917,6 +1961,82 @@ def pct(vals, q):
     return vals[max(0, math.ceil(q * len(vals)) - 1)]
 
 
+def cv_model_server(parser):
+    """The deployment's models as a ``MultiModelServer`` on the card (the
+    parser's own param tensors): the sentence encoder and the five NER
+    models, with the specs of their first batches: the encoder at
+    ``docs[0]``'s sentence bucket, each NER model at the smallest one."""
+    from repro_torch.core.multimodel import ModelService, MultiModelServer
+    from repro_torch.core.pipeline import MAX_SENT_LEN
+    from repro_torch.models import bert_encoder, bilstm_lan
+    enc_cfg = parser.encoder_cfg
+    svcs = [ModelService("encoder", lambda p, ids: bert_encoder
+                         .encode_sentences(p, enc_cfg, ids, ids != 0),
+                         parser.encoder_params)]
+    for name, svc in parser.services.items():
+        ner = svc.replicas[0].handler
+        svcs.append(ModelService(
+            name, lambda p, ids, cfg=ner.cfg: bilstm_lan.predict(p, cfg, ids),
+            ner.params))
+    return MultiModelServer(svcs, devices=["cuda"]), MAX_SENT_LEN
+
+
+def lower_cv_models(parser, doc):
+    """``MultiModelServer.lower_all`` over the deployment's models before
+    the first parse. Returns its wall time in s."""
+    server, max_len = cv_model_server(parser)
+    n = len(doc.sentences)
+    bucket = max(8, 1 << (n - 1).bit_length())
+    meta = partial(torch.empty, dtype=torch.int32, device="meta")
+    specs = {name: meta((bucket if name == "encoder" else 4, max_len))
+             for name in server.services}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rec = server.lower_all(specs)
+    wall = time.perf_counter() - t0
+    print(f"lower_all over {len(rec)} models in {wall:.3f} s: "
+          + json.dumps({k: round(v["seconds"] * 1e3, 3)
+                        for k, v in rec.items()}) + " ms")
+    return wall
+
+
+def first_parse(lower: bool) -> int:
+    """``chip_smoke.py --first-parse cold|lower_all``: in a fresh
+    process, stand up phase 11's deployment, optionally warm its models
+    with ``lower_all``, and time its first parse; prints one JSON line."""
+    from repro_torch.core import cvdata
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sup, parser, cv, _ = build_cv_deployment()
+    doc = cvdata.make_corpus(CV_DOCS, seed=1)[0]
+    torch.cuda.synchronize()
+    low = lower_cv_models(parser, doc) if lower else None
+    t0 = time.perf_counter()
+    cv(doc)
+    torch.cuda.synchronize()
+    print(json.dumps({"lower_all_s": low,
+                      "first_parse_ms": (time.perf_counter() - t0) * 1e3}))
+    parser.dispatcher.shutdown()
+    sup.stop_all()
+    return 0
+
+
+def first_parse_before_after():
+    """Phase 11: the first parse of a fresh process without and with
+    ``lower_all`` before it (each its own subprocess, on this card)."""
+    out = {}
+    for mode in ("cold", "lower_all"):
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--first-parse", mode], cwd=ROOT,
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode:
+            raise AssertionError(f"--first-parse {mode}: {r.stderr[-2000:]}")
+        out[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"first parse of a fresh process: {out['cold']['first_parse_ms']:.1f}"
+          f" ms cold; {out['lower_all']['first_parse_ms']:.1f} ms after "
+          f"lower_all ({out['lower_all']['lower_all_s']:.3f} s)")
+    return out
+
+
 def profile_parse(parse, doc):
     """One parse under torch.profiler: device busy time against the wall,
     the idle share, the top device ops."""
@@ -3063,6 +3183,386 @@ def bwd_launch_split(fwd_kernel, bwd_kernel, calls=10):
     return split
 
 
+# ------------------------------------------------------------ phase 14
+PLAN_STEPS = 8                  # 14c's greedy decode steps
+PLAN_B, PLAN_P = 4, 64          # 14c's rows and prompt length
+SHARD_T, SHARD_RANKS = 4096, 4  # 14d: hymba's stripe over 4 ranks
+# 14d's lengths after the write: each shard edge (1024, 2048, 3072) from
+# both sides, the stripe's end, and window (2048) starts on either side
+# of an edge (3073 -> 1025, 4096 -> 2048, 3071 -> 1023)
+SHARD_LENS = (1, 1023, 1025, 2048, 2049, 3071, 3073, 4096)
+
+
+def plan_serve(model, params, plan, cfg, fns, ServingEngine, Request,
+               **kw):
+    """Phase 14a / 14b: phase 4's requests through an engine with
+    ``plan``; each kernel count of ``fns`` from 0. Returns (requests,
+    wall, launches)."""
+    _zero(fns)
+    eng = ServingEngine(model, params, batch_size=B, plan=plan, **kw)
+    reqs = make_requests(Request, cfg.vocab_size)
+    done, wall = run_engine(eng, reqs)
+    launches = {fn.__name__: fn.launches for fn in fns}
+    check_outputs(reqs, done, cfg.vocab_size)
+    check_launches(fns, launches, cfg, eng.metrics)
+    return reqs, wall, launches
+
+
+def _tok_s(reqs, wall):
+    return sum(len(r.out_tokens) for r in reqs) / wall
+
+
+def plan_serves_in_turns(what, model, params, dparams, plan, cfg, fns,
+                         ServingEngine, Request, **kw):
+    """Phase 14a / 14b: serves without and with ``plan`` in the order
+    none, plan, plan, none, so neither side always runs first. Every
+    stream equals the first plan-free one's. Returns (tok/s with the plan
+    and without, each the median of its two serves; the plan's launches
+    summed; the largest logprob difference)."""
+    runs = [plan_serve(model, params if pl is None else dparams, pl, cfg,
+                       fns, ServingEngine, Request, **kw)
+            for pl in (None, plan, plan, None)]
+    err = max(streams_equal(r[0], runs[0][0], f"{what} run {i}",
+                            lp_tol=1e-3) for i, r in enumerate(runs))
+    launches = {}
+    for r in runs[1:3]:
+        for name, n in r[2].items():
+            launches[name] = launches.get(name, 0) + n
+    rate = [_tok_s(*r[:2]) for r in runs]
+    return (statistics.median(rate[1:3]),
+            statistics.median([rate[0], rate[3]]), launches, err)
+
+
+def plan_decode_steps(model, params, cfg, plan, fns):
+    """Phase 14c: a prefill without a plan, then PLAN_STEPS greedy decode
+    steps with the stripe cache placed by ``cache_spec`` (``plan``) or
+    whole (None). Returns (tokens, logits, launches over the steps)."""
+    g = torch.Generator().manual_seed(SEED + 3)
+    prompts = torch.randint(2, cfg.vocab_size, (PLAN_B, PLAN_P),
+                            generator=g).to("cuda")
+    with torch.no_grad():
+        logits, pref = model.prefill(params, {"tokens": prompts})
+        cache = model.init_cache(PLAN_B, STRIPE_T)
+        for key, leaf in cache.items():
+            row = pref[key]
+            leaf[tuple(slice(0, n) for n in row.shape)] = row
+        del pref
+        if plan is not None:
+            cache = plan.input_shardings({"cache": cache})["cache"]
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks, outs = [], []
+        torch.cuda.synchronize()
+        _zero(fns)
+        for j in range(PLAN_STEPS):
+            n = torch.full((PLAN_B,), PLAN_P + j, dtype=torch.int32,
+                           device="cuda")
+            logits, _ = model.decode_step(params, tok, cache, n, plan=plan)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok[:, 0].tolist())
+            outs.append(logits[:, -1].float())
+        torch.cuda.synchronize()
+    return toks, torch.stack(outs), {fn.__name__: fn.launches for fn in fns}
+
+
+def check_seq_shard_body(decode_attention):
+    """Phase 14d: ``seq_shard_decode`` for SHARD_RANKS simulated ranks on
+    their slices of one stripe (the kernel on each slice; the new token's
+    K / V written into the slice that holds it), merged, against the
+    unsharded kernel and the plain version on the stripe written whole.
+    Returns the largest error."""
+    from repro_torch.kernels.decode_attention.ref import merge_partials
+    from repro_torch.models.attention import _stripe_write, seq_shard_decode
+    Hq, Hkv, hd = HEAD_SHAPES[1]
+    win, t_loc = 2048, SHARD_T // SHARD_RANKS
+    Bq = len(SHARD_LENS)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        q = rnd(Bq, 1, Hq, hd)
+        k, v = rnd(Bq, SHARD_T, Hkv, hd), rnd(Bq, SHARD_T, Hkv, hd)
+        kn, vn = rnd(Bq, 1, Hkv, hd), rnd(Bq, 1, Hkv, hd)
+        idx = torch.tensor(SHARD_LENS, dtype=torch.int32, device="cuda") - 1
+        ks, vs = k.clone(), v.clone()
+        outs, lses = [], []
+        for r in range(SHARD_RANKS):
+            sl = slice(r * t_loc, (r + 1) * t_loc)
+            o, lse = seq_shard_decode(q, ks[:, sl], vs[:, sl], kn, vn, idx,
+                                      r * t_loc, sliding_window=win)
+            outs.append(o)
+            lses.append(lse)
+        got = merge_partials(outs, lses)
+        _stripe_write(k, kn, idx[:, None].long())
+        _stripe_write(v, vn, idx[:, None].long())
+        if not (torch.equal(ks, k) and torch.equal(vs, v)):
+            raise AssertionError("the slices' writes differ from the whole "
+                                 "stripe's")
+        args = (q[:, 0], k.transpose(1, 2), v.transpose(1, 2), idx + 1)
+        whole, _ = decode_attention(*args, sliding_window=win)
+        plain, _ = decode_attention(*args, sliding_window=win,
+                                    force_ref=True)
+        # bf16's limit is about one key's weight in a row merged at this
+        # window: only the f32 check catches an error of one key
+        tol = 3e-5 if dt == torch.float32 else 3e-2
+        for what, ref in (("the unsharded kernel", whole),
+                          ("the plain version", plain)):
+            err = float((got.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            print(f"14d {dt}: {SHARD_RANKS} slices of {t_loc} merged vs "
+                  f"{what}: max |diff| {err:.3e} (tol {tol:.0e})")
+            if not err <= tol:
+                raise AssertionError(f"sequence-sharded decode {dt} vs "
+                                     f"{what}: {err}")
+    print(f"14d lengths {list(SHARD_LENS)}, window {win}: every row merged "
+          f"from {SHARD_RANKS} slices, those wholly outside a row's window "
+          f"weighing nothing")
+    return worst
+
+
+def plan_train(model, cfg, mesh, fns):
+    """Phase 14e: two TRAIN-shaped steps of ``cfg`` with ``mesh`` (a 1 x 1
+    train plan: DTensor params, state and batches) or without. Returns
+    (losses, ms of each step, launches)."""
+    from repro_torch.sharding.rules import ParallelPlan
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.data import (DataConfig, PackedLMDataset,
+                                        sharded_batches)
+    from repro_torch.train.train_loop import make_train_step
+    plan = ParallelPlan.make(mesh, cfg, "train")
+    params = plan.param_shardings(model.init(SEED))
+    state = opt_mod.init_state(params)
+    oc = opt_mod.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=2)
+    step = make_train_step(model, oc, plan)
+    ds = PackedLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, batch_size=TRAIN_B))
+    batches = list(sharded_batches(ds, plan, 2, device="cuda"))
+    torch.cuda.synchronize()
+    _zero(fns)
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))       # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in fns}
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return losses, ms, launches
+
+
+def run_plan_launcher():
+    """Phase 14f: ``python -m repro_torch.launch.train --mesh-shape 1,1
+    --steps 2`` on the card (a world of one), the reference's lines."""
+    import os
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            "--mesh-shape", "1,1", "--steps", "2",
+                            "--ckpt-root", ck], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+    print(r.stdout.strip())
+    lines = r.stdout.splitlines()
+    if r.returncode or not lines or lines[0] != (
+            "training qwen3-4b (dense) on 1 device(s); "
+            "mesh={'data': 1, 'model': 1}") or \
+            "steps/s; loss" not in lines[-1]:
+        raise AssertionError(f"launcher exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+
+
+def phase14_sharded(get_config, build_model, ServingEngine, Request, card,
+                    fns):
+    """Phase 14 (see the module docstring). ``fns``: {name: kernel
+    wrapper}. Returns ({kernel: launches in phase 14}, {timings})."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.rules import DTensor, ParallelPlan
+    pw, flash, dec = (fns["paged_window_attention"], fns["flash_attention"],
+                      fns["decode_attention"])
+    wkv_fn, ssm_fn, bwd = (fns["wkv_scan"], fns["ssm_scan"],
+                           fns["flash_attention_bwd"])
+    launches, times = {}, {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh()
+        # a server sets up its communicators before it serves: the first
+        # collective on a group builds its NCCL communicator
+        t0 = time.perf_counter()
+        for axis in mesh.mesh_dim_names:
+            dist.all_reduce(torch.zeros(1, device="cuda"),
+                            group=mesh.get_group(axis))
+        torch.cuda.synchronize()
+        print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+              f"{mesh.device_type}, backend {dist.get_backend()}; the "
+              f"groups' first collectives {time.perf_counter() - t0:.3f} s")
+
+        print("--- 14a. qwen3-4b, 36 layers, bf16, decode plan")
+        cfg = get_config("qwen3-4b")
+        model = build_model(cfg, device="cuda")
+        params = model.init(SEED)
+        plan = ParallelPlan.make(mesh, cfg, "decode")
+        dparams = plan.param_shardings(params)
+        w_q = dparams["blocks"]["attn"]["w_q"]
+        print(f"plan: kind {plan.kind}, weight_fsdp {plan.weight_fsdp}, "
+              f"moe_mode {plan.moe_mode}; w_q a {type(w_q).__name__} "
+              f"{tuple(w_q.shape)} {w_q.placements}")
+        if not isinstance(w_q, DTensor):
+            raise AssertionError("param_shardings left a plain tensor")
+        for layout, kw, path in (
+                ("paged", dict(max_seq=1024, use_kernel=True), (pw, flash)),
+                ("stripes", dict(max_seq=STRIPE_T, paged=False),
+                 (flash, dec))):
+            rate, plain_rate, counts, err = plan_serves_in_turns(
+                f"14a {layout}", model, params, dparams, plan, cfg, path,
+                ServingEngine, Request, **kw)
+            add(counts)
+            times[f"qwen3_{layout}_tok_s"] = rate
+            times[f"qwen3_{layout}_plain_tok_s"] = plain_rate
+            print(f"14a {layout}: streams identical, max |logprob diff| "
+                  f"{err:.3e}; {rate:.1f} tok/s with the plan, "
+                  f"{plain_rate:.1f} without (medians of 2, in turns)")
+        del dparams, params, model
+        torch.cuda.empty_cache()
+
+        print("--- 14b. grok-1-314b, 2 layers, bf16, decode plan")
+        gcfg = replace(get_config("grok-1-314b"), n_layers=2)
+        gmodel = build_model(gcfg, device="cuda")
+        gparams = gmodel.init(SEED)
+        gplan = ParallelPlan.make(mesh, gcfg, "decode")
+        print(f"plan: moe_mode {gplan.moe_mode}, E_loc "
+              f"{gcfg.n_experts // gplan.axis_size('model')}, weight_fsdp "
+              f"{gplan.weight_fsdp}")
+        kw = dict(max_seq=STRIPE_T, use_kernel=True)
+        rate, plain_rate, counts, err = plan_serves_in_turns(
+            "14b grok", gmodel, gparams, gplan.param_shardings(gparams),
+            gplan, gcfg, (pw, flash), ServingEngine, Request, **kw)
+        add(counts)
+        times["grok_tok_s"], times["grok_plain_tok_s"] = rate, plain_rate
+        print(f"14b: streams identical, max |logprob diff| {err:.3e}; "
+              f"{rate:.1f} tok/s with the plan, {plain_rate:.1f} without "
+              f"(medians of 2, in turns)")
+        del gparams, gmodel
+        torch.cuda.empty_cache()
+        g32 = replace(gcfg, n_layers=1, dtype=torch.float32)
+        gmodel = build_model(g32, device="cuda")
+        gparams = gmodel.init(SEED)
+        gplan = ParallelPlan.make(mesh, g32, "decode")
+        x = torch.randn((B, 1, g32.d_model), generator=torch.Generator(
+            device="cuda").manual_seed(7), device="cuda")
+        p0 = {k: v[0] for k, v in gparams["blocks"]["moe"].items()}
+        with torch.no_grad():
+            y_plan, _ = moe.moe_ffn(x, p0, g32, gplan)
+            y_none, _ = moe.moe_ffn(x, p0, g32)
+            tok = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+            n = torch.zeros((B,), dtype=torch.int32, device="cuda")
+            lg = [gmodel.decode_step(gparams, tok, gmodel.init_cache(B, 64),
+                                     n, plan=pl)[0] for pl in (gplan, None)]
+        for what, a, b in (("MoE FFN", y_plan, y_none),
+                           ("decode-step logits", *lg)):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            print(f"14b f32, 1 layer: {what} under the plan vs none: max "
+                  f"|diff| {err:.3e} of largest {scale:.3e}")
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"14b {what}: {err} > 1e-4 x {scale}")
+        del gparams, gmodel, p0, x, y_plan, y_none, lg
+        torch.cuda.empty_cache()
+
+        print("--- 14c. hymba-1.5b / rwkv6-1.6b decode, stripes placed by "
+              "cache_spec")
+        for arch, path in (("hymba-1.5b", (ssm_fn, dec)),
+                           ("rwkv6-1.6b", (wkv_fn,))):
+            cfg = get_config(arch)
+            model = build_model(cfg, device="cuda")
+            params = model.init(SEED)
+            plan = ParallelPlan.make(mesh, cfg, "decode")
+            t_none, l_none, _ = plan_decode_steps(model, params, cfg, None,
+                                                  path)
+            t_plan, l_plan, counts = plan_decode_steps(model, params, cfg,
+                                                       plan, path)
+            add(counts)
+            want = {fn.__name__: cfg.n_layers * PLAN_STEPS for fn in path}
+            err = float((l_plan - l_none).abs().max())
+            print(f"14c {arch}: {PLAN_STEPS} steps of B {PLAN_B} from "
+                  f"{PLAN_P}-token prompts; tokens identical "
+                  f"{t_plan == t_none}; max |logit diff| {err:.3e}; "
+                  f"launches {json.dumps(counts)} (expected "
+                  f"{json.dumps(want)})")
+            if t_plan != t_none or counts != want or not err <= 1e-2:
+                raise AssertionError(f"14c {arch}: tokens {t_plan} vs "
+                                     f"{t_none}, launches {counts}, logits "
+                                     f"{err}")
+            del params, model
+            torch.cuda.empty_cache()
+
+        print("--- 14d. the sequence-sharded decode body, 4 ranks")
+        times["shard_err"] = check_seq_shard_body(fns["decode_op"])
+
+        print(f"--- 14e. qwen3-4b, {TRAIN_LAYERS} layers, bf16, remat, "
+              f"train plan")
+        cfg = replace(get_config("qwen3-4b"), n_layers=TRAIN_LAYERS,
+                      remat=True)
+        model = build_model(cfg, device="cuda")
+        l_none, ms_none, _ = plan_train(model, cfg, None, (flash, bwd))
+        l_plan, ms_plan, counts = plan_train(model, cfg, mesh, (flash, bwd))
+        add(counts)
+        want = {"flash_attention": 2 * TRAIN_LAYERS * 2,
+                "flash_attention_bwd": TRAIN_LAYERS * 2}
+        print(f"14e losses with the plan {l_plan}, without {l_none}; "
+              f"launches {json.dumps(counts)} (expected {json.dumps(want)})")
+        if counts != want or not all(abs(a - b) <= 1e-5 * abs(b)
+                                     for a, b in zip(l_plan, l_none)):
+            raise AssertionError(f"14e: losses {l_plan} vs {l_none}, "
+                                 f"launches {counts}")
+        times["train_ms"], times["train_plain_ms"] = ms_plan, ms_none
+        print(f"14e step ms with the plan {ms_plan[0]:.1f}, "
+              f"{ms_plan[1]:.1f}; without {ms_none[0]:.1f}, "
+              f"{ms_none[1]:.1f} (the first step with its warm-up)")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print("--- 14f. the train launcher with --mesh-shape 1,1")
+    run_plan_launcher()
+    print(f"phase 14 times, {card}: qwen3-4b serve paged "
+          f"{times['qwen3_paged_tok_s']:.1f} tok/s with the plan / "
+          f"{times['qwen3_paged_plain_tok_s']:.1f} without, stripes "
+          f"{times['qwen3_stripes_tok_s']:.1f} / "
+          f"{times['qwen3_stripes_plain_tok_s']:.1f}; grok-1-314b (2 "
+          f"layers) {times['grok_tok_s']:.1f} / "
+          f"{times['grok_plain_tok_s']:.1f} tok/s; qwen3-4b train step "
+          f"({TRAIN_LAYERS} layers, B {TRAIN_B} x {TRAIN_S}, the second "
+          f"of 2) {times['train_ms'][1]:.1f} ms with the plan / "
+          f"{times['train_plain_ms'][1]:.1f} ms without")
+    print("launches in phase 14:", json.dumps(launches))
+    idle = [n for n in ("paged_window_attention", "flash_attention",
+                        "decode_attention", "wkv_scan", "ssm_scan",
+                        "flash_attention_bwd") if not launches.get(n)]
+    if idle:
+        raise AssertionError(f"phase 14 never launched {idle}")
+    return launches, times
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -3475,10 +3975,13 @@ def main() -> int:
         buckets[b] = buckets.get(b, 0) + 1
     print(f"{CV_DOCS} documents, {sum(len(d.sentences) for d in docs)} "
           f"sentences; encoder batches {json.dumps(buckets)}")
+    lower_cv_models(parser, docs[0])
     t0 = time.perf_counter()
     cv(docs[0])                                      # warm-up
     torch.cuda.synchronize()
-    print(f"warm-up parse {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"warm-up parse {(time.perf_counter() - t0) * 1e3:.1f} ms (after "
+          f"lower_all)")
+    first_parse_before_after()
     kernel_fns = (pw_kernel.paged_window_attention,
                   flash_kernel.flash_attention, dec_kernel.decode_attention,
                   wkv_kernel.wkv_scan, ssm_kernel.ssm_scan)
@@ -3609,6 +4112,14 @@ def main() -> int:
             arch, 2, REC_GRAD_S, get_config, build_model, train_fns,
             {k: 1 for k in per_layer})
     print("train runs:", json.dumps(train_metrics))
+
+    phase("14. the sharded path: ParallelPlan on a 1 x 1 DeviceMesh (one "
+          "NCCL rank): serve, MoE, recurrent decode, the sequence-sharded "
+          "body, train, launcher")
+    plan_launches, plan_times = phase14_sharded(
+        get_config, build_model, ServingEngine, Request, card,
+        {fn.__name__: fn for fn in train_fns} | {"decode_op":
+                                                 decode_attention})
 
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
@@ -3860,6 +4371,8 @@ def main() -> int:
            for name, val in zip(("fwd_ms", "fwd_lse_ms", "fwd_lse_bound_ms",
                                  "fwd_lse_bound_by", "fwd_library_ms",
                                  "fwd_lse_plain_ms"), vals)})
+    for row in rows:
+        row["plan_launches"] = plan_launches.get(row["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3877,4 +4390,6 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--first-parse"]:
+        sys.exit(first_parse(sys.argv[2] == "lower_all"))
     sys.exit(main())

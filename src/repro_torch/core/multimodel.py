@@ -12,8 +12,10 @@ params and batch over the group's sub-mesh, and a replicated computation
 gives the same output on one device as on the group. With fewer devices
 than services the groups overlap and space-sharing degenerates to
 time-sharing; the dispatch / join logic is identical, which is what the
-tests exercise. The reference's ``lower_all`` (XLA ahead-of-time
-compile) has no PyTorch counterpart and is not ported.
+tests exercise. ``lower_all`` stands for the reference's ahead-of-time
+compile as a warm-up: it runs every service once on zeros of the given
+shapes, so every kernel a step reaches is built and loaded before the
+first request.
 """
 from __future__ import annotations
 
@@ -23,6 +25,26 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core.parallel import block_until_ready
+
+
+def _zeros(spec, device):
+    """Zeros on ``device`` of each spec leaf's shape and dtype (a leaf is
+    anything with ``.shape`` and ``.dtype``, e.g. a meta tensor)."""
+    if isinstance(spec, dict):
+        return {k: _zeros(v, device) for k, v in spec.items()}
+    if isinstance(spec, (list, tuple)):
+        return type(spec)(_zeros(v, device) for v in spec)
+    return torch.zeros(tuple(spec.shape), dtype=spec.dtype, device=device)
+
+
+def _shapes(tree):
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape)
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shapes(v) for v in tree]
+    return None
 
 
 def _to(tree, device):
@@ -87,6 +109,22 @@ class MultiModelServer:
         out = {n: block_until_ready(o) for n, o in pending.items()}
         self.stats["parallel_calls"] += 1
         return out, time.perf_counter() - t0
+
+    def lower_all(self, batch_specs: dict) -> dict:
+        """Warm every service up before serving: run its step once on
+        zeros of ``batch_specs[name]`` (a tree of leaves with ``.shape``
+        and ``.dtype``) on its device and wait for it. Returns {name:
+        {"seconds": the warm-up's wall time, "device", "output": the
+        output leaves' shapes}}."""
+        out = {}
+        for name, spec in batch_specs.items():
+            svc = self.services[name]
+            t0 = time.perf_counter()
+            res = block_until_ready(svc.step_fn(svc.params,
+                                                _zeros(spec, svc.device)))
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "device": str(svc.device), "output": _shapes(res)}
+        return out
 
     def serve_sequential(self, batches: dict) -> tuple[dict, float]:
         """Wait after each service (paper's monolithic baseline)."""

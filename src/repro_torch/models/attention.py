@@ -15,6 +15,15 @@ goes through the gather path (``use_kernel=False``) or through
 ``kernels.paged_attention`` (``use_kernel=True``): the CUDA kernel on
 CUDA tensors, its plain version on CPU tensors.
 
+Under a ``ParallelPlan`` (``repro_torch.sharding.rules``) a cache's
+layout is its placement. A plain cache is whole on every rank and takes
+the paths above. A stripe cache placed by ``cache_spec`` is a DTensor:
+sequence-sharded stripes decode through :func:`seq_shard_decode` on each
+rank's slice of keys and merge the ranks' (out, LSE) pairs
+(flash-decoding). The projections are column-parallel and ``w_o``
+row-parallel where the plan splits them over the model axis; prefill and
+train attention then run on this rank's heads.
+
 Cache updates are **in place**: where the reference returns a new pool
 or stripe from a donated functional ``.at[].set``, these functions write
 the new tokens' K/V into the caller's tensors with ``index_put_`` and
@@ -30,6 +39,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention as _decode_kernel)
+from repro_torch.kernels.decode_attention.ref import merge_partials
 from repro_torch.kernels.flash_attention.ops import attention_bshd
 from repro_torch.models import layers
 from repro_torch.serve.blocks import SCRATCH_BLOCK
@@ -54,13 +64,25 @@ def init_attention(gen, cfg, device, dtype=None, lead: tuple = ()):
     return p
 
 
-def qkv(x, p, cfg, positions=None, mrope_positions=None):
+def qkv(x, p, cfg, positions=None, mrope_positions=None, plan=None,
+        local_heads: bool = False):
     """Project to q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with rope + qk_norm;
-    mrope takes its (B, 3, S) ids from ``mrope_positions``."""
+    mrope takes its (B, 3, S) ids from ``mrope_positions``.
+
+    Under ``plan`` the projections are column-parallel
+    (:meth:`~repro_torch.sharding.rules.ParallelPlan.col_linear`);
+    ``local_heads``: q holds only this rank's heads (the heads divide the
+    model axis and ``w_q`` is split over it), k and v every head."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, hd)
-    kv = (x @ p["w_kv"]).reshape(B, S, 2, cfg.n_kv_heads, hd)
+    if plan is None:
+        q = x @ p["w_q"]
+        kv = x @ p["w_kv"]
+    else:
+        q = plan.col_linear(x, p["w_q"], gather=not local_heads)
+        kv = plan.col_linear(x, p["w_kv"])
+    q = q.reshape(B, S, -1, hd)
+    kv = kv.reshape(B, S, 2, cfg.n_kv_heads, hd)
     k, v = kv[:, :, 0], kv[:, :, 1]
     if cfg.qk_norm:
         q = layers.rmsnorm(q, p["q_norm"], cfg.norm_eps)
@@ -313,10 +335,62 @@ def stripe_decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len, *,
     return out, k_cache, v_cache
 
 
+def seq_shard_decode(q, k_slice, v_slice, k_new, v_new, idx, t0: int, *,
+                     sliding_window: int = 0):
+    """One rank's part of decode against a sequence-sharded stripe cache:
+    ``k_slice`` / ``v_slice`` (B, T_loc, Hkv, hd) hold keys ``[t0, t0 +
+    T_loc)``. The new K/V is written in place at ``idx - t0`` (dropped
+    when it falls outside the slice), then the decode kernel reads the
+    slice with the count ``max(n - t0, 0)``, n = idx + 1, never clamped
+    above: the kernel reads ``[max(0, count - window), min(count,
+    T_loc))``, so a sliding window stays exact across slices. A slice
+    wholly outside a row's window gives out 0 and an LSE that weighs
+    nothing in :func:`merge_partials`. idx: (B,) tokens cached per row.
+    Returns (out (B,Hq,hd), lse (B,Hq) f32)."""
+    T_loc = k_slice.shape[1]
+    pos = idx.reshape(-1, 1).long() - t0
+    pos = torch.where(pos < 0, T_loc, pos)      # before the slice: dropped
+    _stripe_write(k_slice, k_new, pos)
+    _stripe_write(v_slice, v_new, pos)
+    n_loc = torch.clamp_min(idx.reshape(-1) + 1 - t0, 0)
+    return _decode_kernel(q[:, 0], k_slice.transpose(1, 2),
+                          v_slice.transpose(1, 2), n_loc,
+                          sliding_window=sliding_window)
+
+
+def _heads_split(plan, cfg, p) -> bool:
+    """Attention runs on this rank's heads when q and kv heads divide the
+    model axis (the head-boundary rule of ``ParallelPlan.param_spec``)
+    and ``w_q`` is split over it by heads."""
+    if plan is None:
+        return False
+    nm = plan.axis_size(plan.model_axis)
+    return nm > 1 and cfg.n_heads % nm == 0 and cfg.n_kv_heads % nm == 0 \
+        and plan.split_dim(p["w_q"]) == 1
+
+
+def _my_kv_heads(t, cfg, plan):
+    """This rank's kv heads of ``t`` (B,S,Hkv,hd), whole on every rank:
+    the kv columns are [K heads | V heads], so ``w_kv``'s column block is
+    no head block and the whole projection is cut instead."""
+    m = plan.model_axis
+    hk = cfg.n_kv_heads // plan.axis_size(m)
+    return plan.psum_grad(t, m).narrow(2, plan.coord(m) * hk, hk)
+
+
+def _out_proj(o, p, plan, *, local: bool = False):
+    """o @ w_o; under ``plan`` row-parallel (``local``: ``o`` holds this
+    rank's heads)."""
+    if plan is None:
+        return o @ p["w_o"]
+    return plan.row_linear(o, p["w_o"], local=local)
+
+
 def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
                     positions=None, mrope_positions=None, causal=True,
                     sliding_window=None, block_table=None,
-                    paged_kernel=False, n_write=None):
+                    paged_kernel=False, n_write=None, plan=None,
+                    kv_seq=None):
     """Full attention sub-block incl. output proj. Returns (out, new_cache).
 
     In prefill/train mode ``cache`` is unused and prefill returns this
@@ -325,8 +399,20 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
     set, or its stripes dict(k=(B,T,Hkv,hd), ...) without; ``x`` with
     more than one token per row is a multi-token window (chunked prefill
     / verify) whose paged writes past ``n_write[b]`` divert to scratch.
-    The cache is updated in place and returned."""
+    The cache is updated in place and returned.
+
+    ``kv_seq`` (axes, t0): the stripes are this rank's slice of a cache
+    sequence-sharded over ``axes``, starting at key t0 (decode of one
+    token a row only); ``plan`` then gathers and merges the slices'
+    partials."""
     win = cfg.sliding_window if sliding_window is None else sliding_window
+    split = mode != "decode" and _heads_split(plan, cfg, p)
+    if plan is not None:
+        # q_norm reads only this rank's heads when they are split: its
+        # gradient here is a partial sum over the model axis
+        p = {k: v if k in ("w_q", "w_kv", "w_o") else
+             plan.gather(v, model_partial=split and k == "q_norm")
+             for k, v in p.items()}
     if mode == "decode":
         B, S, _ = x.shape
         idx = cache_len.to(torch.int32)
@@ -334,7 +420,7 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
             idx = idx.reshape(-1)
             pos = idx[:, None] + torch.arange(S, device=x.device)[None, :]
             q, k, v = qkv(x, p, cfg, positions=pos,
-                          mrope_positions=mrope_positions)
+                          mrope_positions=mrope_positions, plan=plan)
             if block_table is None:
                 o, k_cache, v_cache = stripe_verify_attention(
                     q, cache["k"], cache["v"], k, v, idx, sliding_window=win)
@@ -348,8 +434,17 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
         else:
             pos = idx if positions is None else positions
             q, k, v = qkv(x, p, cfg, positions=pos.reshape(-1, 1),
-                          mrope_positions=mrope_positions)
-            if block_table is None:
+                          mrope_positions=mrope_positions, plan=plan)
+            if kv_seq is not None and kv_seq[0]:
+                axes, t0 = kv_seq
+                o, lse = seq_shard_decode(q, cache["k"], cache["v"], k, v,
+                                          idx.reshape(-1).expand(B), t0,
+                                          sliding_window=win)
+                outs = plan.all_gather(o[None], 0, axes)
+                lses = plan.all_gather(lse[None], 0, axes)
+                o = merge_partials(list(outs), list(lses)).reshape(B, 1, -1)
+                k_cache, v_cache = cache["k"], cache["v"]
+            elif block_table is None:
                 o, k_cache, v_cache = stripe_decode_attention(
                     q, cache["k"], cache["v"], k, v, idx, sliding_window=win)
             else:
@@ -357,12 +452,15 @@ def attention_block(x, p, cfg, *, mode: str, cache=None, cache_len=None,
                     q, cache["k"], cache["v"], k, v, block_table,
                     idx.reshape(-1), sliding_window=win,
                     use_kernel=paged_kernel)
-        return o @ p["w_o"], {"k": k_cache, "v": v_cache}
+        return _out_proj(o, p, plan), {"k": k_cache, "v": v_cache}
     q, k, v = qkv(x, p, cfg, positions=positions,
-                  mrope_positions=mrope_positions)
-    o = causal_attention(q, k, v, sliding_window=win, causal=causal)
+                  mrope_positions=mrope_positions, plan=plan,
+                  local_heads=split)
+    ka, va = (k, v) if not split else \
+        (_my_kv_heads(t, cfg, plan) for t in (k, v))
+    o = causal_attention(q, ka, va, sliding_window=win, causal=causal)
     new_cache = {"k": k, "v": v} if mode == "prefill" else None
-    return o @ p["w_o"], new_cache
+    return _out_proj(o, p, plan, local=split), new_cache
 
 
 # ------------------------------------------------------------- cross-attn

@@ -65,13 +65,33 @@ def act_fn(name: str):
     raise ValueError(f"unknown activation {name}")
 
 
-def mlp(x, p, act: str):
-    """Gated (swiglu) or plain 2-matrix MLP. p: {w_in, w_out[, w_gate]}."""
+def mlp(x, p, act: str, plan=None):
+    """Gated (swiglu) or plain 2-matrix MLP. p: {w_in, w_out[, w_gate]}.
+
+    Under ``plan`` (a ``ParallelPlan``) the MLP is Megatron's: ``w_in`` /
+    ``w_gate`` column-parallel and ``w_out`` row-parallel, so this rank
+    computes its d_ff slice and the output is summed over ``model``."""
+    if plan is not None:
+        return _tp_mlp(x, p, act, plan)
     if "w_gate" in p:
         h = act_fn(act)(x @ p["w_gate"]) * (x @ p["w_in"])
     else:
         h = act_fn(act)(x @ p["w_in"])
     return h @ p["w_out"]
+
+
+def _tp_mlp(x, p, act, plan):
+    split = plan.split_dim(p["w_out"]) == 0 and all(
+        plan.split_dim(p[k]) == 1 for k in ("w_in", "w_gate") if k in p)
+
+    def lin(w):
+        return plan.col_linear(x, w, gather=not split)
+
+    if "w_gate" in p:
+        h = act_fn(act)(lin(p["w_gate"])) * lin(p["w_in"])
+    else:
+        h = act_fn(act)(lin(p["w_in"]))
+    return plan.row_linear(h, p["w_out"], local=split)
 
 
 def init_mlp(gen, d_model: int, d_ff: int, act: str, dtype, device,

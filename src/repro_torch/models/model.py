@@ -20,6 +20,15 @@ decode ``token (B, 1)``.
 Every tensor argument lies on the model's device. Caches (the paged
 pool, or the per-slot stripes and recurrent state) are updated in
 place.
+
+Each method takes ``plan=`` (a ``repro_torch.sharding.rules.
+ParallelPlan``; None, or a plan without a mesh, is the one-device path).
+Under a plan the params may be DTensors (``plan.param_shardings``) or
+whole plain tensors. A DTensor input (a train batch placed by
+``batch_spec``, a decode cache placed by ``cache_spec``) splits the
+call's batch rows over the axes it is sharded on: each rank computes
+its rows, and the logits come back whole on every rank. Plain inputs
+are whole on every rank, and every rank computes every row.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import attention, layers, transformer
+from repro_torch.sharding.rules import DTensor
 
 
 # ===================================================================== init
@@ -72,7 +82,9 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // 128) * 128
 
 
-def _embed_tokens(p, cfg, tokens):
+def _embed_tokens(p, cfg, tokens, plan=None):
+    if plan is not None:
+        return plan.embed(p["embed"], tokens.long())
     return p["embed"][tokens.long()]
 
 
@@ -94,19 +106,20 @@ def _positions_added(x, cfg, positions):
     return x + layers.sinusoidal_pos(positions, cfg.d_model, x.dtype)
 
 
-def _build_inputs(p, cfg, batch, *, drop_last_token: bool):
+def _build_inputs(p, cfg, batch, *, drop_last_token: bool, plan=None):
     """Returns (x (B,S,d), extras, prefix, enc_kv) for a prefill or, with
     ``drop_last_token`` (the last token is only a label), a train step:
     the vision patches lead the text (``prefix`` of them) with their
     M-RoPE ids in ``extras``; the audio frames run the encoder, whose
     output every decoder layer projects to its cross K / V (``enc_kv``,
-    stacked over L)."""
+    stacked over L). Under ``plan`` the embedding is vocab-parallel and
+    the cross projections are gathered whole."""
     tokens = batch["tokens"]
     if drop_last_token:
         tokens = tokens[:, :-1]
     B, S_text = tokens.shape
     extras, prefix, enc_kv = {}, 0, None
-    x = _embed_tokens(p, cfg, tokens)
+    x = _embed_tokens(p, cfg, tokens, plan)
     if cfg.frontend == "vision":
         pe = batch["patch_embeds"].to(cfg.dtype)                # (B,P,d)
         x = torch.cat([pe, x], dim=1)
@@ -119,9 +132,11 @@ def _build_inputs(p, cfg, batch, *, drop_last_token: bool):
     if cfg.frontend == "audio":
         enc = _run_encoder(p, cfg, batch["frames"].to(cfg.dtype))
         L = p["blocks"]["ln1"].shape[0]
-        kvs = [attention.encode_cross_kv(
-            enc, transformer._layer(p["blocks"]["xattn"], l), cfg)
-            for l in range(L)]
+        xattn = [transformer._layer(p["blocks"]["xattn"], l)
+                 for l in range(L)]
+        if plan is not None:
+            xattn = [plan.gather_tree(t) for t in xattn]
+        kvs = [attention.encode_cross_kv(enc, t, cfg) for t in xattn]
         enc_kv = {key: torch.stack([kv[key] for kv in kvs])
                   for key in ("k", "v")}                         # (L,B,T,H,hd)
     return x, extras, prefix, enc_kv
@@ -144,18 +159,27 @@ def _run_encoder(p, cfg, frames):
     return layers.rmsnorm(x, e["final_norm"], cfg.norm_eps)
 
 
-def _logits(p, cfg, x):
-    head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+def _logits(p, cfg, x, plan=None):
+    """x @ the output head, padded ids masked; under ``plan`` the head is
+    vocab-parallel (column-parallel, the logits gathered)."""
+    def head(a):
+        if cfg.tie_embeddings:
+            e = p["embed"] if plan is None else plan.gather(p["embed"])
+            return a @ e.T
+        if plan is None:
+            return a @ p["lm_head"]
+        return plan.col_linear(a, p["lm_head"])
+
     rows = x.reshape(-1, x.shape[-1])
     if rows.shape[0] == 1:
         # one row would take a matrix-vector product, which sums in
         # another order than the matrix product of a batch: a request
         # prefilled alone would emit logprobs an ulp off its co-batched
         # run. Two rows keep a row's logits independent of its batch.
-        out = (rows.expand(2, -1) @ head)[:1].reshape(*x.shape[:-1], -1)
+        out = head(rows.expand(2, -1))[:1].reshape(*x.shape[:-1], -1)
     else:
-        out = x @ head
-    vp = head.shape[-1]
+        out = head(x)
+    vp = out.shape[-1]
     if vp != cfg.vocab_size:          # padded ids can never be sampled
         pad = torch.arange(vp, device=out.device) >= cfg.vocab_size
         out = out.masked_fill(pad, -1e9)
@@ -168,6 +192,41 @@ def _rows_at(x, idx):
     return x[rows, idx.long()][:, None, :]
 
 
+def _planned(plan) -> bool:
+    return plan is not None and plan.mesh is not None
+
+
+def _whole_outside_layers(params, plan):
+    """The params a call uses outside the layer loop whole on this rank,
+    but for the embedding and the head (vocab-parallel bodies)."""
+    out = dict(params)
+    for k in ("final_norm", "encoder"):
+        if k in out:
+            out[k] = plan.gather_tree(out[k])
+    return out
+
+
+def _split_rows(plan, lead, dim: int):
+    """``plan`` bound to the mesh axes dim ``dim`` of ``lead`` (a DTensor
+    input, or None) is sharded over, with a function that takes this
+    rank's rows of a whole per-row tensor."""
+    rows = plan.shard_of(lead, dim)[0] if isinstance(lead, DTensor) else ()
+    plan = plan.bind(rows)
+
+    def mine(t):
+        if not rows or t is None or t.ndim == 0:
+            return t
+        n = t.shape[0] // plan.axis_size(rows)
+        i = plan.flat_index(rows)
+        return t[i * n:(i + 1) * n]
+
+    return plan, mine
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 # ===================================================================== model
 @dataclass(frozen=True)
 class Model:
@@ -178,26 +237,40 @@ class Model:
         return init_params(self.cfg, seed, device=self.device)
 
     # ---------------- train ----------------
-    def train_loss(self, params, batch):
+    def train_loss(self, params, batch, plan=None):
         """Next-token cross-entropy plus the summed MoE aux loss: batch
         ``{"tokens": (B, S+1)}`` (+ frames / patch embeds), the first S
         tokens in, ``tokens[:, 1:]`` the labels; a vision prefix is cut
         off before the logits. Returns (total, {"xent", "aux"}), f32
         scalars. Attention takes the flash kernel (and its backward) on
         CUDA tensors; with ``cfg.remat`` every layer is recomputed in the
-        backward pass."""
+        backward pass.
+
+        Under a plan each rank takes the loss of its rows (a batch placed
+        by ``batch_spec``) and the mean over the row axes is every
+        rank's loss; MoE layers run their expert- / tensor-parallel
+        bodies."""
         cfg = self.cfg
+        if _planned(plan):
+            plan, _ = _split_rows(plan, batch["tokens"], 0)
+            batch = {k: _local(v) for k, v in batch.items()}
+            params = _whole_outside_layers(params, plan)
+        else:
+            plan = None
         x, extras, prefix, enc_kv = _build_inputs(params, cfg, batch,
-                                                  drop_last_token=True)
+                                                  drop_last_token=True,
+                                                  plan=plan)
         x, _, aux = transformer.apply_stack(x, params["blocks"], cfg,
                                             kind=transformer.block_kind(cfg),
                                             mode="train", extras=extras,
-                                            enc_kv=enc_kv)
+                                            enc_kv=enc_kv, plan=plan)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if prefix:
             x = x[:, prefix:, :]
-        logits = _logits(params, cfg, x)
+        logits = _logits(params, cfg, x, plan)
         loss = layers.softmax_xent(logits, batch["tokens"][:, 1:])
+        if plan is not None and plan.rows:
+            loss = plan.pmean(loss, plan.rows)
         if not torch.is_tensor(aux):       # no MoE layer: filled on the
             aux = torch.zeros_like(loss)   # device, no host copy (a sync)
         return loss + aux, {"xent": loss, "aux": aux}
@@ -205,7 +278,7 @@ class Model:
     # ---------------- prefill ----------------
     def prefill(self, params, batch, *, last_idx=None, cache=None,
                 cache_len=None, block_table=None, paged_kernel: bool = False,
-                n_write=None):
+                n_write=None, plan=None):
         """last_idx: optional (B,) — per-row index of the last *real*
         text token when rows are right-padded to a shared bucket length
         (a vision prefix is added to it); None gives the logits at the
@@ -220,29 +293,42 @@ class Model:
         + [0, S)`` (past ``n_write[b]`` diverted to scratch) and attending
         causally to everything resident plus the window's own prefix —
         the :meth:`verify_step` path. Returns (logits (B, S, V), pool), or
-        only each row's ``last_idx`` position's logits as (B, 1, V)."""
+        only each row's ``last_idx`` position's logits as (B, 1, V).
+
+        Under a plan, a batch placed by ``batch_spec`` returns its fresh
+        cache leaves as DTensors split over the same rows (dim 1)."""
         cfg = self.cfg
         if cache is not None:
-            x, new_cache = self._window(params, batch["tokens"], cache,
-                                        cache_len, block_table, paged_kernel,
-                                        n_write)
-            if last_idx is not None:
-                x = _rows_at(x, last_idx)
-            return _logits(params, cfg, x), new_cache
+            return self._window(params, batch["tokens"], cache, cache_len,
+                                block_table, paged_kernel, n_write, plan,
+                                last_idx)
+        mine = None
+        if _planned(plan):
+            plan, mine = _split_rows(plan, batch["tokens"], 0)
+            batch = {k: _local(v) for k, v in batch.items()}
+            last_idx = mine(last_idx)
+            params = _whole_outside_layers(params, plan)
+        else:
+            plan = None
         x, extras, prefix, enc_kv = _build_inputs(params, cfg, batch,
-                                                  drop_last_token=False)
+                                                  drop_last_token=False,
+                                                  plan=plan)
         x, kv, _ = transformer.apply_stack(x, params["blocks"], cfg,
                                            kind=transformer.block_kind(cfg),
                                            mode="prefill", extras=extras,
-                                           enc_kv=enc_kv)
+                                           enc_kv=enc_kv, plan=plan)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         x_last = x[:, -1:, :] if last_idx is None \
             else _rows_at(x, last_idx + prefix)
-        return _logits(params, cfg, x_last), kv
+        logits = _logits(params, cfg, x_last, plan)
+        if plan is not None and plan.rows:
+            logits = plan.all_gather(logits, 0, plan.rows)
+            kv = {k: plan.act_dtensor(v, 1) for k, v in kv.items()}
+        return logits, kv
 
     # ---------------- decode ----------------
     def decode_step(self, params, token, cache, cache_len, block_table=None,
-                    paged_kernel: bool = False):
+                    paged_kernel: bool = False, plan=None):
         """token (B,1); cache_len (B,) tokens already cached per row (a
         scalar: every row at one length); the new token is written at
         index cache_len[b] of row b. Stripe mode (no ``block_table``):
@@ -254,10 +340,26 @@ class Model:
         instead of the gather. The new token sits at position cache_len[b]
         for the learned sinusoid and on all three M-RoPE sections (the
         reference's numbering: after a vision prefix of P patches on a g
-        x g grid, text prefilled from g continues from P + S_text)."""
+        x g grid, text prefilled from g continues from P + S_text).
+
+        Under a plan a stripe cache placed by ``cache_spec`` splits the
+        rows over its batch axes; sequence-sharded stripes decode
+        flash-decoding style, head- / channel-sharded recurrent state on
+        this rank's heads / channels. A paged pool and plain stripes are
+        whole on every rank."""
         cfg = self.cfg
+        if _planned(plan):
+            lead = next((v for v in cache.values()
+                         if isinstance(v, DTensor)), None)
+            plan, mine = _split_rows(plan, lead, 1)
+            token = mine(token)
+            if cache_len.ndim and cache_len.numel() > 1:
+                cache_len = mine(cache_len.reshape(-1))
+            params = _whole_outside_layers(params, plan)
+        else:
+            plan = None
         B = token.shape[0]
-        x = _embed_tokens(params, cfg, token)
+        x = _embed_tokens(params, cfg, token, plan)
         x = _positions_added(x, cfg, cache_len.reshape(-1, 1))
         extras = {"cache_len": cache_len, "block_table": block_table,
                   "paged_kernel": bool(paged_kernel)}
@@ -266,36 +368,50 @@ class Model:
                 .reshape(-1, 1, 1).expand(B, 3, 1)
         x, new_cache, _ = transformer.apply_stack(
             x, params["blocks"], cfg, kind=transformer.block_kind(cfg),
-            mode="decode", cache=cache, extras=extras)
+            mode="decode", cache=cache, extras=extras, plan=plan)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return _logits(params, cfg, x), new_cache
+        logits = _logits(params, cfg, x, plan)
+        if plan is not None and plan.rows:
+            logits = plan.all_gather(logits, 0, plan.rows)
+        return logits, new_cache
 
     # ---------------- verify (multi-token decode) ----------------
     def verify_step(self, params, tokens, cache, cache_len, block_table=None,
-                    paged_kernel: bool = False, n_write=None):
+                    paged_kernel: bool = False, n_write=None, plan=None):
         """Multi-token decode: tokens (B, S) at positions ``cache_len[b] +
         [0, S)``; query j sees cache positions <= cache_len[b] + j, so
         ``logits[:, j]`` equals what the j+1-th of S sequential
         :meth:`decode_step` calls would produce. ``n_write`` (B,) caps
         how many window positions row b writes into its own blocks (the
         rest divert to scratch). Returns (logits (B, S, V), pool)."""
-        x, new_cache = self._window(params, tokens, cache, cache_len,
-                                    block_table, paged_kernel, n_write)
-        return _logits(params, self.cfg, x), new_cache
+        return self._window(params, tokens, cache, cache_len, block_table,
+                            paged_kernel, n_write, plan)
 
     def _window(self, params, tokens, cache, cache_len, block_table,
-                paged_kernel, n_write):
+                paged_kernel, n_write, plan=None, last_idx=None):
         """Shared multi-token window body (verify / chunked prefill):
-        returns the final-norm hidden states (B, S, d) and the pool."""
+        returns the logits (B, S, V), or only each row's ``last_idx``
+        position's as (B, 1, V), and the pool. Under a plan a window
+        needs a cache whole on every rank."""
         cfg = self.cfg
         kind = transformer.block_kind(cfg)
         if kind in ("rwkv", "hybrid"):
             raise ValueError(f"multi-token window unsupported for family "
                              f"{kind!r} (recurrent state is sequential)")
+        if _planned(plan):
+            if any(isinstance(v, DTensor) for v in cache.values()):
+                raise ValueError("a multi-token window needs a cache whole "
+                                 "on every rank, not one placed by "
+                                 "cache_spec")
+            plan = plan.bind(())
+            params = _whole_outside_layers(params, plan)
+        else:
+            plan = None
         B, S = tokens.shape
         idx = cache_len.reshape(-1)
         pos = idx[:, None] + torch.arange(S, device=idx.device)[None, :]
-        x = _positions_added(_embed_tokens(params, cfg, tokens), cfg, pos)
+        x = _positions_added(_embed_tokens(params, cfg, tokens, plan), cfg,
+                             pos)
         extras = {"cache_len": idx, "block_table": block_table,
                   "paged_kernel": bool(paged_kernel), "n_write": n_write}
         if cfg.rope == "mrope":
@@ -303,9 +419,11 @@ class Model:
                 B, 3, S).to(torch.int32)
         x, new_cache, _ = transformer.apply_stack(
             x, params["blocks"], cfg, kind=kind, mode="decode", cache=cache,
-            extras=extras)
+            extras=extras, plan=plan)
         x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return x, new_cache
+        if last_idx is not None:
+            x = _rows_at(x, last_idx)
+        return _logits(params, cfg, x, plan), new_cache
 
     # ---------------- cache ----------------
     def init_cache(self, batch_size: int, capacity: int):

@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with capacity-based top-k dispatch (PyTorch port
-of the reference ``models/moe.py``, its one-device path).
+of the reference ``models/moe.py``).
 
 The dispatch is sort-free: each (token, choice) pair's slot in its
 expert comes from a one-hot prefix count (cumsum + scatter), in the
@@ -7,9 +7,20 @@ order of the pairs, so the pairs a full expert drops are the
 reference's. The expert products are plain batched GEMMs (``bmm``), as
 the reference leaves them to XLA outside any Pallas kernel.
 
-The sharded branches (expert-parallel / expert-tensor-parallel
-``shard_map`` bodies and the weight-stationary ``moe_decode_ffn``) are
-the sharding slice of ROADMAP.md: ``moe_ffn`` with a plan raises.
+Two distributed modes (picked by divisibility against the mesh ``model``
+axis — see ``repro_torch.sharding.rules``), each a local body over a
+rank's blocks (the reference's ``shard_map`` bodies):
+
+* **EP** (expert-parallel, kimi-k2): each model rank owns the experts
+  ``[i E_loc, (i+1) E_loc)``, dispatches its local tokens to them, and
+  the partial outputs are all-reduced over ``model``.
+* **TP** (expert-tensor-parallel, grok-1): every model rank holds all
+  experts but a ``d_ff / model`` slice; the expert contraction is
+  partial over d_ff and all-reduced.
+
+Capacity comes from the body's local token count, so which pairs a full
+expert drops follows the reference's sharded semantics. At decode a
+plan takes :func:`moe_decode_ffn`, the weight-stationary body.
 """
 from __future__ import annotations
 
@@ -140,19 +151,133 @@ def moe_ffn_local(x2d, p, cfg, *, e0: int = 0, E_loc: int | None = None):
     xp = torch.cat([x2d, x2d.new_zeros((1, d))])
     g = xp[tok]                                                # (E_loc, C, d)
     pe = {k_: v for k_, v in p.items() if k_ != "router"}
-    if E_loc < cfg.n_experts:
+    if E_loc < cfg.n_experts and \
+            all(v.shape[0] == cfg.n_experts for v in pe.values()):
+        # a sub-range of whole expert weights: slice the block (a local
+        # body hands the block over already sliced)
         pe = {k_: v[e0:e0 + E_loc] for k_, v in pe.items()}
     y = expert_compute(g, pe, cfg)
     y = y * gw[..., None].to(y.dtype)
     return combine(y, tok, ids, T, e0, E_loc).to(x2d.dtype), aux
 
 
-def moe_ffn(x, p, cfg, plan=None):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss). One device only."""
-    if plan is not None:
-        raise NotImplementedError("sharded MoE (expert / tensor parallel, "
-                                  "moe_decode_ffn): the 'sharding' slice of "
-                                  "ROADMAP.md")
+def _rows(x, plan, B: int):
+    """(the body's plan, this rank's rows of x, the batch axes they are
+    split over, whether the body sliced them): a local body's ``P(b_ax,
+    None, None)`` block. Activations already split over ``plan.rows`` are
+    that block; activations whole on every rank are narrowed to it (their
+    gradient summed back over those axes), and the body's plan counts
+    the axes among its rows."""
+    if plan.rows:
+        return plan, x, plan.rows, False
+    b_ax = plan._div(B, plan.batch_axes)
+    axes = (b_ax,) if isinstance(b_ax, str) else tuple(b_ax or ())
+    if not axes:
+        return plan, x, (), False
+    body = plan.bind(axes)
+    return body, body.local_block(body.psum_grad(x, axes), (b_ax,)), axes, \
+        True
+
+
+def moe_decode_ffn(x, p, cfg, plan):
+    """Weight-stationary MoE decode (§Perf, kimi-k2 x decode_32k).
+
+    At decode the token batch is ~MBs while the expert weights are ~GBs
+    per layer, so gathering the FSDP-sharded expert rows moves 5 orders
+    of magnitude more bytes than the tokens. Instead: keep the 2-D weight
+    layout resident (EP: (E/model, d/fsdp, f); TP: (E, d/fsdp, f/model)),
+    all-gather the TOKENS over the batch axes, contract partially, and
+    all-reduce the partial token outputs — over fsdp for the
+    d-contraction, over model for the expert (EP) or f (TP) partials.
+    """
     B, S, d = x.shape
-    out, aux = moe_ffn_local(x.reshape(B * S, d), p, cfg)
-    return out.reshape(B, S, d), aux
+    maxis = plan.model_axis
+    fsdp = tuple(a for a in (plan.weight_fsdp if isinstance(
+        plan.weight_fsdp, tuple) else (plan.weight_fsdp,)) if a)
+    n_model = plan.axis_size(maxis)
+    n_fsdp = plan.axis_size(fsdp) if fsdp else 1
+    ep = plan.moe_mode == "ep"
+    E_loc = cfg.n_experts // n_model if ep else cfg.n_experts
+    d_loc = d // n_fsdp
+    f_ax = fsdp or None
+    if ep:      # weight specs mirroring rules.param_spec's moe branch
+        wspec = {"router": (None,), "w_in": (maxis, f_ax, None),
+                 "w_gate": (maxis, f_ax, None), "w_out": (maxis, None, f_ax)}
+    else:
+        wspec = {"router": (None,), "w_in": (None, f_ax, maxis),
+                 "w_gate": (None, f_ax, maxis), "w_out": (None, maxis, f_ax)}
+    pb = {k_: plan.local_block(v, wspec[k_], model_partial=True)
+          for k_, v in p.items()}
+    # ---- gather all tokens (tiny at decode) to every rank: x holds this
+    # rank's rows, or every row already
+    b_axes = plan.rows
+    xg = plan.all_gather(x, 0, b_axes) if b_axes else x
+    T = xg.shape[0] * xg.shape[1]
+    x2d = xg.reshape(T, d)
+    w, ids, aux = route(x2d, pb["router"], cfg)       # replicated compute
+    e0 = plan.coord(maxis) * E_loc if ep else 0
+    C = capacity(T, cfg)
+    tok, gw = dispatch_tables(ids, w, e0, E_loc, C)
+    xp = torch.cat([x2d, x2d.new_zeros((1, d))])
+    g = xp[tok]                                       # (E_loc, C, d)
+    # ---- partial contraction over this rank's d rows
+    i_f = plan.flat_index(fsdp) if fsdp else 0
+    g_loc = g[..., i_f * d_loc:(i_f + 1) * d_loc]
+    h = torch.bmm(g_loc, pb["w_in"])
+    if "w_gate" in pb:
+        hg = torch.bmm(g_loc, pb["w_gate"])
+        if fsdp:
+            h = plan.all_reduce(h, fsdp)
+            hg = plan.all_reduce(hg, fsdp)
+        h = layers.act_fn(cfg.act)(hg) * h
+    else:
+        if fsdp:
+            h = plan.all_reduce(h, fsdp)
+        h = layers.act_fn(cfg.act)(h)
+    y = torch.bmm(h, pb["w_out"])                     # (E_loc, C, d_loc)
+    y = y * gw[..., None].to(y.dtype)
+    out = combine(y, tok, ids, T, e0, E_loc)          # (T, d_loc)
+    # EP: expert partials; TP: f partials — both close over model
+    out = plan.all_reduce(out, maxis)
+    if fsdp:                                          # reassemble d
+        out = plan.all_gather(out, 1, fsdp)
+    out = out.reshape(xg.shape[0], S, d).to(x.dtype)
+    if b_axes:                                        # back to my rows
+        i_b = plan.flat_index(b_axes)
+        out = out[i_b * B:(i_b + 1) * B]
+    aux = plan.pmean(aux, b_axes + (maxis,))
+    return out, aux
+
+
+def moe_ffn(x, p, cfg, plan=None):
+    """x: (B, S, d). plan: ``repro_torch.sharding.rules.ParallelPlan`` or
+    None. Returns (out (B, S, d), aux_loss scalar)."""
+    B, S, d = x.shape
+    if plan is None or plan.mesh is None or not plan.moe_mode:
+        out, aux = moe_ffn_local(x.reshape(B * S, d), p, cfg)
+        return out.reshape(B, S, d), aux
+    if plan.kind == "decode":
+        return moe_decode_ffn(x, p, cfg, plan)
+
+    maxis = plan.model_axis
+    plan, xb, b_axes, sliced = _rows(x, plan, B)
+    Bb, Sb, _ = xb.shape
+    if plan.moe_mode == "ep":
+        E_loc = cfg.n_experts // plan.axis_size(maxis)
+        e0 = plan.coord(maxis) * E_loc
+        wspec = {k_: (None,) if k_ == "router" else (maxis, None, None)
+                 for k_ in p}
+    else:   # tp: all experts, d_ff sliced over the model axis
+        E_loc, e0 = cfg.n_experts, 0
+        wspec = {k_: (None,) if k_ == "router" else (None, None, maxis)
+                 for k_ in p}
+        wspec["w_out"] = (None, maxis, None)
+    pb = {k_: plan.local_block(v, wspec[k_], model_partial=True)
+          for k_, v in p.items()}
+    xin = plan.psum_grad(xb.reshape(Bb * Sb, d), maxis)
+    out, aux = moe_ffn_local(xin, pb, cfg, e0=e0, E_loc=E_loc)
+    out = plan.psum(out, maxis).reshape(Bb, Sb, d)
+    aux = plan.pmean(aux, b_axes + (maxis,))
+    if sliced:
+        out = plan.gather_along(out, 0, b_axes)
+    return out, aux

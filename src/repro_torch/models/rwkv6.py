@@ -90,8 +90,12 @@ def wkv_scan(r, k, v, w, u, state):
     return wkv(r, k, v, w, u, state)
 
 
-def time_mix(x, p, cfg, cache=None):
-    """cache: {"state": (B,H,hd,hd) f32, "last_x": (B,d)} or None."""
+def time_mix(x, p, cfg, cache=None, plan=None, heads=None):
+    """cache: {"state": (B,H,hd,hd) f32, "last_x": (B,d)} or None.
+
+    ``heads`` (axes, h0, n): the state holds this rank's heads [h0, h0 +
+    n) of a cache head-sharded over ``axes``; the WKV scan runs on them
+    and ``plan`` gathers the heads' outputs back."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
     if cache is None:
@@ -100,7 +104,14 @@ def time_mix(x, p, cfg, cache=None):
                  "last_x": torch.zeros((B, d), dtype=x.dtype,
                                        device=x.device)}
     r, k, v, g, w = _project(x, cache["last_x"], p, cfg)
-    out, state = wkv_scan(r, k, v, w, p["bonus_u"], cache["state"])
+    u = p["bonus_u"]
+    if heads is not None:
+        axes, h0, n = heads
+        r, k, v, w = (t[:, :, h0:h0 + n].contiguous() for t in (r, k, v, w))
+        u = u[h0:h0 + n]
+    out, state = wkv_scan(r, k, v, w, u, cache["state"])
+    if heads is not None:
+        out = plan.all_gather(out, 2, axes)
     out = out.reshape(B, S, H * hd).to(x.dtype)
     out = layers.rmsnorm(out, p["ln_out"], cfg.norm_eps)
     out = (out * g) @ p["w_o"]

@@ -46,8 +46,12 @@ def selective_scan(u, dt, Bm, Cm, A, D, state):
     return _scan(u, dt, Bm, Cm, A, D, state)
 
 
-def ssm_block(x, p, cfg, cache=None):
-    """x (B,S,d) -> (out (B,S,d), cache {"state": (B,di,N)})."""
+def ssm_block(x, p, cfg, cache=None, plan=None, chans=None):
+    """x (B,S,d) -> (out (B,S,d), cache {"state": (B,di,N)}).
+
+    ``chans`` (axes, c0, n): the state holds this rank's channels [c0,
+    c0 + n) of a cache d_inner-sharded over ``axes``; the scan runs on
+    them and ``plan`` gathers the channels' outputs back."""
     Bsz = x.shape[0]
     di, N = cfg.dinner, max(cfg.ssm_state, 1)
     if cache is None:
@@ -59,6 +63,13 @@ def ssm_block(x, p, cfg, cache=None):
     bc = (x @ p["w_bc"]).float()
     Bm, Cm = (t.contiguous() for t in torch.split(bc, N, dim=-1))
     A = -torch.exp(p["A_log"])                            # (di,N), negative
-    y, state = selective_scan(u, dt, Bm, Cm, A, p["D"], cache["state"])
+    D = p["D"]
+    if chans is not None:
+        axes, c0, n = chans
+        u, dt = (t[..., c0:c0 + n].contiguous() for t in (u, dt))
+        A, D = A[c0:c0 + n], D[c0:c0 + n]
+    y, state = selective_scan(u, dt, Bm, Cm, A, D, cache["state"])
+    if chans is not None:
+        y = plan.all_gather(y, 2, axes)
     out = (y.to(x.dtype) * g) @ p["w_out"]
     return out, {"state": state}

@@ -165,7 +165,8 @@ class ServingEngine:
                  draft_params=None, speculation: int = 0,
                  prefill_chunk: int | None = None,
                  prefill_budget: int | None = None,
-                 clock=time.perf_counter, tracer=None, device="cuda"):
+                 clock=time.perf_counter, tracer=None, device="cuda",
+                 plan=None):
         self.device = torch.device(device)
         if self.device.type != model.device.type:
             raise ValueError(f"engine device {self.device} != model device "
@@ -178,6 +179,9 @@ class ServingEngine:
                              "engine requests carry tokens only")
         self.model = model
         self.params = params
+        # a ParallelPlan goes into every model call, as in the reference;
+        # the caches and the pool stay whole on every rank
+        self.plan = plan
         self.B = batch_size
         self.max_seq = max_seq
         self.clock = clock
@@ -304,7 +308,8 @@ class ServingEngine:
         full."""
         logits, pref = self.model.prefill(self.params,
                                           {"tokens": self._dev(tokens)},
-                                          last_idx=self._dev(last_idx))
+                                          last_idx=self._dev(last_idx),
+                                          plan=self.plan)
         pad = (-tokens.shape[1]) % self.block_size
         if pad:
             pref = {key: F.pad(v, (0, 0, 0, 0, 0, pad))
@@ -319,7 +324,8 @@ class ServingEngine:
         its logprob."""
         logits, pref = self.model.prefill(self.params,
                                           {"tokens": self._dev(tokens)},
-                                          last_idx=self._dev(last_idx))
+                                          last_idx=self._dev(last_idx),
+                                          plan=self.plan)
         for j, slot in enumerate(slots):
             for key, cache in self.caches.items():
                 row = pref[key][:, j]
@@ -1163,7 +1169,8 @@ class ServingEngine:
         logits, _ = self.model.verify_step(
             self.params, toks, self.caches, self._dev(self.slot_len),
             block_table=table, paged_kernel=self.use_kernel,
-            n_write=self._dev(n_write) if self.paged else None)
+            n_write=self._dev(n_write) if self.paged else None,
+            plan=self.plan)
         a, out_toks, lps = sampling.speculative_accept(
             logits, dprobs, proposed, n_spec, temps, top_ks, seeds, ctrs)
         self.metrics["decode_steps"] += 1
@@ -1261,7 +1268,7 @@ class ServingEngine:
             self.params, {"tokens": self._dev(toks)}, cache=self.caches,
             cache_len=self._dev(self.slot_len), block_table=table,
             paged_kernel=self.use_kernel, n_write=self._dev(n_write),
-            last_idx=self._dev(last))
+            last_idx=self._dev(last), plan=self.plan)
         nxt, logp = sampling.sample_rows(logits[:, 0, :], samp)
         self.metrics["decode_steps"] += 1
         self.metrics["chunk_steps"] += 1
@@ -1387,7 +1394,7 @@ class ServingEngine:
         logits, _ = self.model.decode_step(
             self.params, self._dev(tok), self.caches,
             self._dev(self.slot_len), block_table=table,
-            paged_kernel=self.use_kernel)
+            paged_kernel=self.use_kernel, plan=self.plan)
         nxt, logp = sampling.sample_rows(logits[:, -1, :], samp)
         self.metrics["decode_steps"] += 1
         return _Tick(lambda: self._commit_decode(active, finished, nxt,

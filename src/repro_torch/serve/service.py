@@ -204,8 +204,9 @@ def make_lm_service(name: str, model, params, *, n_replicas: int = 1,
     ``draft_model``/``draft_params``/``speculation`` arm every replica
     for speculative draft-and-verify decode (each replica's engine owns
     its own draft runner; a ``"speculation"`` payload key opts a request
-    out or down). ``plan`` (sharded serving) is a later slice of
-    ROADMAP.md and raises.
+    out or down). ``plan`` (a ``ParallelPlan``) goes into every
+    replica's engine and from there into every model call; under a mesh
+    every rank builds the same service and serves the same requests.
     ``prefill_chunk`` sets each engine's chunked-prefill width (None =
     the engine default for chunkable families; 0 = monolithic
     admission; requests override per-call with a ``"prefill_chunk"``
@@ -218,9 +219,6 @@ def make_lm_service(name: str, model, params, *, n_replicas: int = 1,
     replica also exposes a labelled metrics registry regardless
     (``service_prometheus_text`` merges them). ``device`` is where every
     replica's engine runs (the model's device)."""
-    if plan is not None:
-        raise NotImplementedError("sharded serving plans: the 'sharding' "
-                                  "slice of ROADMAP.md")
     replicas = []
     for i in range(n_replicas):
         eng = ServingEngine(model, params, batch_size=batch_size,
@@ -232,7 +230,7 @@ def make_lm_service(name: str, model, params, *, n_replicas: int = 1,
                             speculation=speculation,
                             prefill_chunk=prefill_chunk,
                             prefill_budget=prefill_budget,
-                            tracer=tracer, device=device)
+                            tracer=tracer, device=device, plan=plan)
         sched = Scheduler(eng, policy=policy, max_queue=max_queue,
                           pressure_shed=pressure_shed,
                           prefill_budget=prefill_budget)

@@ -62,13 +62,9 @@ class PackedLMDataset:
 
 def sharded_batches(dataset: PackedLMDataset, plan, n_steps: int,
                     start_step: int = 0, *, device="cuda"):
-    """Each batch as tensors on ``device`` (the reference places them with
-    the plan's batch sharding). Only ``plan=None`` exists until the
-    sharding rules are ported (ROADMAP Queue 1, item 4)."""
-    if plan is not None:
-        raise NotImplementedError(
-            "sharded_batches: a parallel plan needs the sharding rules "
-            "(ROADMAP Queue 1, item 4); pass plan=None")
+    """Each batch as tensors on ``device``; under a plan with a mesh, as
+    DTensors placed by the plan's ``batch_spec`` (every rank reads the
+    same deterministic batch and keeps its rows)."""
     device = torch.device(device)
     for b in dataset.batches(n_steps, start_step):
         out = {}
@@ -79,4 +75,6 @@ def sharded_batches(dataset: PackedLMDataset, plan, n_steps: int,
             else:
                 t = t.to(device)
             out[k] = t
+        if plan is not None and plan.mesh is not None:
+            out = plan.input_shardings(out)
         yield out

@@ -1,8 +1,9 @@
 """AdamW + global-norm clipping + warmup-cosine schedule, from scratch
 (port of the reference's ``train/optimizer.py``).
 
-State mirrors the params tree: mu and nu in f32, and the step, an int32
-scalar on the params' device. Every scalar of the update (learning rate,
+State mirrors the params tree: mu and nu in f32 (DTensors with the
+placements of DTensor params), and the step, an int32 scalar on the
+params' device. Every scalar of the update (learning rate,
 clip scale, bias corrections) stays on the device, so a step waits for
 nothing on the host. ``torch.optim.AdamW`` is not used: it clips and
 schedules elsewhere and applies eps and weight decay in another order.
@@ -46,8 +47,7 @@ def init_state(params) -> dict:
     """{"mu", "nu"}: f32 zeros shaped like ``params``; "step": 0."""
     leaves = tree.leaves(params)
     device = leaves[0].device if leaves else None
-    zeros = (lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device))
+    zeros = (lambda p: torch.zeros_like(p, dtype=torch.float32))
     return {"mu": tree.tree_map(zeros, params),
             "nu": tree.tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

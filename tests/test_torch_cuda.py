@@ -1890,3 +1890,144 @@ def test_train_loss_grads_on_card_match_cpu(cuda, arch):
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert float((a - b).abs().max()) \
             <= 1e-4 * max(float(b.abs().max()), 1e-30)
+
+
+# ------------------------------------------------------------ the plan
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seq_shard_decode_body_at_its_edges(cuda, dtype):
+    """The sequence-sharded decode body on 4 slices of a 4096 stripe at
+    hymba-1.5b's heads (25 / 5 of 64), window 2048: lengths on both
+    sides of each shard edge and window starts on both sides of an edge;
+    merged, against the unsharded kernel and the plain version."""
+    from repro_torch.kernels.decode_attention.ref import merge_partials
+    from repro_torch.models.attention import _stripe_write, seq_shard_decode
+    lens = (1, 1023, 1025, 2048, 2049, 3071, 3073, 4096)
+    T, n, win, (Hq, Hkv, hd) = 4096, 4, 2048, (25, 5, 64)
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    B = len(lens)
+    q, kn, vn = rnd(B, 1, Hq, hd), rnd(B, 1, Hkv, hd), rnd(B, 1, Hkv, hd)
+    k, v = rnd(B, T, Hkv, hd), rnd(B, T, Hkv, hd)
+    idx = torch.tensor(lens, dtype=torch.int32, device="cuda") - 1
+    ks, vs, t = k.clone(), v.clone(), T // n
+    parts = [seq_shard_decode(q, ks[:, r * t:(r + 1) * t],
+                              vs[:, r * t:(r + 1) * t], kn, vn, idx, r * t,
+                              sliding_window=win) for r in range(n)]
+    got = merge_partials([o for o, _ in parts], [lse for _, lse in parts])
+    _stripe_write(k, kn, idx[:, None].long())
+    _stripe_write(v, vn, idx[:, None].long())
+    assert torch.equal(ks, k) and torch.equal(vs, v)
+    args = (q[:, 0], k.transpose(1, 2), v.transpose(1, 2), idx + 1)
+    for force_ref in (False, True):
+        want, _ = decode_attention(*args, sliding_window=win,
+                                   force_ref=force_ref)
+        tol = 3e-5 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A 1 x 1 DeviceMesh of one NCCL rank (the card's only layout: NCCL
+    refuses two ranks on one GPU)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_local_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _greedy(model, params, cache, prompts, steps, plan):
+    logits, pref = model.prefill(params, {"tokens": prompts})
+    for key, leaf in cache.items():
+        leaf[tuple(slice(0, n) for n in pref[key].shape)] = pref[key]
+    if plan is not None:
+        cache = plan.input_shardings({"cache": cache})["cache"]
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    out = []
+    for j in range(steps):
+        n = torch.full((prompts.shape[0],), prompts.shape[1] + j,
+                       dtype=torch.int32, device="cuda")
+        logits, _ = model.decode_step(params, tok, cache, n, plan=plan)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out.append(logits[:, -1].float())
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("qwen3-4b", ("decode_attention",)),
+    ("hymba-1.5b", ("decode_attention", "ssm_scan")),
+    ("rwkv6-1.6b", ("wkv_scan",))])
+def test_one_rank_plan_decodes_through_the_kernels(one_rank_mesh, arch,
+                                                   kernels):
+    """Reduced configs decode under a decode plan with the stripe cache
+    placed by cache_spec (sequence, heads and channels over model):
+    every step launches each kernel of the path once a layer, and the
+    logits equal the plan-free steps'."""
+    from repro_torch.sharding.rules import ParallelPlan
+    fns = {"decode_attention": decode_kernel.decode_attention,
+           "ssm_scan": ssm_kernel.ssm_scan, "wkv_scan": wkv_kernel.wkv_scan}
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    prompts = torch.randint(2, cfg.vocab_size, (2, 9), device="cuda")
+    plan = ParallelPlan.make(one_rank_mesh, cfg, "decode")
+    with torch.no_grad():
+        want = _greedy(model, params, model.init_cache(2, 64), prompts, 4,
+                       None)
+        for name in kernels:
+            fns[name].launches = 0
+        got = _greedy(model, params, model.init_cache(2, 64), prompts, 4,
+                      plan)
+    for name in kernels:
+        # the prefill (no plan) launches the scans once a layer too
+        extra = cfg.n_layers if name in ("ssm_scan", "wkv_scan") else 0
+        assert fns[name].launches == cfg.n_layers * 4 + extra, name
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_one_rank_plan_serves_and_trains_through_the_kernels(one_rank_mesh):
+    """Reduced qwen3-4b under a plan on the card: a paged serve (kernel)
+    with DTensor params reaches the paged-window and flash kernels and
+    emits the plan-free streams; a train step reaches the flash backward
+    and gives the plan-free loss."""
+    from repro_torch.sharding.rules import ParallelPlan
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.kernels.flash_attention import backward as flash_bwd
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), remat=True)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    plan = ParallelPlan.make(one_rank_mesh, cfg, "decode")
+    streams = {}
+    for name, p, pl in (("plain", params, None),
+                        ("plan", plan.param_shardings(params), plan)):
+        pw_kernel.paged_window_attention.launches = 0
+        flash_kernel.flash_attention.launches = 0
+        eng = ServingEngine(model, p, batch_size=2, max_seq=64,
+                            use_kernel=True, plan=pl)
+        reqs = [Request(rid=i, prompt=list(range(3 + i, 12 + 2 * i)),
+                        max_new_tokens=4) for i in range(3)]
+        eng.run(reqs)
+        assert pw_kernel.paged_window_attention.launches > 0
+        assert flash_kernel.flash_attention.launches > 0
+        streams[name] = [r.out_tokens for r in reqs]
+    assert streams["plan"] == streams["plain"]
+    tokens = torch.randint(2, cfg.vocab_size, (2, 33), device="cuda")
+    losses = {}
+    for mesh in (None, one_rank_mesh):
+        tplan = ParallelPlan.make(mesh, cfg, "train")
+        p = tplan.param_shardings(model.init(0))
+        step = make_train_step(model, opt_mod.AdamWConfig(), tplan)
+        flash_bwd.flash_attention_bwd.launches = 0
+        _, _, m = step(p, opt_mod.init_state(p),
+                       tplan.input_shardings({"tokens": tokens}))
+        assert flash_bwd.flash_attention_bwd.launches == cfg.n_layers
+        losses[mesh is None] = float(m["loss"])
+    assert abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[True])

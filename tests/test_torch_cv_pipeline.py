@@ -400,3 +400,33 @@ def test_multimodel_parallel_equals_sequential(n_devices):
         assert torch.equal(par[f"m{i}"], seq[f"m{i}"])
         assert torch.equal(par[f"m{i}"], torch.full((4, 16), float(i + 1)))
     assert server.stats == {"parallel_calls": 1, "sequential_calls": 1}
+
+
+def test_multimodel_lower_all_warms_every_service():
+    """lower_all runs each service's step once on zeros of its spec's
+    shapes and dtypes, on its device, and reports the output shapes (the
+    reference compiles ahead of time; the port warms up)."""
+    seen = {}
+
+    def mk(i):
+        def step(p, b):
+            seen[f"m{i}"] = {k: (tuple(v.shape), v.dtype, v.device,
+                                 int(v.count_nonzero())) for k, v in b.items()}
+            return {"y": b["x"] @ p, "n": b["ids"].sum(-1)}
+        return ModelService(f"m{i}", step, torch.eye(16) * (i + 1))
+
+    server = MultiModelServer([mk(i) for i in range(3)], devices=["cpu"] * 3)
+    specs = {f"m{i}": {"x": torch.empty((i + 2, 16), device="meta"),
+                       "ids": torch.empty((4, 8), dtype=torch.int32,
+                                          device="meta")}
+             for i in range(3)}
+    rec = server.lower_all(specs)
+    assert set(rec) == set(seen) == set(specs)
+    for i in range(3):
+        r = rec[f"m{i}"]
+        assert r["device"] == "cpu" and r["seconds"] >= 0
+        assert r["output"] == {"y": (i + 2, 16), "n": (4,)}
+        assert seen[f"m{i}"] == {
+            "x": ((i + 2, 16), torch.float32, torch.device("cpu"), 0),
+            "ids": ((4, 8), torch.int32, torch.device("cpu"), 0)}
+    assert server.stats == {"parallel_calls": 0, "sequential_calls": 0}

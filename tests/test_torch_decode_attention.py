@@ -128,6 +128,57 @@ def test_sharded_decode_matches_jax(n_shards, nv):
     _close(out, ref, TOL["f32"])
 
 
+@pytest.mark.parametrize("nv,win", [((300, 141), 50), ((12, 5), 4),
+                                    ((129, 512), 128)])
+def test_windowed_sharded_op_keeps_the_quirk_and_the_plan_is_exact(nv, win):
+    """Under a window the sharded op's two-sided count ``clamp(n - offset,
+    0, t)`` lets a shard wholly before a row's end read its own last
+    ``window`` keys: the port keeps the reference's op as it is (parity,
+    not exactness). The plan's per-rank decode (``seq_shard_decode``:
+    the new K/V written into its slice, the count ``max(n - t0, 0)``)
+    merged over the slices equals the unsharded op."""
+    from repro_torch.models.attention import _stripe_write, seq_shard_decode
+    n_shards, T = 4, 512
+    (jq, jk, jv), (q, k, v) = _both(_qkv(2, 4, 2, T, 64, seed=win), "f32")
+    n = np.asarray(nv, np.int32)
+    quirk = sharded_decode_attention(q, k.chunk(n_shards, 2),
+                                     v.chunk(n_shards, 2),
+                                     torch.from_numpy(n), sliding_window=win)
+    for b in range(2):             # the reference takes one count a call
+        ref = jax_sharded(jq[b:b + 1], jnp.split(jk[b:b + 1], n_shards, 2),
+                          jnp.split(jv[b:b + 1], n_shards, 2), int(n[b]),
+                          sliding_window=win)
+        _close(quirk[b:b + 1], ref, TOL["f32"])
+    whole, _ = decode_attention(q, k, v, torch.from_numpy(n),
+                                sliding_window=win)
+    if max(nv) > T // n_shards:    # a shard lies wholly before a row's end
+        assert (quirk - whole).abs().max() > 1e-2
+    # the plan's path: stripes (B, T, Hkv, hd), the new token's K/V at
+    # n - 1, written into the whole cache and into the slice that holds it
+    rng = np.random.default_rng(1)
+    kn, vn = (torch.from_numpy(rng.standard_normal((2, 1, 2, 64),
+                                                   np.float32))
+              for _ in range(2))
+    idx = torch.from_numpy(n - 1)
+    ks, vs = k.transpose(1, 2).clone(), v.transpose(1, 2).clone()
+    t_loc = T // n_shards
+    outs, lses = [], []
+    for i in range(n_shards):
+        o, l = seq_shard_decode(q[:, None], ks[:, i * t_loc:(i + 1) * t_loc],
+                                vs[:, i * t_loc:(i + 1) * t_loc], kn, vn,
+                                idx, i * t_loc, sliding_window=win)
+        outs.append(o)
+        lses.append(l)
+    got = merge_partials(outs, lses)
+    kw, vw = k.transpose(1, 2).clone(), v.transpose(1, 2).clone()
+    _stripe_write(kw, kn, idx[:, None].long())
+    _stripe_write(vw, vn, idx[:, None].long())
+    assert torch.equal(ks, kw) and torch.equal(vs, vw)
+    want, _ = decode_attention(q, kw.transpose(1, 2), vw.transpose(1, 2),
+                               idx + 1, sliding_window=win)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
 def test_merge_partials_matches_jax():
     rng = np.random.default_rng(2)
     outs = [rng.standard_normal((2, 4, 32), np.float32) for _ in range(3)]

@@ -19,6 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 try:
     from hypothesis import given, settings, strategies as st
@@ -36,6 +39,7 @@ from repro_torch.models import layers, moe
 from repro_torch.models.model import build_model, init_params
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.sampling import SamplingParams
+from repro_torch.sharding.rules import ParallelPlan
 from repro_torch.weights import params_from_numpy
 
 MOE = ["grok-1-314b", "kimi-k2-1t-a32b"]
@@ -159,9 +163,23 @@ def test_combine_sums_in_expert_order():
 
 
 def test_moe_ffn_raises_for_a_plan():
+    """A plan without a mesh is the one-device path, bit for bit; a
+    mesh whose model axis neither divides the experts nor their d_ff
+    makes no plan (the reference's assertion)."""
     _, cfg, _, p, x = setup(T=4)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        moe.moe_ffn(torch.from_numpy(x)[None], p, cfg, plan=object())
+    xt = torch.from_numpy(x)[None]
+    want, aux = moe.moe_ffn(xt, p, cfg)
+    got, got_aux = moe.moe_ffn(xt, p, cfg, plan=ParallelPlan.make(None, cfg))
+    assert torch.equal(got, want) and torch.equal(got_aux, aux)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    try:
+        mesh = init_device_mesh("cpu", (16, 16),
+                                mesh_dim_names=("data", "model"))
+        with pytest.raises(AssertionError, match="unshardable"):
+            ParallelPlan.make(mesh, dataclasses.replace(cfg, moe_d_ff=24))
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------ tests/test_moe.py on the port

@@ -31,6 +31,7 @@ from repro_torch.core.supervisor import Supervisor
 from repro_torch.models.model import build_model
 from repro_torch.serve.clock import VirtualClock
 from repro_torch.serve.engine import Request
+from repro_torch.sharding.rules import ParallelPlan
 from repro_torch.serve.service import (LMReplica, make_lm_service,
                                        service_prometheus_text)
 from repro_torch.weights import params_from_numpy
@@ -168,13 +169,17 @@ def test_bad_speculation_payload_is_a_request_error(stack):
 
 # --------------------------------------------------- port-only behaviour
 def test_later_slice_knobs_raise(stack):
-    """Sharded plans are a later slice: the service raises for them.
-    Speculation arms every replica's engine with its own draft runner,
-    and a self-drafted service replies with the plain service's tokens.
-    The replicas default to the card."""
+    """A plan reaches every replica's engine (the multi-rank service runs
+    in ``tests/test_torch_multirank.py``); a plan without a mesh serves
+    the plain service's tokens. Speculation arms every replica's engine
+    with its own draft runner, and a self-drafted service replies with
+    the plain service's tokens. The replicas default to the card."""
     cfg, model, params = stack
-    with pytest.raises(NotImplementedError, match="sharding"):
-        _svc(model, params, plan=object())
+    plan = ParallelPlan.make(None, cfg, "decode")
+    planned = _svc(model, params, name="lm_plan", n_replicas=2,
+                   batch_size=2, max_seq=32, plan=plan)
+    assert all(r.handler.scheduler.engine.plan is plan
+               for r in planned.replicas)
     spec = _svc(model, params, name="lm_spec2", n_replicas=2, batch_size=2,
                 max_seq=32, draft_model=model, draft_params=params,
                 speculation=2)
@@ -186,6 +191,8 @@ def test_later_slice_knobs_raise(stack):
     payload = {"prompt": [5, 6, 7, 8], "max_new_tokens": 6}
     out = spec.replicas[0].handler(dict(payload))
     assert out["tokens"] == plain.replicas[0].handler(dict(payload))["tokens"]
+    assert planned.replicas[0].handler(dict(payload))["tokens"] == \
+        out["tokens"]
     assert engines[0].metrics["verify_steps"] > 0
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="device"):

@@ -30,6 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 try:
     from hypothesis import given, settings, strategies as st
 except ImportError:  # deterministic local shim, see requirements-dev
@@ -51,6 +53,7 @@ from repro_torch.models import bilstm_lan
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.service import make_lm_service
+from repro_torch.sharding.rules import DTensor, ParallelPlan, Shard
 from repro_torch.train import checkpoint, optimizer as opt_mod, tree
 from repro_torch.train.data import DataConfig, PackedLMDataset, \
     sharded_batches
@@ -124,10 +127,27 @@ def test_batches_equal_reference(dc):
                                   ref.batch(6)["tokens"])
 
 
-def test_sharded_batches_refuses_a_plan():
-    ds = PackedLMDataset(DataConfig(seq_len=8, batch_size=1))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        next(sharded_batches(ds, object(), 1, device="cpu"))
+def test_sharded_batches_refuses_a_plan(tmp_path):
+    """A plan without a mesh yields the plain batches; on a (one-rank)
+    mesh each batch is a DTensor placed by the plan's batch_spec."""
+    ds = PackedLMDataset(DataConfig(seq_len=8, batch_size=2))
+    cfg = get_config("qwen3-4b").reduced()
+    plain = next(sharded_batches(ds, None, 1, device="cpu"))
+    got = next(sharded_batches(ds, ParallelPlan.make(None, cfg), 1,
+                               device="cpu"))
+    assert torch.equal(got["tokens"], plain["tokens"])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        got = next(sharded_batches(ds, ParallelPlan.make(mesh, cfg), 1,
+                                   device="cpu"))
+        assert isinstance(got["tokens"], DTensor)
+        assert got["tokens"].placements[0] == Shard(0)
+        assert torch.equal(got["tokens"].full_tensor(), plain["tokens"])
+    finally:
+        dist.destroy_process_group()
 
 
 # -------------------------------------------------------------- checkpoint
@@ -415,8 +435,10 @@ def test_launcher_refuses_a_mesh(tmp_path):
          "--steps", "1", "--mesh-shape", "2,2", "--ckpt-root",
          str(tmp_path)], env=_launcher_env(), capture_output=True,
         text=True, timeout=300)
+    # without torchrun the launcher is a world of one: a 2 x 2 mesh does
+    # not fit, and it says how to start the four ranks
     assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "item 4" in r.stderr
+    assert "needs 4 ranks" in r.stderr and "torchrun" in r.stderr
 
 
 def test_trained_ner_beats_chance():
