@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; no result line is printed then):
+Phases (any failure exits non-zero; no result line is printed then).
+Each starts by checking that what earlier work dropped is off the card:
+a ``gc.collect()`` there may free at most 64 MiB of device memory, or an
+object kept its tensors in a reference cycle (``free_card``).
 
 1. Environment: the card's name and power limit, torch / CUDA versions.
    Without a GPU it stops here.
@@ -293,10 +296,35 @@ Phases (any failure exits non-zero; no result line is printed then):
    without the plan, the second train step's ms, beside the card's name
    and power limit. The kernel rows carry each kernel's launches in phase 14
    (``plan_launches``).
+15. Configurations never run on the card before, bf16, random weights
+   from seed 0, each served like phase 4 (paged, use_kernel, the 8
+   prompts; launches by ``expected_launches`` counted from 0, the pool
+   drained; not profiled) and then freed: 15a deepseek-7b (30 layers)
+   and minitron-8b (32, squared-ReLU) at full depth, then at 2 layers in
+   f32 kernel path vs plain path (streams identical, logprobs within
+   1e-3); 15b nemotron-4-340b at 2 layers (hd 192, squared-ReLU, V
+   256,000), the f32 check at 1 layer; 15c kimi-k2-1t-a32b at 1 layer
+   (384 experts top-8, hd 112), one request a prefill call, never shared
+   or chunked, then ``moe.moe_ffn`` at B 8 against a direct f32 sum over
+   each token's top-8 experts from the same weights (within 2e-2 of the
+   largest output). 15d, for each of them and for phase 13b's qwen3-4b
+   train step: ``launch.dryrun.build_step`` at the card run's own shape
+   (a stripe decode step at B 8 over full 1024-slot stripes; the train
+   step at B 2 x 1024), analysed on meta (``launch.step_analysis``), and
+   the same step on the card: argument bytes equal the real tensors'
+   exactly, the measured peak (``max_memory_allocated``) at most 1.10 x
+   the predicted one, the roofline bound (``launch.roofline``) at most
+   1.05 x the step's device-busy time (the profiler's kernel and copy
+   times of one step, summed) and of its time (CUDA events, median of
+   10); printed with the model-FLOPs share. Their launches join the serves' sums. Phase 15
+   runs right after phase 2, on a card no other phase has used (its
+   largest models need nearly all of it).
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
 of its serve beside its plain version and its bound from bytes and flops
+(``repro_torch/kernels/costs.py``, the counts ``launch/step_analysis.py``
+reads too)
 (the paged kernel also at the verify window, S 5, and at decode with hd
 112 and 192: ``verify_*``, ``hd112_*``, ``hd192_*``; flash also at
 grok-1-314b's prefill, 48 / 8 heads: ``grok_*``; and non-causal at
@@ -359,6 +387,7 @@ is off for every f32 comparison.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -378,6 +407,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.kernels import costs  # noqa: E402
 from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
                                      PEAK_FLOPS_F32)
 
@@ -404,10 +434,33 @@ PAPER_PARSE_MS = 700            # the paper's "less than 700 ms" a CV
 
 
 _T0 = time.perf_counter()
+CYCLE_SLACK = 64 << 20          # device bytes a gc.collect() may free
 
 
 def phase(name):
+    """Start a phase on a card that holds only what main() still refers
+    to (``free_card``)."""
+    if torch.cuda.is_initialized():
+        free_card()
     print(f"\n=== {name} [{time.perf_counter() - _T0:.1f} s]", flush=True)
+
+
+def free_card():
+    """Return the allocator's cached blocks, after checking that nothing
+    dropped is left on the card in reference cycles: device memory that
+    the cycle collector frees is memory an object (an engine, a service,
+    a train run) kept after its user let it go, and the collector runs
+    on the count of Python objects made, never when the card runs short.
+    Fails if it freed more than CYCLE_SLACK bytes."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    freed = held - torch.cuda.memory_allocated()
+    if freed > CYCLE_SLACK:
+        raise AssertionError(f"the cycle collector freed {freed / 1e9:.3f} "
+                             f"GB of device memory: a dropped object kept "
+                             f"its tensors in a reference cycle")
+    torch.cuda.empty_cache()
 
 
 def gpu_line() -> str:
@@ -1162,68 +1215,40 @@ def sdpa_on_gathered(q, pk, pv, table, base):
                                                   enable_gqa=True)
 
 
-def flash_bound(Bq, Hq, Hkv, S, T, hd, dtype, causal=True):
-    """q, k, v read once and out written once; flops 4 * B * Hq * S * T
-    * hd, halved when causal, at the input type's peak."""
-    es = torch.finfo(dtype).bits // 8
-    nbytes = es * Bq * hd * (2 * S * Hq + 2 * T * Hkv)
+def bound_ms(flops: float, nbytes: float, dtype=torch.float32):
+    """(ms, "bytes" | "operations") of a ``kernels.costs`` pair: the
+    larger of the bytes over the card's memory rate and the operations
+    over its peak for ``dtype``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * Bq * Hq * S * T * hd / (2 if causal else 1) \
-        / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def decode_bound(lens, Hq, Hkv, hd, dtype):
-    """The valid K/V of every row read once, q and the lengths read once,
-    out and lse written once; 4 * hd flops per (query head, valid
-    position) at the input type's peak."""
-    es = torch.finfo(dtype).bits // 8
-    nbytes = (sum(lens) * Hkv * hd * 2 * es + len(lens) * Hq * hd * 2 * es
-              + len(lens) * (Hq + 1) * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * hd * Hq * sum(lens) / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def bound(q, base, S, dtype, Hkv=HKV):
-    """Least time for the work this input needs: the K/V bytes of every
-    visible cached token read once, q read once, out / lse written once;
-    flops 2 * 2 * hd per (query head, visible key) pair."""
-    es = q.element_size()
-    Hq, hd = q.shape[2], q.shape[3]
-    vis = [min(int(b) + S, MAX_BLOCKS * BS) for b in base.tolist()]
-    kv_bytes = sum(vis) * Hkv * hd * 2 * es
-    io_bytes = 2 * q.numel() * es + q.numel() // hd * 4 \
-        + B * (MAX_BLOCKS + 1) * 4
-    pairs = sum(sum(min(b + w + 1, MAX_BLOCKS * BS) for w in range(S))
-                for b in base.tolist()) * Hq
-    flops = 4 * hd * pairs
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _f32_bound(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def flash_bound(Bq, Hq, Hkv, S, T, hd, dtype, causal=True):
+    """``kernels.costs.flash`` as (ms, bound by) at the input type's
+    peak."""
+    return bound_ms(*costs.flash(Bq, Hq, Hkv, S, T, hd, dtype, causal),
+                    dtype)
+
+
+def decode_bound(lens, Hq, Hkv, hd, dtype):
+    return bound_ms(*costs.decode(lens, Hq, Hkv, hd, dtype), dtype)
+
+
+def bound(q, base, S, dtype, Hkv=HKV):
+    """``kernels.costs.paged_window`` of the window case's q and bases
+    over its (B, MAX_BLOCKS) table of BS-token blocks."""
+    return bound_ms(*costs.paged_window(
+        base.tolist(), S, q.shape[2], Hkv, q.shape[3], dtype, BS,
+        MAX_BLOCKS), dtype)
 
 
 def wkv_bound(Bq, T, H, hd):
-    """r, k, v, w and u read once, out written once, the state read and
-    written once, f32; 7 flops per state entry per step (k v product,
-    bonus, r dot, decay FMA)."""
-    nbytes = 4 * (5 * Bq * T * H * hd + H * hd + 2 * Bq * H * hd * hd)
-    return _f32_bound(nbytes, 7 * Bq * T * H * hd * hd)
+    return bound_ms(*costs.wkv(Bq, T, H, hd))
 
 
 def ssm_bound(Bq, T, di, N):
-    """u, dt, B, C, A and D read once, y written once, the state read and
-    written once, f32; 7 operations per state entry per step (dt A, exp,
-    decay, input FMA, C dot) and 2 per channel (dt u, D u)."""
-    nbytes = 4 * (3 * Bq * T * di + 2 * Bq * T * N + di * N + di
-                  + 2 * Bq * di * N)
-    return _f32_bound(nbytes, 7 * Bq * T * di * N + 2 * Bq * T * di)
+    return bound_ms(*costs.ssm(Bq, T, di, N))
 
 
 def step_floor_ms(T):
@@ -2062,11 +2087,9 @@ def profile_parse(parse, doc):
 
 def moe_bound_ms(cfg):
     """The MoE FFN of one decode step's layer reads every expert's
-    weights once (B 8 top-2 tokens reach every expert): bytes over
-    HBM bandwidth."""
-    nmat = 3 if cfg.act in ("swiglu", "geglu") else 2
-    es = torch.finfo(cfg.dtype).bits // 8
-    nbytes = cfg.n_experts * nmat * cfg.d_model * cfg.moe_d_ff * es
+    weights once (``kernels.costs.moe_decode_bytes``): bytes over HBM
+    bandwidth."""
+    nbytes = costs.moe_decode_bytes(cfg)
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
@@ -2496,28 +2519,9 @@ def bwd_inputs(Bq, Hq, Hkv, S, T, hd, dt, seed):
                           (Bq, Hkv, T, hd), (Bq, Hq, S, hd))]
 
 
-def visible_pairs(S, T, causal, window):
-    """(query, key) pairs the masks let through, per head."""
-    i = torch.arange(S)[:, None] + (T - S)
-    j = torch.arange(T)[None, :]
-    m = torch.ones((S, T), dtype=torch.bool)
-    if causal:
-        m &= j <= i
-    if window:
-        m &= j > i - window
-    return int(m.sum())
-
-
 def flash_bwd_bound(Bq, Hq, Hkv, S, T, hd, dtype, causal, window):
-    """q, k, v, out and dout read once, lse read once, dq, dk and dv
-    written once; 10 * hd flops per (query head, visible pair): the
-    recomputed scores, dP, dV, dQ and dK products, at the type's peak."""
-    es = torch.finfo(dtype).bits // 8
-    nbytes = es * Bq * hd * (4 * S * Hq + 4 * T * Hkv) + 4 * Bq * Hq * S
-    flops = 10 * hd * Bq * Hq * visible_pairs(S, T, causal, window)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(*costs.flash_bwd(Bq, Hq, Hkv, S, T, hd, dtype,
+                                     causal, window), dtype)
 
 
 def check_flash_backward(fwd_kernel, bwd_kernel, flash_op, ref_fwd,
@@ -2743,29 +2747,11 @@ def check_scan_backward(name, fwd, bwd, bwd_ref, fwd_ref, ck_ref, case,
 
 
 def wkv_bwd_bound(Bq, T, H, hd):
-    """r, k, v, w, dout and u read once, dr, dk, dv, dw and du written
-    once, the state and the final state's gradient read and dstate
-    written once, f32; 14 flops per state entry per step: the forward
-    once, for S_{t-1} (k v and the decay FMA, 3), dr, dk, dw and dv (an
-    FMA each, 8) and the dS update (r dout and an FMA, 3). The kernel's
-    second forward pass, from its checkpoints, is its own choice and not
-    counted."""
-    nbytes = 4 * (9 * Bq * T * H * hd + 2 * H * hd + 3 * Bq * H * hd * hd)
-    return _f32_bound(nbytes, 14 * Bq * T * H * hd * hd)
+    return bound_ms(*costs.wkv_bwd(Bq, T, H, hd))
 
 
 def ssm_bwd_bound(Bq, T, di, N):
-    """u, dt, dy, B, C, A and D read once, du, ddt, dB, dC, dA and dD
-    written once, the state and the final state's gradient read and
-    dstate written once, f32; 23 operations per state entry per step: the
-    forward once, for h_{t-1} (dt A, exp, dt u times B and the decay FMA,
-    5), the carry of the state's gradient (C dy and an FMA, 3), dC, dB
-    and du (an FMA each, 6), ddt (a h_{t-1}, times A, u B, their sum and
-    an FMA, 6) and dA (g dt and an FMA, 3). The kernel's second forward
-    pass is its own choice and not counted."""
-    nbytes = 4 * (5 * Bq * T * di + 4 * Bq * T * N + 4 * di * N + 4 * di
-                  + 3 * Bq * di * N)
-    return _f32_bound(nbytes, 23 * Bq * T * di * N)
+    return bound_ms(*costs.ssm_bwd(Bq, T, di, N))
 
 
 def time_scan_backward(fwds, bwds, refs, fwd_refs, ops, flush):
@@ -3563,6 +3549,261 @@ def phase14_sharded(get_config, build_model, ServingEngine, Request, card,
     return launches, times
 
 
+# ------------------------------------------------- phase 15: new configs
+# (arch, layers or None for full depth) served paged for the first time on
+# the card, and the depth of each one's f32 kernel-vs-plain check
+NEW_CONFIGS = (("deepseek-7b", None, 2), ("minitron-8b", None, 2),
+               ("nemotron-4-340b", 2, 1), ("kimi-k2-1t-a32b", 1, None))
+PEAK_SLACK = 1.10               # measured peak <= 1.10 x the dry-run's
+SHARE_LIMIT = 1.05              # roofline bound / the step's time <= 1.05
+MOE_TOL = 2e-2                  # kimi's MoE FFN vs the direct f32 sum
+
+
+def _cut(get_config, arch, layers, dtype=None):
+    cfg = get_config(arch)
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
+    return replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def serve_new_config(cfg, model, params, fns, ServingEngine, Request):
+    """Phase 4's paged serve of ``cfg`` (8 greedy prompts, use_kernel):
+    launches by ``expected_launches`` counted from 0, the pool drained;
+    an MoE model prefills one request a call and never shares or
+    chunks. Returns {name: launches}."""
+    for fn in fns:
+        fn.launches = 0
+    eng, reqs, done, wall = serve(cfg, params, model, ServingEngine, Request,
+                                  use_kernel=True)
+    launches = {fn.__name__: fn.launches for fn in fns}
+    check_outputs(reqs, done, cfg.vocab_size)
+    m, stats = eng.metrics, eng.pool_stats()
+    print("metrics:", json.dumps(m))
+    print("pool:", json.dumps(stats))
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s")
+    check_launches(fns, launches, cfg, m)
+    if cfg.n_experts and (not (m["prefill_batches"] == m["prefills"]
+                               == len(reqs)) or m["shared_admissions"]
+                          or m["chunk_steps"]):
+        raise AssertionError("MoE admission must prefill one request a "
+                             "call, share nothing and never chunk")
+    if stats["used"] or stats["available"] != stats["total"] \
+            or stats["logical_blocks"]:
+        raise AssertionError(f"pool did not drain: {stats}")
+    return launches
+
+
+def kernel_vs_plain_f32(cfg, build_model, ServingEngine, Request):
+    """Phase 5's check on ``cfg`` (f32): the kernel path's token streams
+    equal the plain path's, logprobs within 1e-3."""
+    model = build_model(cfg, device="cuda")
+    params = model.init(SEED)
+    _, rk, dk, wk = serve(cfg, params, model, ServingEngine, Request,
+                          use_kernel=True)
+    _, rp, dp, wp = serve(cfg, params, model, ServingEngine, Request,
+                          use_kernel=False)
+    check_outputs(rk, dk, cfg.vocab_size)
+    check_outputs(rp, dp, cfg.vocab_size)
+    err = streams_equal(rk, rp, f"{cfg.name} {cfg.n_layers} layers f32 "
+                        f"kernel vs plain", lp_tol=1e-3)
+    print(f"{cfg.name}, {cfg.n_layers} layer(s), f32: kernel path token "
+          f"streams identical to the plain path's; max |logprob diff| "
+          f"{err:.3e} (tol 1e-3); kernel run {wk:.3f} s, plain run "
+          f"{wp:.3f} s")
+
+
+def moe_vs_direct_sum(cfg, params):
+    """kimi's ``moe.moe_ffn`` at B 8 (bf16) against a direct f32 sum over
+    each token's top-k experts, from the same weights and the same
+    routing (the router's f32 softmax, its top-k renormalised): max
+    |difference| within MOE_TOL of the largest output."""
+    from repro_torch.models import moe
+    p0 = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = torch.randn((B, 1, cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(7), device="cuda").to(cfg.dtype)
+    with torch.no_grad():
+        out = moe.moe_ffn(x, p0, cfg)[0].reshape(B, -1).float()
+        x2 = x.reshape(B, -1).float()
+        probs = torch.softmax(x2 @ p0["router"], dim=-1)
+        w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+        w, ids = w[:, :cfg.top_k], ids[:, :cfg.top_k]
+        w = w / w.sum(-1, keepdim=True)
+        ref = torch.zeros_like(x2)
+        for t in range(B):
+            for j in range(cfg.top_k):
+                e = int(ids[t, j])
+                h = torch.nn.functional.silu(
+                    x2[t] @ p0["w_gate"][e].float()) \
+                    * (x2[t] @ p0["w_in"][e].float())
+                ref[t] += w[t, j] * (h @ p0["w_out"][e].float())
+    err = float((out - ref).abs().max())
+    top = float(ref.abs().max())
+    print(f"{cfg.name} MoE FFN, B {B}, one layer, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}: max |moe_ffn - direct f32 sum| {err:.3e} of "
+          f"the largest output {top:.3e} (tol {MOE_TOL} of it)")
+    if not err <= MOE_TOL * top:
+        raise AssertionError(f"MoE FFN differs from the direct sum by {err}")
+
+
+def card_inputs(model, shape):
+    """A step's inputs on the card at ``shape``: seeded tokens; for
+    decode a zeroed stripe cache whose rows are full but for the new
+    token (``cache_len`` = capacity - 1: the decode kernel reads the
+    whole stripe, as the dry-run counts it)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    V = model.cfg.vocab_size
+    B_, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"batch": {"tokens": torch.randint(
+            0, V, (B_, S + 1), generator=g, device="cuda",
+            dtype=torch.int32)}}
+    return {"token": torch.randint(0, V, (B_, 1), generator=g,
+                                   device="cuda", dtype=torch.int32),
+            "cache": model.init_cache(B_, S),
+            "cache_len": torch.tensor(S - 1, dtype=torch.int32,
+                                      device="cuda")}
+
+
+def dryrun_vs_card(cfg, shape, build_model):
+    """Phase 15d: the dry-run's ``build_step`` at the card run's own shape
+    (plan-free, as the card runs it), analysed on meta, against the same
+    step on the card: (i) argument bytes equal the real tensors' bytes,
+    (ii) the measured peak within PEAK_SLACK of the predicted one, (iii)
+    the roofline bound at most SHARE_LIMIT of the step's device-busy
+    time (the profiler's kernel and copy times of one step, summed) and
+    of its time (CUDA events, median of 10). The eager step leaves the
+    card idle between launches, so only the busy time holds the analysis'
+    FLOP and byte counts to a limit that an overcount would break.
+    Returns the numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.step_analysis import analyze
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    meta_step = build_step(cfg, shape, device="meta")
+    _, stats = analyze(meta_step.fn, *meta_step.args)
+    rec = dict(meta_step.meta, mesh="none",
+               memory={"peak_bytes_per_device": stats.peak_bytes},
+               analysis=stats.as_record())
+    rl = roofline.from_record(rec)
+    torch.cuda.synchronize()
+    free_card()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device="cuda")
+    step = build_step(cfg, shape, device="cuda", seed=SEED,
+                      inputs=card_inputs(model, shape))
+    real = sum(t.numel() * t.element_size() for t in _leaves(step.args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step.fn(*step.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(10):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step.fn(*step.args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step.fn(*step.args)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    bound_ms = rl.bound_s * 1e3
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "kind": shape.kind,
+           "batch": shape.global_batch, "seq_len": shape.seq_len,
+           "argument_bytes": stats.argument_bytes, "real_bytes": real,
+           "peak_bytes": stats.peak_bytes, "measured_peak_bytes": peak,
+           "flops": stats.flops, "hbm_bytes": stats.hbm_bytes,
+           "compute_ms": rl.compute_s * 1e3, "memory_ms": rl.memory_s * 1e3,
+           "dominant": rl.dominant, "bound_ms": bound_ms, "ms": ms,
+           "share": bound_ms / ms, "busy_ms": busy_ms,
+           "busy_share": bound_ms / busy_ms,
+           "model_flops_share": rl.model_flops / (ms * 1e-3
+                                                   * PEAK_FLOPS_BF16),
+           "kernel_launches": dict(stats.kernel_launches)}
+    print(f"15d {cfg.name}, {cfg.n_layers} layers, {shape.kind} B "
+          f"{shape.global_batch} x {shape.seq_len}: argument bytes "
+          f"{stats.argument_bytes} predicted, {real} real; peak "
+          f"{stats.peak_bytes / 1e9:.3f} GB predicted, {peak / 1e9:.3f} GB "
+          f"measured ({peak / stats.peak_bytes:.3f}x); compute "
+          f"{out['compute_ms']:.4f} ms, memory {out['memory_ms']:.4f} ms: "
+          f"{rl.dominant}-bound at {bound_ms:.4f} ms; step {ms:.4f} ms "
+          f"(median of 10): share {out['share']:.3f}; device busy "
+          f"{busy_ms:.4f} ms: share {out['busy_share']:.3f}; model-FLOPs "
+          f"share {out['model_flops_share']:.4f}; launches "
+          f"{json.dumps(out['kernel_launches'])}")
+    if stats.argument_bytes != real:
+        raise AssertionError(f"argument bytes {stats.argument_bytes} != "
+                             f"{real}")
+    if peak > PEAK_SLACK * stats.peak_bytes:
+        raise AssertionError(f"measured peak {peak} above {PEAK_SLACK} x "
+                             f"the predicted {stats.peak_bytes}")
+    if max(out["share"], out["busy_share"]) > SHARE_LIMIT:
+        raise AssertionError(f"roofline bound {bound_ms} ms is above "
+                             f"{SHARE_LIMIT} x the step's {ms} ms or its "
+                             f"{busy_ms} ms of device-busy time")
+    del step, model
+    free_card()
+    return out
+
+
+def phase15(get_config, build_model, ServingEngine, Request, fns):
+    """15a-15c: the configurations never served on the card before, each
+    served paged at the depth NEW_CONFIGS gives, then its f32 kernel vs
+    plain check (kimi: its MoE FFN vs the direct sum); 15d: the dry-run
+    against the card for each of them at a B-8 stripe decode step and
+    for phase 13b's qwen3-4b train step. Returns (launches summed over
+    the serves, 15d's numbers)."""
+    from repro_torch.configs.shapes import InputShape
+    decode = InputShape("card_decode", "decode", STRIPE_T, B)
+    launches, checks = {}, []
+    for arch, layers, f32_layers in NEW_CONFIGS:
+        cfg = _cut(get_config, arch, layers)
+        label = {"deepseek-7b": "15a", "minitron-8b": "15a",
+                 "nemotron-4-340b": "15b"}.get(arch, "15c")
+        phase(f"{label}. serve {arch} ({cfg.n_layers} layers), bf16, paged, "
+              f"use_kernel=True")
+        free_card()
+        print(f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+              f"before the model")
+        model = build_model(cfg, device="cuda")
+        t0 = time.perf_counter()
+        params = model.init(SEED)
+        torch.cuda.synchronize()
+        print(f"d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+              f"{cfg.hd}, act {cfg.act}, vocab {cfg.vocab_size}: "
+              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+              f"params, {sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
+              f" GB, init {time.perf_counter() - t0:.1f} s")
+        for name, n in serve_new_config(cfg, model, params, fns,
+                                        ServingEngine, Request).items():
+            launches[name] = launches.get(name, 0) + n
+        if cfg.n_experts:
+            moe_vs_direct_sum(cfg, params)
+        del params, model
+        free_card()
+        if f32_layers:
+            kernel_vs_plain_f32(_cut(get_config, arch, f32_layers,
+                                     torch.float32), build_model,
+                                ServingEngine, Request)
+            free_card()
+        checks.append(dryrun_vs_card(cfg, decode, build_model))
+    phase("15d. the dry-run against the card: qwen3-4b's train step")
+    train = InputShape("card_train", "train", TRAIN_S, TRAIN_B)
+    checks.append(dryrun_vs_card(_cut(get_config, "qwen3-4b", TRAIN_LAYERS),
+                                 train, build_model))
+    print("launches of the phase-15 serves:", json.dumps(launches))
+    print("dryrun vs card:", json.dumps(checks))
+    return launches, checks
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -3611,6 +3852,8 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {len(libs)} CUDA source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
+    paged_fns = (pw_kernel.paged_window_attention,
+                 flash_kernel.flash_attention)
     tool_dir = Path(_build.nvcc()).parent
     print_ptxas(_build.BUILD_DIR, tool_dir)
     print_sass_checks(libs, tool_dir)
@@ -3619,6 +3862,12 @@ def main() -> int:
     scan_split = scan_bwd_launch_split(
         (wkv_kernel.wkv_scan, ssm_kernel.ssm_scan),
         (wkv_bwd.wkv_bwd, ssm_bwd.ssm_scan_bwd))
+    # phase 15 runs on a card no other phase has used: the largest of its
+    # models (nemotron-4-340b's 2 layers, 32.8 GB, and their f32 twin at
+    # 1 layer, ~52 GB) need nearly all of it, and main() holds earlier
+    # phases' models and results until it returns
+    new_launches, _ = phase15(get_config, build_model, ServingEngine,
+                              Request, paged_fns)
 
     phase("3. kernels vs plain versions on the card (TF32 off)")
     max_err = check_kernel_vs_plain(paged_window_attention)
@@ -3652,8 +3901,6 @@ def main() -> int:
     print(f"{n_params / 1e9:.3f} B params, "
           f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
           f" GB, init {time.perf_counter() - t0:.1f} s")
-    paged_fns = (pw_kernel.paged_window_attention,
-                 flash_kernel.flash_attention)
     for fn in paged_fns:
         fn.launches = 0
     eng, reqs, done, wall = serve(cfg, params, model, ServingEngine, Request,
@@ -4120,6 +4367,10 @@ def main() -> int:
         get_config, build_model, ServingEngine, Request, card,
         {fn.__name__: fn for fn in train_fns} | {"decode_op":
                                                  decode_attention})
+
+    for name, n in new_launches.items():
+        serve_launches[name] = serve_launches.get(name, 0) + n
+    print("launches summed over the serves:", json.dumps(serve_launches))
 
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,

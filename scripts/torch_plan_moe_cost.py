@@ -15,9 +15,14 @@ enqueued back to back, then one synchronise) and the device's ms a call
 stripes of 1024, DTensor params under the plan) of full-width
 grok-1-314b at 2 layers and qwen3-4b at 36, without and with the plan,
 timed the same way over ``--steps`` steps: where the plan's serve loses
-time, host or device. ``--profile`` also prints the host functions
-that take most of the planned qwen3-4b step (``cProfile``, by own time).
-Prints the card's name and power limit and one JSON line.
+time, host or device. Then one stripe-decode launch at the qwen3-4b
+step's shape through its ``torch.library`` op and through the direct
+ctypes call the op wraps, ``TURNS`` times each in turns (op, direct,
+direct, op, ...) over ``--calls`` x 10 calls: what the op's dispatch
+costs the host a launch.
+``--profile`` also prints the host functions that take most of the
+planned qwen3-4b step (``cProfile``, by own time). Prints the card's
+name and power limit and one JSON line.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import dataclasses
 import io
 import json
 import pstats
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -44,6 +50,9 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.sharding.rules import ParallelPlan  # noqa: E402
+
+
+TURNS = 6
 
 
 def timed(fn, calls: int) -> tuple:
@@ -100,6 +109,32 @@ def decode_steps(arch, layers, mesh, counts, steps, profile) -> dict:
     return out
 
 
+def op_dispatch_us(calls: int, turns: int) -> dict:
+    """Host and device microseconds of one stripe-decode launch at
+    qwen3-4b's decode shape (B 8, 32 / 8 heads of 128, a full 1024-slot
+    stripe, bf16) through the kernel's op and through the direct ctypes
+    launch it wraps, in turns: the medians and every turn."""
+    from repro_torch.kernels.decode_attention import kernel as dec
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((8, 32, 128), generator=g, device="cuda").bfloat16()
+    kv = torch.randn((8, 8, 1024, 128), generator=g,
+                     device="cuda").bfloat16()
+    n = torch.full((8,), 1024, dtype=torch.int32, device="cuda")
+    routes = {"ops": lambda: dec._op(q, kv, kv, n, 0),
+              "direct": lambda: dec._launch(q, kv, kv, n, 0)}
+    runs = {"ops": [], "direct": []}
+    with torch.no_grad():
+        for t in range(turns):
+            for route in (("ops", "direct") if t % 2 == 0
+                          else ("direct", "ops")):
+                host, device = timed(routes[route], calls)
+                runs[route].append((host * 1e3, device * 1e3))
+    return {route: {"host_us": statistics.median(h for h, _ in r),
+                    "device_us": statistics.median(d for _, d in r),
+                    "turns": r}
+            for route, r in runs.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--calls", type=int, default=200)
@@ -144,6 +179,7 @@ def main() -> int:
                     out[name] = {"collectives_a_call": per_call,
                                  "host_ms": host, "device_ms": device}
             del p, x
+            dispatch = op_dispatch_us(args.calls * 10, TURNS)
             steps = {}
             for arch, layers in (("grok-1-314b", 2), ("qwen3-4b", 36)):
                 steps[f"{arch}_{layers}_layers"] = decode_steps(
@@ -155,6 +191,7 @@ def main() -> int:
                          text=True).stdout.strip())
     print(json.dumps({"moe_decode_b8_one_layer": out,
                       "decode_step_b8": steps,
+                      "decode_launch_b8": dispatch,
                       "weight_fsdp": plan.weight_fsdp,
                       "moe_mode": plan.moe_mode}))
     return 0

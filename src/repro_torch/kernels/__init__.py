@@ -1,7 +1,63 @@
-"""Hand-written Hopper kernels, each beside its plain PyTorch version."""
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+One predicate, :func:`kernel_route`, sends a call to a kernel: CUDA
+tensors launch it, meta tensors (the dry-run's, ``launch/dryrun.py``)
+call its op, and CPU tensors take its plain version. Every launch is a
+``torch.library`` op (:func:`kernel_op`) whose CUDA implementation is the
+``ctypes`` launch, whose fake (meta) implementation gives its outputs'
+shapes, and whose cost (``costs.py``) is its FLOP formula for
+``torch.utils.flop_counter`` and its FLOPs and bytes for
+``launch/step_analysis.py``, which sees a launch as one op of its real
+shapes.
+"""
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+
+def kernel_route(t) -> bool:
+    """Whether a call on ``t`` takes the hand-written kernel: on CUDA and
+    meta tensors it does; on the CPU the plain PyTorch version runs."""
+    return t.device.type in ("cuda", "meta")
+
+
+# the op's overload packet -> its cost function over the op's arguments
+COSTS: dict = {}
+
+
+# the library that owns the kernels' ops (kept alive with this module)
+_LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def kernel_op(name: str, schema: str, launch, fake, cost):
+    """Define the op ``repro_torch::<name>(schema)`` with ``launch`` (the
+    ctypes launch) as its CUDA implementation, ``fake`` as its meta one,
+    and ``cost`` ((flops, bytes) from the op's arguments) as its FLOP
+    formula. Returns the op, which a wrapper calls with the op's
+    arguments. The op is defined through ``Library.define`` /
+    ``impl``, not ``torch.library.custom_op``, whose Python wrapper
+    adds host time to every launch; ``scripts/torch_plan_moe_cost.py``
+    times an op against the launch it wraps."""
+    _LIB.define(name + schema)
+    _LIB.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    packet = getattr(torch.ops.repro_torch, name)
+    op = packet.default
+    COSTS[packet] = cost
+
+    @register_flop_formula(packet, get_raw=True)
+    def _flops(*args, out_val=None, **kwargs):
+        return cost(*args, **kwargs)[0]
+
+    return op
+
+
+def check_device(name: str, t) -> None:
+    """A kernel takes CUDA tensors, and meta ones for its op's shapes."""
+    if not kernel_route(t):
+        raise ValueError(f"{name} kernel needs CUDA tensors, got "
+                         f"{t.device}")
 
 
 def refuse_grad(op: str, *tensors) -> None:

@@ -14,6 +14,8 @@ device and stream; it launches on the current CUDA stream without
 synchronising, and a launch CUDA refuses raises. The last split of a row
 to finish merges the row inside the kernel, so a call is one launch:
 ``decode_attention.launches`` counts them.
+The launch is the CUDA implementation of the op
+``repro_torch::decode_attention`` (``kernels.kernel_op``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad, stream_scratch
+from repro_torch.kernels import (_build, check_device, costs, kernel_op,
+                                 refuse_grad, stream_scratch)
 from repro_torch.kernels.flash_attention.kernel import (check_strided,
                                                        rows_aligned)
 
@@ -123,9 +126,7 @@ def _launcher():
 
 
 def _check(q, k, v, n_valid):
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention kernel needs CUDA tensors, got q "
-                         f"on {q.device}")
+    check_device("decode_attention", q)
     for name, t in (("k", k), ("v", v), ("n_valid", n_valid)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -160,13 +161,16 @@ def decode_attention(q, k, v, n_valid, *, sliding_window: int = 0):
     f32 or bf16 alike, any strides with head-dim stride 1; n_valid (B,)
     int32. Row b attends to positions ``[max(0, n - window), min(n, T))``,
     ``n = n_valid[b]``. Returns (out (B,Hq,hd) in q.dtype, lse (B,Hq)
-    f32)."""
+    f32). On meta tensors the op gives their shapes."""
     _check(q, k, v, n_valid)
     refuse_grad("decode_attention", q, k, v)
+    return _op(q, k, v, n_valid, int(sliding_window))
+
+
+def _launch(q, k, v, n_valid, sliding_window):
     B, Hq, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+    out, lse = _fake(q)
     if B == 0 or Hq == 0:
         return out, lse
     p = plan(B, Hq, Hkv, T, hd, q.element_size())
@@ -179,7 +183,7 @@ def decode_attention(q, k, v, n_valid, *, sliding_window: int = 0):
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       n_valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
                       *part, B, Hq, Hkv, T, hd, *strides,
-                      int(sliding_window), int(rows_aligned(q, k, v)),
+                      sliding_window, int(rows_aligned(q, k, v)),
                       p.split_len, p.n_splits, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError_t "
@@ -188,4 +192,25 @@ def decode_attention(q, k, v, n_valid, *, sliding_window: int = 0):
     return out, lse
 
 
+def _fake(q, *_):
+    B, Hq, hd = q.shape
+    return (torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device),
+            torch.empty((B, Hq), dtype=torch.float32, device=q.device))
+
+
+def _cost(q, k, v, n_valid, sliding_window):
+    """The work of the lengths this call holds; on meta tensors, whose
+    values are unknown, every row's stripe is full."""
+    Hq, hd = q.shape[1], q.shape[2]
+    Hkv, T = k.shape[1], k.shape[2]
+    n = [T] * q.shape[0] if n_valid.device.type == "meta" \
+        else n_valid.tolist()
+    lens = [costs.visible(x, sliding_window, T) for x in n]
+    return costs.decode(lens, Hq, Hkv, hd, q.dtype)
+
+
+_op = kernel_op("decode_attention",
+                "(Tensor q, Tensor k, Tensor v, Tensor n_valid, "
+                "int sliding_window) -> (Tensor, Tensor)",
+                _launch, _fake, _cost)
 decode_attention.launches = 0

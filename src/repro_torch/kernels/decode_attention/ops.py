@@ -3,15 +3,17 @@ sequence-sharded (flash-decoding) variant.
 
 Tensors on the CPU take the plain PyTorch version in ``ref.py``; CUDA
 tensors take the CUDA kernel in ``kernel.py``, which raises on what it
-cannot run. There is no fallback from one to the other. The reference's
-``bk`` is a TPU tile size: it is dropped here, and no multiple-of-tile
-gate applies. ``force_ref`` (tests and ``chip_smoke.py`` only) takes the
-plain version on any device.
+cannot run. There is no fallback from one to the other. Meta tensors
+take the kernel's route (``kernels.kernel_route``), where its op gives
+the outputs' shapes. The reference's ``bk`` is a TPU tile size: it is
+dropped here, and no multiple-of-tile gate applies. ``force_ref`` (tests
+and ``chip_smoke.py`` only) takes the plain version on any device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import kernel_route
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       merge_partials)
@@ -24,7 +26,7 @@ def decode_attention(q, k, v, n_valid, *, sliding_window: int = 0,
     """q (B,Hq,hd), k/v (B,Hkv,T,hd); n_valid an int, a 0-d tensor or a
     (B,) tensor of valid positions per row (the reference takes one for
     the batch). Returns (out (B,Hq,hd) in q.dtype, lse (B,Hq) f32)."""
-    if force_ref or q.device.type == "cpu":
+    if force_ref or not kernel_route(q):
         return decode_attention_ref(q, k, v, n_valid,
                                     sliding_window=sliding_window)
     n = torch.as_tensor(n_valid, device=q.device)

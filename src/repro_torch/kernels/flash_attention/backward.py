@@ -9,7 +9,9 @@ the inputs' dtype; lse is the forward's (B, Hq, S) f32 log-sum-exp. It
 launches twice on the current CUDA stream (dQ, which also writes the
 row sums D = rowsum(dO * O) to a scratch, then dK / dV) without
 synchronising; a launch CUDA refuses raises.
-``flash_attention_bwd.launches`` counts successful calls.
+``flash_attention_bwd.launches`` counts successful calls. The launch
+is the CUDA implementation of the op ``repro_torch::flash_attention_bwd``
+(``kernels.kernel_op``).
 
 ``plan`` is the dK / dV launch's work list on both routes, a function of
 shapes and of the route (``route``: the keys of a CTA, the queries of an
@@ -28,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, stream_scratch
+from repro_torch.kernels import _build, costs, kernel_op, stream_scratch
 from repro_torch.kernels.flash_attention import kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
@@ -192,20 +194,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """The gradient of ``kernel.flash_attention`` at (q, k, v): q / out /
     dout (B,Hq,S,hd), k/v (B,Hkv,T,hd) on one CUDA device, f32 or bf16
     alike; lse (B,Hq,S) f32 from the forward. Returns (dq, dk, dv),
-    contiguous, in q.dtype; a row that saw no key gets 0 and adds 0."""
+    contiguous, in q.dtype; a row that saw no key gets 0 and adds 0. On
+    meta tensors the op gives their shapes."""
     _check(q, k, v, out, lse, dout)
+    return _op(q, k, v, out, lse, dout, bool(causal), int(sliding_window))
+
+
+def _launch(q, k, v, out, lse, dout, causal, sliding_window):
     B, Hq, S, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    dq, dk, dv = _fake(q, k, v)
     if B == 0 or Hq == 0 or S == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dsum = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rt = route(q.dtype, hd)
-    p, rows = _plan_on(q.device, B, Hq, Hkv, S, T, bool(causal),
-                       int(sliding_window), rt)
+    p, rows = _plan_on(q.device, B, Hq, Hkv, S, T, causal, sliding_window,
+                       rt)
     part, cnt = stream_scratch("flash_attention_bwd", q.device, stream, (
         (B * Hkv * p.n_slots * 2 * rt.key_tile * rt.hdp, torch.float32,
          False),
@@ -218,7 +223,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                       dsum.data_ptr(), rows.data_ptr(), part.data_ptr(),
                       cnt.data_ptr(), B, Hq, Hkv, S, T, hd, *strides,
-                      int(bool(causal)), int(sliding_window), int(vec),
+                      int(causal), int(sliding_window), int(vec),
                       kernel.DTYPES[q.dtype], len(p.entries), p.n_slots,
                       stream)
     if err:
@@ -228,4 +233,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     return dq, dk, dv
 
 
+def _fake(q, k, v, *_):
+    return tuple(torch.empty(t.shape, dtype=q.dtype, device=q.device)
+                 for t in (q, k, v))
+
+
+def _cost(q, k, v, out, lse, dout, causal, sliding_window):
+    B, Hq, S, hd = q.shape
+    return costs.flash_bwd(B, Hq, k.shape[1], S, k.shape[2], hd, q.dtype,
+                           causal, sliding_window)
+
+
+_op = kernel_op("flash_attention_bwd",
+                "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+                "Tensor dout, bool causal, int sliding_window) -> "
+                "(Tensor, Tensor, Tensor)", _launch, _fake, _cost)
 flash_attention_bwd.launches = 0

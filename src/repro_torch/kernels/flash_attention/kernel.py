@@ -8,7 +8,9 @@ copy. The wrapper checks device, dtype, shape and strides, allocates
 (the autograd route of ``ops``), the rows' log-sum-exp (B, Hq, S) f32
 for the backward kernel (``backward.py``), and launches on the current
 CUDA stream without synchronising; a launch CUDA refuses raises.
-``flash_attention.launches`` counts successful launches.
+``flash_attention.launches`` counts successful launches. The launch is
+the CUDA implementation of the op ``repro_torch::flash_attention``
+(``kernels.kernel_op``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, check_device, costs, kernel_op,
+                                 refuse_grad)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
 MAX_HEAD_DIM = 256
@@ -71,9 +74,7 @@ def rows_aligned(*tensors) -> bool:
 
 
 def _check(q, k, v):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention kernel needs CUDA tensors, got q "
-                         f"on {q.device}")
+    check_device("flash_attention", q)
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -106,32 +107,54 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
     i sits at absolute position ``T - S + i``. Returns out (B,Hq,S,hd) in
     q.dtype, with ``with_lse`` (out, lse (B,Hq,S) f32; -inf for a row
     that sees no key). A call autograd would record raises: the
-    differentiable route is ``ops.FlashAttention``."""
+    differentiable route is ``ops.FlashAttention``. On meta tensors the
+    op gives the outputs' shapes."""
     _check(q, k, v)
     refuse_grad("flash_attention", q, k, v)
+    out, lse = _op(q, k, v, bool(causal), int(sliding_window),
+                   bool(with_lse))
+    return (out, lse) if with_lse else out
+
+
+def _launch(q, k, v, causal, sliding_window, with_lse):
     B, Hq, S, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) \
-        if with_lse else None
+    lse = torch.empty((B, Hq, S) if with_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     if B == 0 or S == 0 or Hq == 0 or T == 0:
         if T == 0:
             out.zero_()
-            if lse is not None:
-                lse.fill_(float("-inf"))
-        return (out, lse) if with_lse else out
+            lse.fill_(float("-inf"))
+        return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), None if lse is None else lse.data_ptr(),
-                      B, Hq, Hkv, S, T, hd, *strides, int(bool(causal)),
+                      out.data_ptr(), lse.data_ptr() if with_lse else None,
+                      B, Hq, Hkv, S, T, hd, *strides, int(causal),
                       int(sliding_window), int(rows_aligned(q, k, v)),
                       DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t "
                            f"{err}")
     flash_attention.launches += 1
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
+def _fake(q, k, v, causal, sliding_window, with_lse):
+    B, Hq, S, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, Hq, S) if with_lse else (0,),
+                                            dtype=torch.float32)
+
+
+def _cost(q, k, v, causal, sliding_window, with_lse):
+    B, Hq, S, hd = q.shape
+    return costs.flash(B, Hq, k.shape[1], S, k.shape[2], hd, q.dtype, causal,
+                       sliding_window, with_lse)
+
+
+_op = kernel_op("flash_attention",
+                "(Tensor q, Tensor k, Tensor v, bool causal, "
+                "int sliding_window, bool with_lse) -> (Tensor, Tensor)",
+                _launch, _fake, _cost)
 flash_attention.launches = 0

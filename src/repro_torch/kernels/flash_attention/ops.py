@@ -1,13 +1,15 @@
 """Public ops for blocked causal / sliding-window GQA attention.
 
-Tensors on the CPU take the plain PyTorch version in ``ref.py`` (autograd
-differentiates it); CUDA tensors take the CUDA kernel in ``kernel.py``,
-which raises on what it cannot run. When grad mode is on and q, k or v
-requires grad, the CUDA call goes through ``FlashAttention``, an
-autograd function whose forward also saves the rows' log-sum-exp and
-whose backward is the CUDA kernel in ``backward.py``; otherwise the
-forward launches alone, as serving runs it. There is no fallback from
-one to the other. The reference's ``bq`` / ``bk`` are TPU tile sizes:
+Tensors on the CPU take the plain PyTorch version in ``ref.py``
+(autograd differentiates it); CUDA tensors take the CUDA kernel in
+``kernel.py``, which raises on what it cannot run. When grad mode is on
+and q, k or v requires grad, the CUDA call goes through
+``FlashAttention``, an autograd function whose forward also saves the
+rows' log-sum-exp and whose backward is the CUDA kernel in
+``backward.py``; otherwise the forward launches alone, as serving runs
+it. There is no fallback from one to the other. Meta tensors take the
+kernel's route (``kernels.kernel_route``), where its op gives the
+outputs' shapes. The reference's ``bq`` / ``bk`` are TPU tile sizes:
 they are dropped here, and no multiple-of-tile gate applies (the kernel
 takes any S, T >= 1). ``force_ref`` (tests and ``chip_smoke.py`` only)
 takes the plain version on any device.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import kernel_route
 from repro_torch.kernels.flash_attention import backward, kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -50,7 +53,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                     force_ref: bool = False):
     """q (B,Hq,S,hd), k/v (B,Hkv,T,hd) -> (B,Hq,S,hd) in q.dtype; query i
     at absolute position ``T - S + i``."""
-    if force_ref or q.device.type == "cpu":
+    if force_ref or not kernel_route(q):
         return flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=sliding_window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

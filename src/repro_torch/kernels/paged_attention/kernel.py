@@ -12,6 +12,8 @@ the f32 partials with ``torch.empty``, and launches on the current CUDA
 stream without synchronising; a launch CUDA refuses raises. One call
 launches the split kernel and, with more than one split, the merge
 kernel: ``paged_window_attention.launches`` counts calls.
+The launch is the CUDA implementation of the op
+``repro_torch::paged_window_attention`` (``kernels.kernel_op``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, check_device, costs, kernel_op,
+                                 refuse_grad)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_window.cu"
 # the head dims the kernels are instantiated on: a head dim hd (a
@@ -139,9 +142,7 @@ def _launcher():
 
 
 def _check(q, pool_k, pool_v, block_table, base_lens):
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_window kernel needs CUDA tensors, got q on "
-                         f"{q.device}")
+    check_device("paged_window", q)
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v),
                     ("block_table", block_table), ("base_lens", base_lens)):
         if t.device != q.device:
@@ -184,12 +185,17 @@ def paged_window_attention(q, pool_k, pool_v, block_table, base_lens, *,
     hd); block_table (B, max_blocks) int32; base_lens (B,) int32 — all
     contiguous on one CUDA device, q and pool f32 or bf16. Window query
     w of row b attends to cache positions ``[0, base_lens[b] + w]``.
-    Returns (out (B,S,Hq,hd) in q.dtype, lse (B,S,Hq) f32)."""
+    Returns (out (B,S,Hq,hd) in q.dtype, lse (B,S,Hq) f32). On meta
+    tensors the op gives their shapes."""
     _check(q, pool_k, pool_v, block_table, base_lens)
     refuse_grad("paged_window_attention", q, pool_k, pool_v)
+    return _op(q, pool_k, pool_v, block_table, base_lens,
+               int(sliding_window))
+
+
+def _launch(q, pool_k, pool_v, block_table, base_lens, sliding_window):
     B, S, Hq, hd = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
+    out, lse = _fake(q)
     if B == 0 or S == 0:
         return out, lse
     _, bs, Hkv, _ = pool_k.shape
@@ -210,7 +216,7 @@ def paged_window_attention(q, pool_k, pool_v, block_table, base_lens, *,
                       out.data_ptr(), lse.data_ptr(),
                       part_o.data_ptr() if part_o is not None else None,
                       part_lse.data_ptr() if part_lse is not None else None,
-                      B, S, Hq, Hkv, hd, bs, max_blocks, int(sliding_window),
+                      B, S, Hq, Hkv, hd, bs, max_blocks, sliding_window,
                       p.tile_blocks, p.split_blocks, p.n_splits,
                       int(p.mma), _DTYPES[q.dtype], stream)
     if err:
@@ -220,4 +226,26 @@ def paged_window_attention(q, pool_k, pool_v, block_table, base_lens, *,
     return out, lse
 
 
+def _fake(q, *_):
+    B, S, Hq, _ = q.shape
+    return torch.empty_like(q), torch.empty((B, S, Hq), dtype=torch.float32,
+                                            device=q.device)
+
+
+def _cost(q, pool_k, pool_v, block_table, base_lens, sliding_window):
+    """The work of the bases this call holds; on meta tensors, whose
+    values are unknown, each row's window ends at the table's end."""
+    B, S, Hq, hd = q.shape
+    _, bs, Hkv, _ = pool_k.shape
+    max_blocks = block_table.shape[1]
+    bases = [max_blocks * bs - S] * B if base_lens.device.type == "meta" \
+        else base_lens.tolist()
+    return costs.paged_window(bases, S, Hq, Hkv, hd, q.dtype, bs, max_blocks,
+                              sliding_window)
+
+
+_op = kernel_op("paged_window_attention",
+                "(Tensor q, Tensor pool_k, Tensor pool_v, Tensor block_table, "
+                "Tensor base_lens, int sliding_window) -> (Tensor, Tensor)",
+                _launch, _fake, _cost)
 paged_window_attention.launches = 0

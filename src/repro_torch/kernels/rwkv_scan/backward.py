@@ -14,6 +14,8 @@ device, dtype, shape and contiguity, allocates the gradients with
 synchronising; a shape the kernel does not take, or a launch CUDA
 refuses, raises. ``wkv_bwd.launches`` counts successful calls (two
 device launches each).
+The launch is the CUDA implementation of the op
+``repro_torch::wkv_bwd`` (``kernels.kernel_op``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, stream_scratch
+from repro_torch.kernels import _build, costs, kernel_op, stream_scratch
 from repro_torch.kernels.flash_attention.kernel import rows_aligned
 from repro_torch.kernels.rwkv_scan import kernel
 
@@ -105,7 +107,7 @@ def wkv_bwd(r, k, v, w, u, state, ck, dout, dstate_out):
     wrote for these inputs, contiguous float32 on one CUDA device (dout
     and dstate_out the gradients of out and the final state). Returns
     (dr, dk, dv, dw, du, dstate), float32, as ``ref.wkv_bwd_ref``
-    computes them."""
+    computes them. On meta tensors the op gives their shapes."""
     kernel._check(r, k, v, w, u, state)
     B, T, H, hd = r.shape
     for name, t, shape in (
@@ -115,13 +117,17 @@ def wkv_bwd(r, k, v, w, u, state, ck, dout, dstate_out):
                 or t.device != r.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"{tuple(shape)} on {r.device}")
-    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    return _op(r, k, v, w, u, state, ck, dout, dstate_out)
+
+
+def _launch(r, k, v, w, u, state, ck, dout, dstate_out):
+    B, T, H, hd = r.shape
+    dr, dk, dv, dw, du, dstate = _fake(r, k, v, w, u, state)
     if B == 0 or T == 0:
         for t in (dr, dk, dv, dw):
             t.zero_()
-        return dr, dk, dv, dw, torch.zeros_like(u), dstate_out.clone()
+        return dr, dk, dv, dw, du.zero_(), dstate_out.clone()
     sizes = _scratch_sizes(B, T, H, hd)
-    du, dstate = torch.empty_like(u), torch.empty_like(state)
     stream = torch.cuda.current_stream(r.device)
     (dupart,) = stream_scratch(
         "wkv_bwd", r.device, stream.cuda_stream,
@@ -139,4 +145,18 @@ def wkv_bwd(r, k, v, w, u, state, ck, dout, dstate_out):
     return dr, dk, dv, dw, du, dstate
 
 
+def _fake(r, k, v, w, u, state, *_):
+    return (*(torch.empty_like(r) for _ in range(4)), torch.empty_like(u),
+            torch.empty_like(state))
+
+
+def _cost(r, *_):
+    return costs.wkv_bwd(*r.shape)
+
+
+_op = kernel_op("wkv_bwd",
+                "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+                "Tensor state, Tensor ck, Tensor dout, Tensor dstate_out) -> "
+                "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+                _launch, _fake, _cost)
 wkv_bwd.launches = 0

@@ -11,7 +11,8 @@ stage; else 16, in a ring of two). The wrapper checks device, dtype,
 shape and contiguity, allocates ``out`` / the final state with
 ``torch.empty``, and launches on the current CUDA stream without
 synchronising; a launch CUDA refuses raises. ``wkv_scan.launches``
-counts successful launches.
+counts successful launches. The launch is the CUDA implementation of
+the op ``repro_torch::wkv_scan`` (``kernels.kernel_op``).
 
 With ``checkpoints=True`` (the training forward of ``ops.WKV``) the
 kernel's checkpoint instantiation also writes the state after every 8th
@@ -29,7 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, check_device, costs, kernel_op,
+                                 refuse_grad)
 from repro_torch.kernels.flash_attention.kernel import rows_aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
@@ -113,9 +115,7 @@ def _launcher():
 def _check(r, k, v, w, u, state):
     named = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
              ("state", state))
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv kernel needs CUDA tensors, got r on "
-                         f"{r.device}")
+    check_device("wkv", r)
     for name, t in named:
         if t.device != r.device:
             raise ValueError(f"{name} on {t.device}, r on {r.device}")
@@ -140,28 +140,46 @@ def wkv_scan(r, k, v, w, u, state, *, checkpoints: bool = False):
     contiguous float32 on one CUDA device. Returns (out (B,T,H,hd),
     final state (B,H,hd,hd)), both float32, and with ``checkpoints`` the
     states after every 8th step short of the last, transposed, (B, H,
-    checkpoint_count(T), hd, hd) float32."""
+    checkpoint_count(T), hd, hd) float32. On meta tensors the op gives
+    their shapes."""
     _check(r, k, v, w, u, state)
     refuse_grad("wkv_scan", r, k, v, w, u, state)
+    out, state_out, ck = _op(r, k, v, w, u, state, bool(checkpoints))
+    return (out, state_out) + ((ck,) if checkpoints else ())
+
+
+def _launch(r, k, v, w, u, state, checkpoints):
     B, T, H, hd = r.shape
-    out = torch.empty_like(r)
-    ck = (r.new_empty((B, H, checkpoint_count(T), hd, hd)) if checkpoints
-          else None)
+    out, state_out, ck = _fake(r, k, v, w, u, state, checkpoints)
     if B == 0 or T == 0:
-        return (out, state.clone()) + ((ck,) if checkpoints else ())
+        return out, state.clone(), ck
     p = plan(B, T, H, hd)
-    state_out = torch.empty_like(state)
     vec = rows_aligned(r, k, v, w, state, out, state_out)  # ck too: fresh
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                       u.data_ptr(), state.data_ptr(), out.data_ptr(),
-                      state_out.data_ptr(),
-                      ck.data_ptr() if ck is not None and ck.numel() else None,
-                      B, T, H, hd, p.lanes, p.chunk, int(vec), stream)
+                      state_out.data_ptr(), ck.data_ptr() if ck.numel()
+                      else None, B, T, H, hd, p.lanes, p.chunk, int(vec),
+                      stream)
     if err:
         raise RuntimeError(f"wkv_scan launch failed: cudaError_t {err}")
     wkv_scan.launches += 1
-    return (out, state_out) + ((ck,) if checkpoints else ())
+    return out, state_out, ck
 
 
+def _fake(r, k, v, w, u, state, checkpoints):
+    B, T, H, hd = r.shape
+    ck = r.new_empty((B, H, checkpoint_count(T), hd, hd) if checkpoints
+                     else (0,))
+    return torch.empty_like(r), torch.empty_like(state), ck
+
+
+def _cost(r, k, v, w, u, state, checkpoints):
+    return costs.wkv(*r.shape, checkpoints)
+
+
+_op = kernel_op("wkv_scan",
+                "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+                "Tensor state, bool checkpoints) -> (Tensor, Tensor, Tensor)",
+                _launch, _fake, _cost)
 wkv_scan.launches = 0

@@ -8,14 +8,17 @@ autograd function whose forward also writes the state every 8 steps and
 whose backward, the CUDA kernel in ``backward.py``, walks back from
 those checkpoints; otherwise the forward launches alone, as serving runs
 it, and writes nothing more. There is no fallback from one to the other.
-Unlike the reference's TPU route, no sequence-length gate applies: the
-kernel takes any T >= 1. ``force_ref`` (tests and ``chip_smoke.py``
-only) takes the plain version on any device.
+Meta tensors take the kernel's route (``kernels.kernel_route``), where
+its op gives the outputs' shapes. Unlike the reference's TPU route, no
+sequence-length gate applies: the kernel takes any T >= 1. ``force_ref``
+(tests and ``chip_smoke.py`` only) takes the plain version on any
+device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import kernel_route
 from repro_torch.kernels.rwkv_scan import backward, kernel
 from repro_torch.kernels.rwkv_scan.ref import wkv_ref
 
@@ -48,7 +51,7 @@ class WKV(torch.autograd.Function):
 def wkv(r, k, v, w, u, state, *, force_ref: bool = False):
     """r/k/v/w (B,T,H,hd) f32, u (H,hd), state (B,H,hd,hd) f32. Returns
     (out (B,T,H,hd) f32, final state)."""
-    if force_ref or r.device.type == "cpu":
+    if force_ref or not kernel_route(r):
         return wkv_ref(r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):

@@ -17,6 +17,8 @@ gradients with ``torch.empty``, and launches on the current CUDA stream
 without synchronising; a shape the kernel does not take, or a launch
 CUDA refuses, raises. ``ssm_scan_bwd.launches`` counts successful calls
 (two device launches each).
+The launch is the CUDA implementation of the op
+``repro_torch::ssm_scan_bwd`` (``kernels.kernel_op``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, stream_scratch
+from repro_torch.kernels import _build, costs, kernel_op, stream_scratch
 from repro_torch.kernels.flash_attention.kernel import rows_aligned
 from repro_torch.kernels.ssm_scan import kernel
 
@@ -112,7 +114,7 @@ def ssm_scan_bwd(u, dt, Bm, Cm, A, D, state, ck, dy, dstate_out):
     wrote for these inputs, contiguous float32 on one CUDA device (dy and
     dstate_out the gradients of y and the final state). Returns (du, ddt,
     dB, dC, dA, dD, dstate), float32, as ``ref.ssm_scan_bwd_ref``
-    computes them."""
+    computes them. On meta tensors the op gives their shapes."""
     kernel._check(u, dt, Bm, Cm, A, D, state)
     B, T, di = u.shape
     N = Bm.shape[-1]
@@ -123,13 +125,18 @@ def ssm_scan_bwd(u, dt, Bm, Cm, A, D, state, ck, dy, dstate_out):
                 or t.device != u.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"{tuple(shape)} on {u.device}")
-    grads = [torch.empty_like(t) for t in (u, dt, Bm, Cm, A, D)]
+    return _op(u, dt, Bm, Cm, A, D, state, ck, dy, dstate_out)
+
+
+def _launch(u, dt, Bm, Cm, A, D, state, ck, dy, dstate_out):
+    B, T, di = u.shape
+    N = Bm.shape[-1]
+    *grads, dstate = _fake(u, dt, Bm, Cm, A, D, state)
     if B == 0 or T == 0 or di == 0:
         for t in grads:
             t.zero_()
         return (*grads, dstate_out.clone())
     sizes = _scratch_sizes(B, T, di, N)
-    dstate = torch.empty_like(state)
     stream = torch.cuda.current_stream(u.device)
     partB, partC, dApart, dDpart = stream_scratch(
         "ssm_scan_bwd", u.device, stream.cuda_stream,
@@ -148,4 +155,17 @@ def ssm_scan_bwd(u, dt, Bm, Cm, A, D, state, ck, dy, dstate_out):
     return (*grads, dstate)
 
 
+def _fake(u, dt, Bm, Cm, A, D, state, *_):
+    return tuple(torch.empty_like(t) for t in (u, dt, Bm, Cm, A, D, state))
+
+
+def _cost(u, dt, Bm, *_):
+    return costs.ssm_bwd(*u.shape, Bm.shape[-1])
+
+
+_op = kernel_op("ssm_scan_bwd",
+                "(Tensor u, Tensor dt, Tensor Bm, Tensor Cm, Tensor A, "
+                "Tensor D, Tensor state, Tensor ck, Tensor dy, "
+                "Tensor dstate_out) -> (Tensor, Tensor, Tensor, Tensor, "
+                "Tensor, Tensor, Tensor)", _launch, _fake, _cost)
 ssm_scan_bwd.launches = 0

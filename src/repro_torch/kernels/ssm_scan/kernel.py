@@ -6,7 +6,9 @@ two entries a lane (the next power of two >= N / 2 lanes, at most 32).
 The wrapper checks device, dtype, shape and contiguity, allocates ``y``
 / the final state with ``torch.empty``, and launches on the current CUDA
 stream without synchronising; a launch CUDA refuses raises.
-``ssm_scan.launches`` counts successful launches.
+``ssm_scan.launches`` counts successful launches. The launch is the
+CUDA implementation of the op ``repro_torch::ssm_scan``
+(``kernels.kernel_op``).
 
 With ``checkpoints=True`` (the training forward of
 ``ops.SelectiveScan``) the kernel's checkpoint instantiation also writes
@@ -23,7 +25,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import (_build, check_device, costs, kernel_op,
+                                 refuse_grad)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 MAX_STATE = 64                 # h of a channel lives in 32 lanes' registers
@@ -57,9 +60,7 @@ def _launcher():
 def _check(u, dt, Bm, Cm, A, D, state):
     named = (("u", u), ("dt", dt), ("Bm", Bm), ("Cm", Cm), ("A", A),
              ("D", D), ("state", state))
-    if u.device.type != "cuda":
-        raise ValueError(f"ssm_scan kernel needs CUDA tensors, got u on "
-                         f"{u.device}")
+    check_device("ssm_scan", u)
     for name, t in named:
         if t.device != u.device:
             raise ValueError(f"{name} on {t.device}, u on {u.device}")
@@ -89,27 +90,45 @@ def ssm_scan(u, dt, Bm, Cm, A, D, state, *, checkpoints: bool = False):
     state (B,di,N): contiguous float32 on one CUDA device. Returns
     (y (B,T,di), final state (B,di,N)), both float32, and with
     ``checkpoints`` the states after every 8th step short of the last,
-    (B, checkpoint_count(T), di, N) float32."""
+    (B, checkpoint_count(T), di, N) float32. On meta tensors the op gives
+    their shapes."""
     _check(u, dt, Bm, Cm, A, D, state)
     refuse_grad("ssm_scan", u, dt, Bm, Cm, A, D, state)
+    y, state_out, ck = _op(u, dt, Bm, Cm, A, D, state, bool(checkpoints))
+    return (y, state_out) + ((ck,) if checkpoints else ())
+
+
+def _launch(u, dt, Bm, Cm, A, D, state, checkpoints):
     B, T, di = u.shape
     N = Bm.shape[-1]
-    y = torch.empty_like(u)
-    ck = (u.new_empty((B, checkpoint_count(T), di, N)) if checkpoints
-          else None)
+    y, state_out, ck = _fake(u, dt, Bm, Cm, A, D, state, checkpoints)
     if B == 0 or T == 0 or di == 0:
-        return (y, state.clone()) + ((ck,) if checkpoints else ())
-    state_out = torch.empty_like(state)
+        return y, state.clone(), ck
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = _launcher()(u.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
                       Cm.data_ptr(), A.data_ptr(), D.data_ptr(),
                       state.data_ptr(), y.data_ptr(), state_out.data_ptr(),
-                      ck.data_ptr() if ck is not None and ck.numel() else None,
+                      ck.data_ptr() if ck.numel() else None,
                       B, T, di, N, stream)
     if err:
         raise RuntimeError(f"ssm_scan launch failed: cudaError_t {err}")
     ssm_scan.launches += 1
-    return (y, state_out) + ((ck,) if checkpoints else ())
+    return y, state_out, ck
 
 
+def _fake(u, dt, Bm, Cm, A, D, state, checkpoints):
+    B, T, di = u.shape
+    ck = u.new_empty((B, checkpoint_count(T), di, Bm.shape[-1])
+                     if checkpoints else (0,))
+    return torch.empty_like(u), torch.empty_like(state), ck
+
+
+def _cost(u, dt, Bm, Cm, A, D, state, checkpoints):
+    return costs.ssm(*u.shape, Bm.shape[-1], checkpoints)
+
+
+_op = kernel_op("ssm_scan",
+                "(Tensor u, Tensor dt, Tensor Bm, Tensor Cm, Tensor A, "
+                "Tensor D, Tensor state, bool checkpoints) -> "
+                "(Tensor, Tensor, Tensor)", _launch, _fake, _cost)
 ssm_scan.launches = 0

@@ -8,7 +8,9 @@ and an input requires grad, the CUDA call goes through
 state every 8 steps and whose backward, the CUDA kernel in
 ``backward.py``, walks back from those checkpoints; otherwise the
 forward launches alone, as serving runs it, and writes nothing more.
-There is no fallback from one to the other. Unlike the reference's TPU
+There is no fallback from one to the other. Meta tensors take the
+kernel's route (``kernels.kernel_route``), where its op gives the
+outputs' shapes. Unlike the reference's TPU
 route, no sequence-length or width gate applies: the kernel takes any
 T >= 1 and any d_inner. ``force_ref`` (tests and ``chip_smoke.py``
 only) takes the plain version on any device.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import kernel_route
 from repro_torch.kernels.ssm_scan import backward, kernel
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -49,7 +52,7 @@ class SelectiveScan(torch.autograd.Function):
 def selective_scan(u, dt, Bm, Cm, A, D, state, *, force_ref: bool = False):
     """u/dt (B,T,di), Bm/Cm (B,T,N), A (di,N), D (di,), state (B,di,N),
     all f32. Returns (y (B,T,di), final state), both f32."""
-    if force_ref or u.device.type == "cpu":
+    if force_ref or not kernel_route(u):
         return ssm_scan_ref(u, dt, Bm, Cm, A, D, state)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (u, dt, Bm, Cm, A, D, state)):

@@ -31,3 +31,25 @@ PEAK_FLOPS_F32 = 67e12        # FLOP/s, outside the tensor cores
 HBM_BW = 3.35e12              # B/s, HBM3
 NVLINK_BW = 450e9             # B/s each way: NVLink 4, 18 links x 25 GB/s
 #                               (the data sheet's 900 GB/s is both ways)
+NET_BW = 50e9                 # B/s each way: one 400 Gb/s NDR InfiniBand port
+#                               a GPU (ConnectX-7), as in a DGX H100 (DGX
+#                               H100 data sheet)
+GPUS_PER_NODE = 8             # an HGX / DGX H100 node: 8 cards on NVLink
+HBM_BYTES = 80e9              # device memory (data sheet: 80 GB)
+
+
+def link_bw(shape: dict, axis: str) -> float:
+    """The rate of the link a collective over ``axis`` of a mesh of
+    ``shape`` ({axis: size}, mesh order, ranks laid out row-major)
+    crosses: NVLink when the axis's ranks lie within one node of
+    ``GPUS_PER_NODE`` consecutive ranks, else the network. An axis of the
+    (16, 16) production meshes crosses nodes: ``model`` spans 16 ranks,
+    ``data`` and ``pod`` stride over 16. A group that is no axis of the
+    mesh crosses the network."""
+    if axis not in shape:
+        return NET_BW
+    names = list(shape)
+    stride = 1
+    for a in names[names.index(axis) + 1:]:
+        stride *= shape[a]
+    return NVLINK_BW if stride * shape[axis] <= GPUS_PER_NODE else NET_BW

@@ -3,7 +3,8 @@ prefill, and single-token / multi-token-window decode against the paged
 KV block pool or the fixed per-slot stripe cache; cross-attention to
 precomputed encoder K / V (whisper's decoder), unmasked.
 
-On CUDA tensors the hot paths take the hand-written CUDA kernels, the
+On CUDA tensors the hot paths take the hand-written CUDA kernels (on
+meta tensors their ops: ``kernels.kernel_route``), the
 sites where the reference means its Pallas kernels to run on a TPU: prefill
 attention goes through ``kernels.flash_attention`` and the stripe decode
 read through ``kernels.decode_attention`` (the stripe read in place,
@@ -37,6 +38,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import kernel_route
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention as _decode_kernel)
 from repro_torch.kernels.decode_attention.ref import merge_partials
@@ -153,7 +155,7 @@ def causal_attention(q, k, v, *, sliding_window: int = 0, causal: bool = True):
     the score tensor never materializes at (S, T)."""
     B, S, Hq, hd = q.shape
     T = k.shape[1]
-    if q.is_cuda:
+    if kernel_route(q):
         return attention_bshd(q, k, v, causal=causal,
                               sliding_window=sliding_window) \
             .reshape(B, S, Hq * hd)
@@ -325,7 +327,7 @@ def stripe_decode_attention(q, k_cache, v_cache, k_new, v_new, cache_len, *,
     idx = cache_len.reshape(-1).expand(B)
     _stripe_write(k_cache, k_new, idx[:, None].long())
     _stripe_write(v_cache, v_new, idx[:, None].long())
-    if q.is_cuda:
+    if kernel_route(q):
         out, _ = _decode_kernel(q[:, 0], k_cache.transpose(1, 2),
                                 v_cache.transpose(1, 2), idx + 1,
                                 sliding_window=sliding_window)

@@ -10,6 +10,7 @@ params tree explicitly, as in the JAX reference:
     decode_step(params, token, cache, cache_len[, block_table=...])
     verify_step(params, tokens, cache, cache_len[, block_table=...])
     init_cache(batch_size, capacity)                    -> zeroed stripes
+    input_specs(shape)                                  -> meta stand-ins
     init_paged_cache(num_blocks, block_size)            -> zeroed pool
 
 Batch dicts: train ``{"tokens": (B, S+1) int}``, prefill ``{"tokens":
@@ -209,11 +210,13 @@ def _whole_outside_layers(params, plan):
 def _split_rows(plan, lead, dim: int):
     """``plan`` bound to the mesh axes dim ``dim`` of ``lead`` (a DTensor
     input, or None) is sharded over, with a function that takes this
-    rank's rows of a whole per-row tensor."""
+    rank's rows of a per-row tensor, whole or a DTensor."""
     rows = plan.shard_of(lead, dim)[0] if isinstance(lead, DTensor) else ()
     plan = plan.bind(rows)
 
     def mine(t):
+        if isinstance(t, DTensor):      # placed by batch_spec: its rows
+            return plan.local_block(t, plan._rows_spec(t.ndim))
         if not rows or t is None or t.ndim == 0:
             return t
         n = t.shape[0] // plan.axis_size(rows)
@@ -424,6 +427,36 @@ class Model:
         if last_idx is not None:
             x = _rows_at(x, last_idx)
         return _logits(params, cfg, x, plan), new_cache
+
+    # ---------------- shape stand-ins ----------------
+    def input_specs(self, shape) -> dict:
+        """Meta stand-ins of a step's inputs for the dry-run, at the
+        reference's shapes and dtypes (no allocation): ``{"batch"}`` for
+        train (tokens (B, S + 1)) and prefill (tokens (B, S)), the vision
+        frontend's patch prefix taking its share of S and the audio
+        frontend's frames beside; for decode, one token against a cache
+        of capacity S (:meth:`init_cache` on meta) and a scalar
+        ``cache_len``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def spec(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            n = S + (shape.kind == "train")
+            batch = {"tokens": spec((B, n))}
+            if cfg.frontend == "vision":
+                batch["tokens"] = spec((B, n - cfg.n_patches))
+                batch["patch_embeds"] = spec((B, cfg.n_patches, cfg.d_model),
+                                             cfg.dtype)
+            if cfg.frontend == "audio":
+                batch["frames"] = spec((B, cfg.n_frames, cfg.d_model),
+                                       cfg.dtype)
+            return {"batch": batch}
+        meta = Model(cfg, torch.device("meta"))
+        return {"token": spec((B, 1)), "cache": meta.init_cache(B, S),
+                "cache_len": spec(())}
 
     # ---------------- cache ----------------
     def init_cache(self, batch_size: int, capacity: int):

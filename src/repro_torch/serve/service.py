@@ -34,6 +34,20 @@ from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.telemetry import MetricsRegistry, prometheus_text
 
 
+def _scheduler_metrics(sched: Scheduler) -> dict:
+    st = sched.stats
+    return {"admitted": st.admitted, "completed": st.completed,
+            "rejected": st.rejected, "shed": st.shed,
+            "ticks": st.ticks, "queue_peak": st.queue_peak,
+            "queue_depth": len(sched.queue),
+            "slo_hits": st.slo_hits, "slo_misses": st.slo_misses,
+            "planned_ahead": st.planned_ahead,
+            "plan_hits": st.plan_hits,
+            "latency_p50_s": st.percentile(0.50),
+            "latency_p99_s": st.percentile(0.99),
+            "queue_wait_mean_s": st.mean_queue_wait_s()}
+
+
 @dataclass
 class LMReplica:
     """One engine-backed deployment of an LM service.
@@ -59,26 +73,16 @@ class LMReplica:
         # one metrics namespace per replica, labelled by replica name so
         # expositions from many replicas merge without collisions. The
         # engine/pool/scheduler/loop stats dicts stay the single source
-        # of truth — the registry polls them at collection time.
-        eng = self.scheduler.engine
+        # of truth — the registry polls them at collection time. No source
+        # refers back to the replica: a cycle through its registry would
+        # keep the engine's params and pool on the device after the
+        # replica is dropped, until the cycle collector happened to run.
+        eng, loop, sched = self.scheduler.engine, self.loop, self.scheduler
         self.registry = MetricsRegistry(labels={"replica": self.name})
         self.registry.source("engine", lambda: eng.metrics)
         self.registry.source("pool", eng.pool_stats)
-        self.registry.source("loop", lambda: self.loop.metrics)
-        self.registry.source("scheduler", self._scheduler_metrics)
-
-    def _scheduler_metrics(self) -> dict:
-        st = self.scheduler.stats
-        return {"admitted": st.admitted, "completed": st.completed,
-                "rejected": st.rejected, "shed": st.shed,
-                "ticks": st.ticks, "queue_peak": st.queue_peak,
-                "queue_depth": len(self.scheduler.queue),
-                "slo_hits": st.slo_hits, "slo_misses": st.slo_misses,
-                "planned_ahead": st.planned_ahead,
-                "plan_hits": st.plan_hits,
-                "latency_p50_s": st.percentile(0.50),
-                "latency_p99_s": st.percentile(0.99),
-                "queue_wait_mean_s": st.mean_queue_wait_s()}
+        self.registry.source("loop", lambda: loop.metrics)
+        self.registry.source("scheduler", lambda: _scheduler_metrics(sched))
 
     def prometheus_text(self) -> str:
         """This replica's metrics as one Prometheus text exposition."""

@@ -29,17 +29,19 @@ def leaves(tree) -> list:
 
 def unflatten(like, new_leaves) -> object:
     """``like``'s structure with its leaves replaced, in ``leaves`` order."""
-    it = iter(new_leaves)
+    return _build(like, iter(new_leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}          # the caller's key order
-        if isinstance(t, (list, tuple)):
-            return [build(v) for v in t]
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # a module function, not a closure that calls itself: that closure
+    # would be a reference cycle holding ``it``, and with it the leaves,
+    # until the cycle collector ran
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}          # the caller's key order
+    if isinstance(t, (list, tuple)):
+        return [_build(v, it) for v in t]
+    return next(it)
 
 
 def tree_map(fn, tree, *rest) -> object:

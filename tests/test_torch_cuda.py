@@ -2031,3 +2031,116 @@ def test_one_rank_plan_serves_and_trains_through_the_kernels(one_rank_mesh):
         assert flash_bwd.flash_attention_bwd.launches == cfg.n_layers
         losses[mesh is None] = float(m["loss"])
     assert abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[True])
+
+
+def _op_cases():
+    """(name, module, the op's arguments) of every kernel launch, at small
+    shapes: each forward and, from its outputs, each backward."""
+    from repro_torch.kernels.flash_attention import backward as fbwd
+    from repro_torch.kernels.rwkv_scan import backward as wbwd
+    from repro_torch.kernels.ssm_scan import backward as sbwd
+    g = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(shape, generator=g).to("cuda", dt)
+    q, pk, pv, table, base = _case(2, 5, 8, 2, 64, 16, 4, torch.bfloat16)
+    fq, fk, fv, fdo = rnd(2, 8, 33, 64), rnd(2, 2, 40, 64), \
+        rnd(2, 2, 40, 64), rnd(2, 8, 33, 64)
+    out, lse = flash_kernel._launch(fq, fk, fv, True, 0, True)
+    wargs = _wkv_case(1, 19, 2, 32, 4)
+    wout, wst, wck = wkv_kernel._launch(*wargs, True)
+    sargs = _ssm_case(1, 19, 40, 16, 5)
+    sy, sst, sck = ssm_kernel._launch(*sargs, True)
+    return [
+        ("paged_window_attention", pw_kernel,
+         (q, pk, pv, table, base, 0)),
+        ("flash_attention", flash_kernel, (fq, fk, fv, True, 7, False)),
+        ("flash_attention lse", flash_kernel, (fq, fk, fv, True, 0, True)),
+        ("flash_attention_bwd", fbwd, (fq, fk, fv, out, lse, fdo, True, 0)),
+        ("decode_attention", decode_kernel,
+         (rnd(2, 8, 64), rnd(2, 2, 300, 64), rnd(2, 2, 300, 64),
+          torch.tensor([1, 300], dtype=torch.int32, device="cuda"), 0)),
+        ("wkv_scan", wkv_kernel, (*wargs, False)),
+        ("wkv_scan checkpoints", wkv_kernel, (*wargs, True)),
+        ("wkv_bwd", wbwd, (*wargs, wck, rnd(*wout.shape),
+                           rnd(*wst.shape))),
+        ("ssm_scan", ssm_kernel, (*sargs, False)),
+        ("ssm_scan checkpoints", ssm_kernel, (*sargs, True)),
+        ("ssm_scan_bwd", sbwd, (*sargs, sck, rnd(*sy.shape),
+                                rnd(*sst.shape))),
+    ]
+
+
+def test_kernel_ops_equal_direct_launches(cuda):
+    """Each kernel's torch.library op (``kernels.kernel_op``) gives on the
+    card the bits of its direct ctypes launch, and each route adds one to
+    the wrapper's launch count; the op's fake implementation gives the
+    launch's shapes and dtypes on meta tensors. A wrapper that refuses a
+    call under grad refuses it through its op."""
+    for name, mod, args in _op_cases():
+        counter = getattr(mod, name.split()[0])
+        before = counter.launches
+        got = mod._op(*args)
+        want = mod._launch(*args)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2, name
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            assert torch.equal(a, b), name
+        meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
+        for a, b in zip(mod._op(*meta), want):
+            assert a.device.type == "meta", name
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+    fq, fk, fv = _op_cases()[1][2][:3]
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_kernel.flash_attention(fq.clone().requires_grad_(True), fk, fv)
+
+
+def test_dropped_engine_and_service_free_the_card(cuda):
+    """With the cycle collector off, a served engine and an LM service
+    that answered a request give every byte of their params, caches and
+    pool back once dropped: the second round of each (the first makes
+    the kernels' scratch and the sampler's state) ends on the allocated
+    bytes it began with."""
+    import gc
+    from repro_torch.core.supervisor import Supervisor
+    from repro_torch.serve.service import make_lm_service
+    cfg = get_config("qwen3-4b").reduced()
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (5, 20, 9)]
+
+    def serve():
+        model = build_model(cfg, device="cuda")
+        eng = ServingEngine(model, model.init(0), batch_size=4, max_seq=64,
+                            block_size=8, use_kernel=True)
+        eng.run([Request(rid=i, prompt=p, max_new_tokens=4)
+                 for i, p in enumerate(prompts)])
+
+    def service():
+        model = build_model(cfg, device="cuda")
+        sup = Supervisor()
+        svc = make_lm_service("lm", model, model.init(0), batch_size=4,
+                              max_seq=64, use_kernel=True, supervisor=sup)
+        sup.start_all()
+        rep = svc.replicas[0].handler
+        rep.loop.start()
+        try:
+            assert len(svc({"prompt": prompts[0], "max_new_tokens": 3})
+                       ["tokens"]) == 3
+        finally:
+            rep.loop.stop()
+            sup.stop_all()
+
+    gc.collect()
+    gc.disable()
+    try:
+        for case in (serve, service):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                case()
+                torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated() == held, case.__name__
+    finally:
+        gc.enable()
