@@ -223,7 +223,12 @@ object kept its tensors in a reference cycle (``free_card``).
    B 8 T 1, T 17, T 300 and d_inner 3,204 (a ragged channel tail), with
    hymba's A (-1 .. -16) and steps where exp(dt A) underflows to 0: each
    gradient within 1e-4 of its largest magnitude, two calls bitwise
-   equal, nothing NaN. Then the paged-window and decode ops (which
+   equal, nothing NaN. The same checks, and the serving forwards against
+   their plain versions, at the shard shapes a plan's tensor-parallel
+   bodies give a rank at the train shape: WKV on 2 and 8 heads of 64
+   (rwkv6's 32 over a model axis of 16 / 4), the scan on d_inner 200 and
+   800 (hymba's 3200 over 16 / 4; 200 has a ragged channel tail). Then
+   the paged-window and decode ops (which
    serve only) and the WKV and selective-scan kernels called directly
    raise on an input that requires grad (no plain fallback) and run
    under no_grad, and the WKV and selective-scan ops run under grad
@@ -280,7 +285,12 @@ object kept its tensors in a reference cycle (``free_card``).
    with the stripe cache placed by ``cache_spec`` (DTensors: the stripes'
    sequence over model, the SSM state's channels / the WKV state's heads
    over model), greedy, against the same steps without a plan: tokens
-   identical, scan and decode launches exactly L a step. 14d the
+   identical, scan and decode launches exactly L a step; then
+   full-width whisper-tiny: phase 12's prompts and frames prefilled under
+   a prefill plan (DTensor params, the batch placed by ``batch_spec``)
+   and 4 greedy decode steps under a decode plan on stripes placed by
+   ``cache_spec``, against the same without a plan: tokens identical,
+   logits within 1e-2, flash 12 + 4 a step and decode 4 a step. 14d the
    sequence-sharded decode body (``attention.seq_shard_decode``) for 4
    simulated ranks at hymba-1.5b's decode shape (25 / 5 heads of 64, B 8,
    a 4096 stripe, window 2048), lengths straddling each shard edge and
@@ -290,7 +300,10 @@ object kept its tensors in a reference cycle (``free_card``).
    error of one key). 14e full-width qwen3-4b, 4
    layers, bf16, remat, 2 AdamW steps of B 2 x 1024 under a train plan
    (DTensor params and state) against ``plan=None``: losses within 1e-5
-   relative, flash forward 2 and backward 1 launches a layer a step.
+   relative, flash forward 2 and backward 1 launches a layer a step;
+   then the same for full-width rwkv6-1.6b and hymba-1.5b at 4 layers:
+   losses within 1e-5 relative, launches a layer a step WKV forward 2
+   and backward 1; flash 2 + 1, scan 2 + 1.
    14f ``python -m repro_torch.launch.train --mesh-shape 1,1 --steps 2``:
    the reference's lines. One line of times: serve tok/s with and
    without the plan, the second train step's ms, beside the card's name
@@ -2658,6 +2671,12 @@ WKV_BWD_SHAPES = (WKV_TRAIN, (8, 1, 32, 64), (2, 17, 32, 64),
                   (1, PREFILL_T, 32, 64), (4, 64, 4, 32))
 SSM_BWD_SHAPES = (SSM_TRAIN, (8, 1, 3200, 16), (2, 17, 3200, 16),
                   (1, PREFILL_T, 3200, 16), (2, 64, 3204, 16))
+# 13a also: the shapes a plan's tensor-parallel bodies give each rank at
+# the train shape: rwkv6-1.6b's 32 heads over a model axis of 16 / 4,
+# hymba-1.5b's d_inner 3,200 over 16 / 4 (200 channels: 12 CTAs of 16 and
+# a ragged tail of 8)
+WKV_SHARD_SHAPES = ((TRAIN_B, TRAIN_S, 2, 64), (TRAIN_B, TRAIN_S, 8, 64))
+SSM_SHARD_SHAPES = ((TRAIN_B, TRAIN_S, 200, 16), (TRAIN_B, TRAIN_S, 800, 16))
 
 
 def wkv_bwd_case(Bq, T, H, hd, *, seed=0):
@@ -3172,6 +3191,7 @@ def bwd_launch_split(fwd_kernel, bwd_kernel, calls=10):
 # ------------------------------------------------------------ phase 14
 PLAN_STEPS = 8                  # 14c's greedy decode steps
 PLAN_B, PLAN_P = 4, 64          # 14c's rows and prompt length
+PLAN_WHISPER_STEPS = 4          # 14c's whisper-tiny decode steps
 SHARD_T, SHARD_RANKS = 4096, 4  # 14d: hymba's stripe over 4 ranks
 # 14d's lengths after the write: each shard edge (1024, 2048, 3072) from
 # both sides, the stripe's end, and window (2048) starts on either side
@@ -3248,6 +3268,41 @@ def plan_decode_steps(model, params, cfg, plan, fns):
             outs.append(logits[:, -1].float())
         torch.cuda.synchronize()
     return toks, torch.stack(outs), {fn.__name__: fn.launches for fn in fns}
+
+
+def plan_whisper_steps(model, params, cfg, mesh, fns):
+    """Phase 14c, whisper-tiny: phase 12's prompts and frames prefilled,
+    then PLAN_WHISPER_STEPS greedy decode steps on the stripes; with
+    ``mesh`` the prefill under a prefill plan (DTensor params, the batch
+    placed by ``batch_spec``) and the steps under a decode plan with the
+    stripes placed by ``cache_spec``, else plan-free. Returns (tokens,
+    the prefill's and every step's logits, launches over prefill and
+    steps)."""
+    from repro_torch.sharding.rules import DTensor, ParallelPlan
+    batch, last = frontend_inputs(cfg, SEED + 5)
+    pplan = dplan = None
+    if mesh is not None:
+        pplan = ParallelPlan.make(mesh, cfg, "prefill")
+        dplan = ParallelPlan.make(mesh, cfg, "decode")
+        params = pplan.param_shardings(params)
+        batch = pplan.input_shardings(batch)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero(fns)
+        logits, kv = model.prefill(params, batch, last_idx=last, plan=pplan)
+        kv = {k: v.full_tensor() if isinstance(v, DTensor) else v
+              for k, v in kv.items()}
+        cache = stripes_from(model, kv, FRONT_RUNS[cfg.name][1])
+        del kv
+        if dplan is not None:
+            cache = dplan.input_shardings({"cache": cache})["cache"]
+        toks, _, outs, _, _ = greedy_decode(
+            model, params, logits, cache, (last + 1).to(torch.int32),
+            PLAN_WHISPER_STEPS, plan=dplan)
+        torch.cuda.synchronize()
+    return (toks.tolist(), torch.cat([logits[:, -1:].float(), outs.float()],
+                                     1),
+            {fn.__name__: fn.launches for fn in fns})
 
 
 def check_seq_shard_body(decode_attention):
@@ -3499,6 +3554,32 @@ def phase14_sharded(get_config, build_model, ServingEngine, Request, card,
             del params, model
             torch.cuda.empty_cache()
 
+        cfg = get_config("whisper-tiny")
+        model = build_model(cfg, device="cuda")
+        params = model.init(SEED)
+        t_none, l_none, _ = plan_whisper_steps(model, params, cfg, None,
+                                               (flash, dec))
+        t_plan, l_plan, counts = plan_whisper_steps(model, params, cfg,
+                                                    mesh, (flash, dec))
+        add(counts)
+        L, S = cfg.n_layers, PLAN_WHISPER_STEPS
+        # prefill: the encoder's, the self- and the cross-attention's
+        # flash; a step: the cross-attention's flash, the stripe decode
+        want = {"flash_attention": cfg.encoder_layers + 2 * L + L * S,
+                "decode_attention": L * S}
+        err = float((l_plan - l_none).abs().max())
+        print(f"14c whisper-tiny: a planned prefill of B {FRONT_B} (frames "
+              f"{cfg.n_frames}) and {S} planned decode steps; tokens "
+              f"identical {t_plan == t_none}; max |logit diff| {err:.3e}; "
+              f"launches {json.dumps(counts)} (expected "
+              f"{json.dumps(want)})")
+        if t_plan != t_none or counts != want or not err <= 1e-2:
+            raise AssertionError(f"14c whisper-tiny: tokens {t_plan} vs "
+                                 f"{t_none}, launches {counts}, logits "
+                                 f"{err}")
+        del params, model
+        torch.cuda.empty_cache()
+
         print("--- 14d. the sequence-sharded decode body, 4 ranks")
         times["shard_err"] = check_seq_shard_body(fns["decode_op"])
 
@@ -3524,6 +3605,31 @@ def phase14_sharded(get_config, build_model, ServingEngine, Request, card,
               f"{ms_none[1]:.1f} (the first step with its warm-up)")
         del model
         torch.cuda.empty_cache()
+        for arch, per_layer in RECURRENT_TRAIN.items():
+            print(f"--- 14e. {arch}, {TRAIN_LAYERS} layers, bf16, remat, "
+                  f"train plan")
+            cfg = replace(get_config(arch), n_layers=TRAIN_LAYERS,
+                          remat=True)
+            model = build_model(cfg, device="cuda")
+            path = [fns[name] for name in per_layer]
+            l_none, ms_none, _ = plan_train(model, cfg, None, path)
+            l_plan, ms_plan, counts = plan_train(model, cfg, mesh, path)
+            add(counts)
+            want = {name: n * TRAIN_LAYERS * 2
+                    for name, n in per_layer.items()}
+            print(f"14e {arch}: losses with the plan {l_plan}, without "
+                  f"{l_none}; launches {json.dumps(counts)} (expected "
+                  f"{json.dumps(want)}); step ms with the plan "
+                  f"{ms_plan[1]:.1f}, without {ms_none[1]:.1f} (the "
+                  f"second of 2)")
+            if counts != want or not all(abs(a - b) <= 1e-5 * abs(b)
+                                         for a, b in zip(l_plan, l_none)):
+                raise AssertionError(f"14e {arch}: losses {l_plan} vs "
+                                     f"{l_none}, launches {counts}")
+            times[f"{arch}_train_ms"] = ms_plan
+            times[f"{arch}_train_plain_ms"] = ms_none
+            del model
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3543,7 +3649,8 @@ def phase14_sharded(get_config, build_model, ServingEngine, Request, card,
     print("launches in phase 14:", json.dumps(launches))
     idle = [n for n in ("paged_window_attention", "flash_attention",
                         "decode_attention", "wkv_scan", "ssm_scan",
-                        "flash_attention_bwd") if not launches.get(n)]
+                        "flash_attention_bwd", "wkv_bwd", "ssm_scan_bwd")
+            if not launches.get(n)]
     if idle:
         raise AssertionError(f"phase 14 never launched {idle}")
     return launches, times
@@ -4303,21 +4410,28 @@ def main() -> int:
 
     phase("13a. the backward kernels vs their plain versions at the "
           "training shapes: flash (f32 and bf16), WKV and the selective "
-          "scan (f32)")
+          "scan (f32), the scans also at the plan's shard shapes")
     bwd_err = check_flash_backward(flash_kernel.flash_attention,
                                    flash_bwd.flash_attention_bwd,
                                    flash_attention, flash_attention_ref,
                                    flash_attention_bwd_ref)
+    wkv_err = max(wkv_err, check_scan_vs_plain(
+        "wkv_scan, shard shapes", wkv, partial(wkv_case, decays="model"),
+        WKV_SHARD_SHAPES))
+    ssm_err = max(ssm_err, check_scan_vs_plain(
+        "ssm_scan, shard shapes", selective_scan, ssm_case,
+        SSM_SHARD_SHAPES))
     wkv_bwd_err = check_scan_backward(
         "wkv", wkv_kernel.wkv_scan, wkv_bwd.wkv_bwd, wkv_bwd_ref, wkv_ref,
         lambda r, k, v, w, u, s: wkv_checkpoints_ref(r, k, v, w, s),
-        wkv_bwd_case, WKV_BWD_SHAPES, ("r", "k", "v", "w", "u", "state"))
+        wkv_bwd_case, WKV_BWD_SHAPES + WKV_SHARD_SHAPES,
+        ("r", "k", "v", "w", "u", "state"))
     ssm_bwd_err = check_scan_backward(
         "selective_scan", ssm_kernel.ssm_scan, ssm_bwd.ssm_scan_bwd,
         ssm_scan_bwd_ref, ssm_scan_ref,
         lambda u, dt, Bm, Cm, A, D, s: ssm_scan_checkpoints_ref(u, dt, Bm,
                                                                 A, s),
-        ssm_bwd_case, SSM_BWD_SHAPES,
+        ssm_bwd_case, SSM_BWD_SHAPES + SSM_SHARD_SHAPES,
         ("u", "dt", "B", "C", "A", "D", "state"))
     check_grad_refusals((paged_window_attention, decode_attention,
                          wkv_kernel.wkv_scan, ssm_kernel.ssm_scan),

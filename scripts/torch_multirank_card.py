@@ -18,7 +18,19 @@ package on the CPU):
   reduced rwkv6-1.6b, and full-width qwen3-4b at 2 layers, all f32
   (greedy tokens identical too);
 * two AdamW steps of reduced qwen3-4b (remat) under a train plan with
-  DTensor params.
+  DTensor params;
+* rwkv6-1.6b, hymba-1.5b and whisper-tiny at full width, 2 layers, f32
+  (on the CPU reduced, at 2 layers), through their tensor-parallel
+  bodies: a prefill under a prefill plan (DTensor params, the batch
+  placed by ``batch_spec``), greedy decode steps with the prefill's cache
+  in stripes placed by ``cache_spec``, and two AdamW steps (remat) under
+  a train plan: the losses within 1e-5 relative, each leaf of the first
+  step's gradient within 1e-4 of its largest value. Their first moments
+  after the second step are recorded without a bound (``info/``): the
+  first AdamW step moves each weight by about lr whatever its
+  gradient's size, so rounding in a near-zero gradient can flip that
+  step, and the second step's gradients then differ by far more than
+  rounding.
 
 Each rank prints one JSON line of its largest differences; the script
 then prints the card's name and power limit and one JSON summary, and
@@ -37,8 +49,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-BOUNDS = {"moe": 2e-4, "decode": 1e-4, "tokens_differ": 0,
-          "train_loss_rel": 1e-5, "train_mu_rel": 1e-5}
+BOUNDS = {"moe": 2e-4, "prefill": 1e-4, "decode": 1e-4, "tokens_differ": 0,
+          "train_loss_rel": 1e-5, "train_mu_rel": 1e-5,
+          "train_grad_leaf_rel": 1e-4}
+RECURRENT = ("rwkv6-1.6b", "hymba-1.5b", "whisper-tiny")
 
 
 def rank_main(rank: int, world: int, store: str, cpu: bool) -> dict:
@@ -140,30 +154,113 @@ def rank_main(rank: int, world: int, store: str, cpu: bool) -> dict:
     out["decode/qwen3-4b-full"], same = decode(cfg, 4, 100, 8, 1024)
     out["tokens_differ/qwen3-4b-full"] = int(not same)
 
+    # ---- prefill under a prefill plan, then decode from its cache
+    def inputs(cfg, B, P, seed):
+        g = torch.Generator().manual_seed(seed)
+        batch = {"tokens": torch.randint(2, cfg.vocab_size, (B, P),
+                                         generator=g).to(dev)}
+        if cfg.frontend == "audio":
+            batch["frames"] = torch.randn((B, cfg.n_frames, cfg.d_model),
+                                          generator=g).to(dev)
+        return batch
+
+    def prefill_decode(cfg, B, P, n, T):
+        model = build_model(cfg, device=dev)
+        params = model.init(0)
+        batch = inputs(cfg, B, P, 4)
+        res = {}
+        for planned in (False, True):
+            pplan = ParallelPlan.make(mesh, cfg, "prefill") if planned \
+                else None
+            dplan = ParallelPlan.make(mesh, cfg, "decode") if planned \
+                else None
+            p = pplan.param_shardings(params) if planned else params
+            with torch.no_grad():
+                logits, pref = model.prefill(
+                    p, pplan.input_shardings(batch) if planned else batch,
+                    plan=pplan)
+                cache = model.init_cache(B, T)
+                for k, leaf in cache.items():
+                    v = pref[k].full_tensor() if isinstance(
+                        pref[k], DTensor) else pref[k]
+                    leaf[tuple(slice(0, m) for m in v.shape)] = v
+                if planned:
+                    cache = dplan.input_shardings({"cache": cache})["cache"]
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                lg, toks = [], []
+                for j in range(n):
+                    nv = torch.full((B,), P + j, dtype=torch.int32,
+                                    device=dev)
+                    step, _ = model.decode_step(p, tok, cache, nv,
+                                                plan=dplan)
+                    tok = step[:, -1].argmax(-1, keepdim=True).to(
+                        torch.int32)
+                    lg.append(step[:, -1].float())
+                    toks.append(tok[:, 0].tolist())
+            res[planned] = full(logits), torch.stack(lg), toks
+        return (float((res[True][0] - res[False][0]).abs().max()),
+                float((res[True][1] - res[False][1]).abs().max()),
+                res[True][2] == res[False][2])
+
+    def sized(name, **over):
+        """``name`` at 2 layers, f32: full width on the cards, reduced
+        on the CPU."""
+        cfg = get_config(name).reduced() if cpu else get_config(name)
+        return dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                   **over)
+
+    for name in RECURRENT:
+        cfg = sized(name)
+        out[f"prefill/{name}"], out[f"decode/{name}"], same = \
+            prefill_decode(cfg, 4, 24, 4, 64)
+        out[f"tokens_differ/{name}"] = int(not same)
+
     # ---- train steps
-    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), remat=True)
-    model = build_model(cfg, device=dev)
-    oc = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=2)
-    batches = [torch.randint(2, cfg.vocab_size, (4, 33),
-                             generator=torch.Generator().manual_seed(3 + i))
-               .to(dev) for i in range(2)]
-    runs = {}
-    for planned in (False, True):
-        plan = ParallelPlan.make(mesh if planned else None, cfg, "train")
-        params = plan.param_shardings(model.init(0))
-        state = opt_mod.init_state(params)
-        step = make_train_step(model, oc, plan)
-        losses = []
-        for b in batches:
-            params, state, m = step(params, state,
-                                    plan.input_shardings({"tokens": b}))
-            losses.append(float(m["loss"]))
-        runs[planned] = losses, [full(v) for v in tree.leaves(state["mu"])]
-    out["train/loss_rel"] = max(abs(a - b) / abs(a) for a, b in
-                                zip(runs[False][0], runs[True][0]))
-    out["train/mu_rel"] = max(float((a - b).abs().max()) for a, b in
-                              zip(runs[False][1], runs[True][1])) / max(
-        float(a.abs().max()) for a in runs[False][1])
+    def train(key, cfg, *, per_leaf=False):
+        """Two AdamW steps with and without the plan: the losses; the
+        first moments after both steps, largest difference over the
+        largest value (``per_leaf``: recorded, no bound); with
+        ``per_leaf`` each gradient leaf of the first step (its first
+        moment, 0.1 g) against its own largest value."""
+        model = build_model(cfg, device=dev)
+        oc = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=2)
+        batches = [inputs(cfg, 4, 33, 3 + i) for i in range(2)]
+        runs = {}
+        for planned in (False, True):
+            plan = ParallelPlan.make(mesh if planned else None, cfg, "train")
+            params = plan.param_shardings(model.init(0))
+            state = opt_mod.init_state(params)
+            step = make_train_step(model, oc, plan)
+            losses, first = [], None
+            for b in batches:
+                params, state, m = step(params, state,
+                                        plan.input_shardings(b))
+                losses.append(float(m["loss"]))
+                if first is None:       # the state is updated in place
+                    first = [full(v).clone() for v in
+                             tree.leaves(state["mu"])]
+            runs[planned] = losses, [full(v) for v in
+                                     tree.leaves(state["mu"])], first
+            del params, state
+        out[f"train/loss_rel/{key}"] = max(
+            abs(a - b) / abs(a) for a, b in zip(runs[False][0],
+                                                runs[True][0]))
+        mu_rel = max(float((a - b).abs().max()) for a, b in
+                     zip(runs[False][1], runs[True][1])) / max(
+            float(a.abs().max()) for a in runs[False][1])
+        if not per_leaf:
+            out[f"train/mu_rel/{key}"] = mu_rel
+            return
+        out[f"info/train_mu_rel/{key}"] = mu_rel
+        out[f"train/grad_leaf_rel/{key}"] = max(
+            float((a - b).abs().max()) / float(a.abs().max())
+            for a, b in zip(runs[False][2], runs[True][2])
+            if a.abs().max() > 0)
+
+    train("qwen3-4b", dataclasses.replace(get_config("qwen3-4b").reduced(),
+                                          remat=True))
+    for name in RECURRENT:
+        train(name, sized(name, remat=True), per_leaf=True)
     dist.destroy_process_group()
     return out
 
@@ -173,12 +270,14 @@ def check(res: dict) -> list:
     MoE call that did not take the mode its name says."""
     bad = []
     for k, v in res.items():
+        if k.startswith("info/"):
+            continue
         if k.endswith("/mode"):
             if v != k.split("/")[1].split("-")[1]:
                 bad.append((k, v, "mode"))
             continue
         bound = BOUNDS[k.split("/")[0]] if not k.startswith("train/") \
-            else BOUNDS[k.replace("train/", "train_")]
+            else BOUNDS["train_" + k.split("/")[1]]
         if v > bound:
             bad.append((k, v, bound))
     return bad

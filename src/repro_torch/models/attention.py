@@ -479,19 +479,37 @@ def init_cross_attention(gen, cfg, device, dtype=None, lead: tuple = ()):
     }
 
 
-def cross_attention_block(x, enc_kv, p, cfg):
+def cross_attention_block(x, enc_kv, p, cfg, plan=None):
     """x (B,S,d) attends to precomputed encoder K/V (B,T,Hkv,hd): no
     rope, no qk_norm, no mask (the flash kernel, non-causal, on CUDA
-    tensors)."""
+    tensors).
+
+    Under ``plan`` the body is the self-attention's: where the heads
+    split over the model axis, ``w_q`` column-parallel, this rank's query
+    heads against its kv heads of the K / V (whole on every rank, read in
+    place) and ``w_o`` row-parallel; else the weights are whole over
+    ``model`` and the body runs whole on every rank."""
     B, S, _ = x.shape
-    q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, cfg.hd)
-    o = causal_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
-    return o @ p["w_o"]
+    if plan is None:
+        q = (x @ p["w_q"]).reshape(B, S, cfg.n_heads, cfg.hd)
+        o = causal_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+        return o @ p["w_o"]
+    split = _heads_split(plan, cfg, p)
+    q = plan.col_linear(x, p["w_q"], gather=not split)
+    q = q.reshape(B, S, -1, cfg.hd)
+    k, v = enc_kv["k"], enc_kv["v"]
+    if split:
+        k, v = (_my_kv_heads(t, cfg, plan) for t in (k, v))
+    o = causal_attention(q, k, v, causal=False)
+    return _out_proj(o, p, plan, local=split)
 
 
-def encode_cross_kv(enc_out, p, cfg):
+def encode_cross_kv(enc_out, p, cfg, plan=None):
     """Encoder output (B,T,d) -> this layer's cross K / V (B,T,Hkv,hd),
-    views of one projection."""
+    views of one projection; under ``plan`` column-parallel, the columns
+    gathered whole."""
     B, T, _ = enc_out.shape
-    kv = (enc_out @ p["w_kv"]).reshape(B, T, 2, cfg.n_kv_heads, cfg.hd)
+    kv = enc_out @ p["w_kv"] if plan is None \
+        else plan.col_linear(enc_out, p["w_kv"])
+    kv = kv.reshape(B, T, 2, cfg.n_kv_heads, cfg.hd)
     return {"k": kv[:, :, 0], "v": kv[:, :, 1]}

@@ -113,8 +113,9 @@ def _build_inputs(p, cfg, batch, *, drop_last_token: bool, plan=None):
     the vision patches lead the text (``prefix`` of them) with their
     M-RoPE ids in ``extras``; the audio frames run the encoder, whose
     output every decoder layer projects to its cross K / V (``enc_kv``,
-    stacked over L). Under ``plan`` the embedding is vocab-parallel and
-    the cross projections are gathered whole."""
+    stacked over L). Under ``plan`` the embedding is vocab-parallel, the
+    encoder's blocks are tensor-parallel and the cross projections
+    column-parallel, their columns gathered whole."""
     tokens = batch["tokens"]
     if drop_last_token:
         tokens = tokens[:, :-1]
@@ -131,32 +132,34 @@ def _build_inputs(p, cfg, batch, *, drop_last_token: bool, plan=None):
         x = _positions_added(x, cfg, torch.arange(S_text,
                                                   device=x.device)[None])
     if cfg.frontend == "audio":
-        enc = _run_encoder(p, cfg, batch["frames"].to(cfg.dtype))
+        enc = _run_encoder(p, cfg, batch["frames"].to(cfg.dtype), plan)
         L = p["blocks"]["ln1"].shape[0]
-        xattn = [transformer._layer(p["blocks"]["xattn"], l)
-                 for l in range(L)]
-        if plan is not None:
-            xattn = [plan.gather_tree(t) for t in xattn]
-        kvs = [attention.encode_cross_kv(enc, t, cfg) for t in xattn]
+        kvs = [attention.encode_cross_kv(
+            enc, transformer._layer(p["blocks"]["xattn"], l), cfg, plan)
+            for l in range(L)]
         enc_kv = {key: torch.stack([kv[key] for kv in kvs])
                   for key in ("k", "v")}                         # (L,B,T,H,hd)
     return x, extras, prefix, enc_kv
 
 
-def _run_encoder(p, cfg, frames):
+def _run_encoder(p, cfg, frames, plan=None):
     """The audio encoder: frames plus the position table, dense blocks
     attending without a mask (the flash kernel, non-causal, on CUDA
-    tensors), then the final rmsnorm."""
+    tensors), then the final rmsnorm. Under ``plan`` its attention and
+    MLP are the decoder's tensor-parallel bodies."""
     e = p["encoder"]
     x = frames + e["pos_embed"][None, : frames.shape[1], :]
     for l in range(e["blocks"]["ln1"].shape[0]):
         bp = transformer._layer(e["blocks"], l)
-        hh = layers.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        norms = {k: bp[k] if plan is None else plan.gather(bp[k])
+                 for k in ("ln1", "ln2")}
+        hh = layers.rmsnorm(x, norms["ln1"], cfg.norm_eps)
         o, _ = attention.attention_block(hh, bp["attn"], cfg, mode="train",
-                                         causal=False, sliding_window=0)
+                                         causal=False, sliding_window=0,
+                                         plan=plan)
         x = x + o
-        hh = layers.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + layers.mlp(hh, bp["ffn"], cfg.act)
+        hh = layers.rmsnorm(x, norms["ln2"], cfg.norm_eps)
+        x = x + layers.mlp(hh, bp["ffn"], cfg.act, plan)
     return layers.rmsnorm(x, e["final_norm"], cfg.norm_eps)
 
 
@@ -199,11 +202,14 @@ def _planned(plan) -> bool:
 
 def _whole_outside_layers(params, plan):
     """The params a call uses outside the layer loop whole on this rank,
-    but for the embedding and the head (vocab-parallel bodies)."""
+    but for the embedding, the head (vocab-parallel bodies) and the
+    encoder's blocks (tensor-parallel bodies)."""
     out = dict(params)
-    for k in ("final_norm", "encoder"):
-        if k in out:
-            out[k] = plan.gather_tree(out[k])
+    if "final_norm" in out:
+        out["final_norm"] = plan.gather(out["final_norm"])
+    if "encoder" in out:
+        out["encoder"] = {k: v if k == "blocks" else plan.gather(v)
+                          for k, v in out["encoder"].items()}
     return out
 
 
@@ -224,6 +230,19 @@ def _split_rows(plan, lead, dim: int):
         return t[i * n:(i + 1) * n]
 
     return plan, mine
+
+
+def _fresh_leaf(plan, cfg, key, t):
+    """A prefill's fresh cache leaf (L, B, ...) under ``plan``: the
+    DTensor its rows are part of when they are split (dim 1); a
+    recurrent state that holds this rank's heads / channels is placed as
+    ``cache_spec`` places it, over ``model`` (dim 2). A leaf whole on
+    every rank stays a plain tensor."""
+    whole = {"state": cfg.n_heads, "ssm_state": cfg.dinner}.get(key)
+    split = whole is not None and t.shape[2] != whole
+    if not (plan.rows or split):
+        return t
+    return plan.act_dtensor(t, 1, 2 if split else None)
 
 
 def _local(t):
@@ -326,7 +345,8 @@ class Model:
         logits = _logits(params, cfg, x_last, plan)
         if plan is not None and plan.rows:
             logits = plan.all_gather(logits, 0, plan.rows)
-            kv = {k: plan.act_dtensor(v, 1) for k, v in kv.items()}
+        if plan is not None:
+            kv = {k: _fresh_leaf(plan, cfg, k, v) for k, v in kv.items()}
         return logits, kv
 
     # ---------------- decode ----------------

@@ -46,30 +46,49 @@ def selective_scan(u, dt, Bm, Cm, A, D, state):
     return _scan(u, dt, Bm, Cm, A, D, state)
 
 
-def ssm_block(x, p, cfg, cache=None, plan=None, chans=None):
+def ssm_block(x, p, cfg, cache=None, plan=None):
     """x (B,S,d) -> (out (B,S,d), cache {"state": (B,di,N)}).
 
-    ``chans`` (axes, c0, n): the state holds this rank's channels [c0,
-    c0 + n) of a cache d_inner-sharded over ``axes``; the scan runs on
-    them and ``plan`` gathers the channels' outputs back."""
+    Under ``plan``, when d_inner splits over its model axis, each rank
+    computes its channels only: ``u``, the gate and ``dt`` from its
+    columns of ``w_in`` / ``w_gate`` / ``w_dt``, B and C from its columns
+    of ``w_bc`` gathered whole (every channel reads all of them), the
+    scan on its channels, ``w_out`` row-parallel; the returned state is
+    this rank's channels, or the whole state (gathered) for a cache whole
+    on every rank. Otherwise the params are gathered whole."""
     Bsz = x.shape[0]
     di, N = cfg.dinner, max(cfg.ssm_state, 1)
+    if plan is not None and not plan.divides(di):
+        p, plan = plan.gather_tree(p), None
+    n = di if plan is None else di // plan.axis_size(plan.model_axis)
     if cache is None:
-        cache = {"state": torch.zeros((Bsz, di, N), dtype=torch.float32,
+        cache = {"state": torch.zeros((Bsz, n, N), dtype=torch.float32,
                                       device=x.device)}
-    u = (x @ p["w_in"]).float()
-    g = F.silu(x @ p["w_gate"])
-    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
-    bc = (x @ p["w_bc"]).float()
+    if plan is None:
+        u = (x @ p["w_in"]).float()
+        g = F.silu(x @ p["w_gate"])
+        dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
+        bc = (x @ p["w_bc"]).float()
+        A = -torch.exp(p["A_log"])                        # (di,N), negative
+        D = p["D"]
+    else:
+        m = plan.model_axis
+        x = plan.psum_grad(x, m)                     # enter the body
+        u = plan.col_block(x, p["w_in"]).float()
+        g = F.silu(plan.col_block(x, p["w_gate"]))
+        dt = F.softplus(plan.col_block(x, p["w_dt"]).float()
+                        + plan.model_block(p["dt_bias"], 0))
+        # every rank's channels read all of B and C
+        bc = plan.col_whole(x, p["w_bc"]).float()
+        A = -torch.exp(plan.model_block(p["A_log"], 0))
+        D = plan.model_block(p["D"], 0)
     Bm, Cm = (t.contiguous() for t in torch.split(bc, N, dim=-1))
-    A = -torch.exp(p["A_log"])                            # (di,N), negative
-    D = p["D"]
-    if chans is not None:
-        axes, c0, n = chans
-        u, dt = (t[..., c0:c0 + n].contiguous() for t in (u, dt))
-        A, D = A[c0:c0 + n], D[c0:c0 + n]
-    y, state = selective_scan(u, dt, Bm, Cm, A, D, cache["state"])
-    if chans is not None:
-        y = plan.all_gather(y, 2, axes)
-    out = (y.to(x.dtype) * g) @ p["w_out"]
+    if plan is None:
+        y, state = selective_scan(u, dt, Bm, Cm, A, D, cache["state"])
+        return (y.to(x.dtype) * g) @ p["w_out"], {"state": state}
+    state, whole = plan.state_block(cache["state"], 1, n)
+    y, state = selective_scan(u, dt, Bm, Cm, A, D, state)
+    if whole:
+        state = plan.all_gather(state, 1, plan.model_axis)
+    out = plan.row_linear(y.to(x.dtype) * g, p["w_out"], local=True)
     return out, {"state": state}

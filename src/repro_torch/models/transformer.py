@@ -9,14 +9,20 @@ stack is a Python loop over layers (the reference's ``lax.scan``); with
 reference's ``jax.checkpoint`` of the scan body).
 
 Under a ``ParallelPlan`` a layer's params are DTensors (or whole plain
-tensors). Attention and the MLP are tensor-parallel (column-parallel
-projections, row-parallel ``w_o`` / ``w_out``) and the MoE FFN runs its
-expert- / tensor-parallel body: each reads its own blocks. The other
-params (norms, the recurrent mixers' projections, cross-attention) are
-gathered whole at block entry (inside the checkpointed layer) and
-computed on every rank. Caches placed by ``cache_spec`` (DTensors)
-are read and written through each rank's local tensor. Between train
-layers the residual stream is a DTensor under ``constrain_residual``.
+tensors). Every sub-block reads its own blocks of its weights: attention,
+cross-attention and the MLP are tensor-parallel (column-parallel
+projections, row-parallel ``w_o`` / ``w_out``), so are the RWKV6
+time-mix and channel-mix and the SSM (each rank computes its heads or
+channels and runs its scan on them), and the MoE FFN runs its expert- /
+tensor-parallel body. Only the block's norms are gathered whole at
+block entry; a sub-block gathers its own small params (``mu``,
+``bonus_u``, ``decay_base``, ``ln_out``, ``A_log``, ``D``,
+``dt_bias``, ``q_norm`` / ``k_norm``), all inside the checkpointed
+layer, and a sub-block whose heads or channels do not split over
+``model`` gathers its weights whole. Caches placed by ``cache_spec``
+(DTensors) are read and written through each rank's local tensor: the
+recurrent state's is this rank's heads / channels. Between train layers
+the residual stream is a DTensor under ``constrain_residual``.
 """
 from __future__ import annotations
 
@@ -95,17 +101,13 @@ def _planned(plan) -> bool:
 
 def _cache_shards(cache, plan) -> dict:
     """extras for a cache placed by ``cache_spec``: the sequence slice of
-    the stripes (``kv_seq``), the rwkv state's heads and the SSM state's
-    channels, each this rank's part of dim 2 of its stacked leaf."""
+    the stripes (``kv_seq``), this rank's part of dim 2 of the stacked
+    leaf. (The recurrent state's local tensor is this rank's heads /
+    channels: the bodies read that from its shape.)"""
     out = {}
     if "k" in cache and isinstance(cache["k"], DTensor):
         axes, t0, _ = plan.shard_of(cache["k"], 2)
         out["kv_seq"] = (axes, t0)
-    for key, name in (("state", "heads"), ("ssm_state", "chans")):
-        if key in cache and isinstance(cache[key], DTensor):
-            axes, start, n = plan.shard_of(cache[key], 2)
-            if axes:
-                out[name] = (axes, start, n)
     return out
 
 
@@ -120,8 +122,8 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None,
     eps = cfg.norm_eps
     aux = 0.0
     if _planned(plan):
-        # attention, the MLP and the MoE FFN read their own blocks
-        p = {k: v if k in ("attn", "ffn", "moe") else plan.gather_tree(v)
+        # the sub-blocks read their own blocks; the norms are gathered
+        p = {k: v if isinstance(v, dict) else plan.gather(v)
              for k, v in p.items()}
     else:
         plan = None
@@ -131,11 +133,10 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None,
                                              "last_x": cache["last_x_t"]}
         ccache = None if cache is None else {"last_x": cache["last_x_c"]}
         h, tnew = rwkv6.time_mix(layers.rmsnorm(x, p["ln1"], eps),
-                                 p["tmix"], cfg, tcache, plan,
-                                 extras.get("heads"))
+                                 p["tmix"], cfg, tcache, plan)
         x = x + h
         h, cnew = rwkv6.channel_mix(layers.rmsnorm(x, p["ln2"], eps),
-                                    p["cmix"], cfg, ccache)
+                                    p["cmix"], cfg, ccache, plan)
         x = x + h
         if mode == "train":
             return x, None, aux
@@ -157,8 +158,7 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None,
         # attention and the SSM both read the same normed h; their
         # outputs are normed and averaged
         scache = None if cache is None else {"state": cache["ssm_state"]}
-        ssm_out, snew = ssm.ssm_block(h, p["ssm"], cfg, scache, plan,
-                                      extras.get("chans"))
+        ssm_out, snew = ssm.ssm_block(h, p["ssm"], cfg, scache, plan)
         attn_out = layers.rmsnorm(attn_out, p["ln_attn_out"], eps)
         ssm_out = layers.rmsnorm(ssm_out, p["ln_ssm_out"], eps)
         x = x + 0.5 * (attn_out + ssm_out)
@@ -169,7 +169,7 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None,
     if kind == "decoder_x":
         hx = layers.rmsnorm(x, p["lnx"], eps)
         x = x + attention.cross_attention_block(hx, extras["enc_kv"],
-                                                p["xattn"], cfg)
+                                                p["xattn"], cfg, plan)
     h = layers.rmsnorm(x, p["ln2"], eps)
     if kind == "moe":
         ffn_out, aux = moe.moe_ffn(h, p["moe"], cfg, plan)
@@ -200,8 +200,8 @@ def apply_stack(x, blocks, cfg, *, kind, mode, cache=None, extras=None,
     decode mode it reads the cache's ``xk`` / ``xv`` in place.
 
     ``plan`` (a ``ParallelPlan`` bound to the activations' rows): blocks
-    gather their params; a train layer takes the residual stream as a
-    DTensor constrained by ``constrain_residual``."""
+    run their tensor-parallel bodies; a train layer takes the residual
+    stream as a DTensor constrained by ``constrain_residual``."""
     if enc_kv is None and cache is not None and "xk" in cache:
         enc_kv = {"k": cache["xk"], "v": cache["xv"]}
     planned = _planned(plan)

@@ -86,6 +86,7 @@ from repro_torch.serve.blocks import BlockPool
 from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.serve.spec import DraftRunner
 from repro_torch.serve.telemetry import NOOP, PID_LOOP, PID_POOL, PID_REQUESTS
+from repro_torch.sharding.rules import DTensor
 
 _MIN_BUCKET = 8
 # default chunk for chunked prefill (tokens per slot per chunk step)
@@ -326,6 +327,10 @@ class ServingEngine:
                                           {"tokens": self._dev(tokens)},
                                           last_idx=self._dev(last_idx),
                                           plan=self.plan)
+        # under a plan a recurrent state comes back as each rank's heads /
+        # channels: the engine's caches are whole on every rank
+        pref = {key: v.full_tensor() if isinstance(v, DTensor) else v
+                for key, v in pref.items()}
         for j, slot in enumerate(slots):
             for key, cache in self.caches.items():
                 row = pref[key][:, j]

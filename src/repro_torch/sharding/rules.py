@@ -36,17 +36,23 @@ map onto torch as follows:
   split over ``model`` is multiplied as this rank's block, and only
   activations cross ranks. A weight whole over ``model`` is gathered
   (over the FSDP axes only) and the product is computed on every rank.
+  The recurrent mixers' bodies compute this rank's heads or channels
+  (:meth:`ParallelPlan.col_block`, :meth:`ParallelPlan.row_scatter`, a
+  reduce-scatter of a row-split product's partial sums,
+  :meth:`ParallelPlan.col_whole`, :meth:`ParallelPlan.model_block`).
   Under a decode plan within ``DECODE_TP_WEIGHT_BUDGET`` no weight is
-  split over the FSDP axes, so a decode step gathers no weight.
+  split over the FSDP axes, so a decode step gathers no projection
+  weight (only the mixers' small ``mu``, ``bonus_u`` and ``A_log``).
 
 Gradients follow one convention: a tensor that is the same on every rank
 of an axis carries, on each of them, its whole gradient. The collectives
 used on the train path keep it (:meth:`ParallelPlan.psum`: all-reduce
 forward, identity backward; :meth:`ParallelPlan.psum_grad`: identity
 forward, all-reduce backward; :meth:`ParallelPlan.pmean`; the head
-gather), and a block a rank reads of a param hands back a gradient that
-is partial over the axes its rows are split over (``rows``), and over
-``model`` inside a body that splits its work there.
+gather; :meth:`ParallelPlan.scatter_along`: reduce-scatter forward,
+all-gather backward), and a block a rank reads of a param hands back a
+gradient that is partial over the axes its rows are split over
+(``rows``), and over ``model`` inside a body that splits its work there.
 """
 from __future__ import annotations
 
@@ -134,9 +140,12 @@ def _layer_dtensor(t, l: int):
 
 
 # ----------------------------------------------------------- collectives
-# all_gather_into_tensor's newer name, where the installed torch has it
+# all_gather_into_tensor's and reduce_scatter_tensor's newer names, where
+# the installed torch has them
 _all_gather_single = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 class _Sum(torch.autograd.Function):
     """All-reduce (sum) forward; identity backward: the gradient of the
@@ -192,6 +201,21 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.start, ctx.size), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter (sum) along ``dim`` forward: each rank its chunk of
+    the ranks' partial sums; backward the tiled all-gather of the chunks'
+    gradients, since every rank's partial feeds every chunk."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim, axes):
+        ctx.plan, ctx.dim, ctx.axes = plan, dim, axes
+        return plan.reduce_scatter(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.all_gather(g, ctx.dim, ctx.axes), None, None, None
 
 
 # ===================================================================== plan
@@ -298,11 +322,15 @@ class ParallelPlan:
         s = self._div(x.shape[1], (self.model_axis,))
         return x.redistribute(self.mesh, self.placements(P(b, s, None)))
 
-    def act_dtensor(self, x, dim: int = 0):
-        """This rank's rows (along ``dim``) as the DTensor they are part of."""
-        return DTensor.from_local(
-            x, self.mesh, self.placements(self._rows_spec(x.ndim, dim)),
-            run_check=False)
+    def act_dtensor(self, x, dim: int = 0, model_dim: int | None = None):
+        """This rank's rows (along ``dim``), and with ``model_dim`` its
+        block along that dim over ``model``, as the DTensor they are part
+        of."""
+        spec = list(self._rows_spec(x.ndim, dim))
+        if model_dim is not None:
+            spec[model_dim] = self.model_axis
+        return DTensor.from_local(x, self.mesh, self.placements(P(*spec)),
+                                  run_check=False)
 
     def act_local(self, x):
         """A DTensor activation back as this rank's rows, whole over the
@@ -550,6 +578,20 @@ class ParallelPlan:
             t = out.movedim(0, dim)
         return t.contiguous()
 
+    def reduce_scatter(self, t, dim: int, axes):
+        """Sum over the ranks of ``axes``, each rank keeping its chunk
+        along ``dim`` in :meth:`all_gather`'s row-major order: the
+        outermost axis first (no grad). The result is contiguous."""
+        for a in _names(axes):
+            n = self.axis_size(a)
+            if n == 1:
+                continue
+            x = t.movedim(dim, 0).contiguous()
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            _reduce_scatter_single(out, x, group=self.group(a))
+            t = out.movedim(0, dim)
+        return t.contiguous()
+
     # Outside autograd the collectives below skip their autograd
     # Functions, whose bookkeeping is most of a one-rank step's host time.
     def psum(self, x, axes):
@@ -575,6 +617,12 @@ class ParallelPlan:
             return self.all_gather(x, dim, axes)
         return _Gather.apply(x, self, dim, _names(axes))
 
+    def scatter_along(self, x, dim: int, axes):
+        """Reduce-scatter of a body's partial sums along ``dim``: this
+        rank's chunk of their sum."""
+        if not _tracked(x):
+            return self.reduce_scatter(x, dim, axes)
+        return _Scatter.apply(x, self, dim, _names(axes))
 
     # ------------------------------------------------- tensor-parallel bodies
     def split_dim(self, w):
@@ -597,19 +645,76 @@ class ParallelPlan:
         y = self.psum_grad(x, m) @ self.local_block(w, P(None, m))
         return self.gather_along(y, -1, m) if gather else y
 
+    def divides(self, n: int) -> bool:
+        """Whether ``n`` heads or channels split evenly over ``model``."""
+        return n % self.axis_size(self.model_axis) == 0
+
+    def model_block(self, t, dim: int):
+        """This rank's block of ``t`` along ``dim``, cut into as many
+        blocks as ``model`` has ranks: a weight's block of a dim its
+        placement splits over ``model`` is its local block; a small param
+        whole over ``model`` (a norm, a decay) is cut locally; one split
+        over ``model`` along another dim (``bonus_u``'s hd, ``A_log``'s
+        N) is redistributed: an all-to-all, which DTensor does as an
+        all-gather and a chunk on a CPU mesh."""
+        return self.local_block(t, P(*([None] * dim), self.model_axis))
+
+    def state_block(self, state, dim: int, n: int):
+        """This rank's ``n`` heads / channels along ``dim`` of a recurrent
+        state (no grad): the state itself when it holds only them (the
+        local tensor of a state placed by ``cache_spec``), else their
+        block of a state whole on every rank. Returns (block, whole)."""
+        if state.shape[dim] == n:
+            return state, False
+        start = self.coord(self.model_axis) * n
+        return state.narrow(dim, start, n).contiguous(), True
+
+    # col_block / row_scatter: ``x`` is replicated over ``model`` and has
+    # entered the body once (:meth:`psum_grad`), so each use here hands
+    # back this rank's share of its gradient and the entry sums them: one
+    # all-reduce for a body's several products, not one each
+    def col_block(self, x, w):
+        """This rank's column block of ``x @ w`` (its heads or channels),
+        from its block of ``w``'s columns."""
+        return x @ self.model_block(w, 1)
+
+    def col_whole(self, x, w):
+        """``x @ w`` whole on every rank, every rank reading it for its own
+        block of the work: this rank's columns, gathered, where ``w``'s
+        columns split over ``model``, else the whole product."""
+        m = self.model_axis
+        if self.split_dim(w) != 1:
+            return x @ self.gather(w, model_partial=True)
+        y = self.gather_along(x @ self.local_block(w, P(None, m)), -1, m)
+        return self.psum_grad(y, m)     # its uses here are this rank's
+
+    def row_scatter(self, x, w):
+        """This rank's column block of ``x @ w`` for a weight whose rows
+        may be split over ``model``: this rank's slice of ``x``'s last dim
+        times its rows is a partial sum of every column, and the partials
+        are reduce-scattered over ``model``. A weight whole over ``model``
+        takes :meth:`col_block`."""
+        if self.split_dim(w) != 0:
+            return self.col_block(x, w)
+        m = self.model_axis
+        wb = self.local_block(w, P(m, None))
+        n = wb.shape[0]
+        x = x.narrow(-1, self.coord(m) * n, n)
+        return self.scatter_along(x @ wb, -1, m)
+
     def row_linear(self, h, w, *, local: bool = False):
         """``h @ w`` for a weight (d_in, d_out) whose rows may be split over
         ``model``: this rank's rows times its slice of ``h``'s last dim
         (``local``: ``h`` is that slice already), summed over ``model``.
-        A weight whole over ``model`` is multiplied whole on every rank."""
-        if self.split_dim(w) != 0:
-            return h @ self.gather(w)
+        A weight whole over ``model`` is multiplied whole on every rank,
+        or, for a local ``h``, as the rows that slice meets."""
         m = self.model_axis
-        wb = self.local_block(w, P(m, None))
         if not local:
-            n = wb.shape[0]
+            if self.split_dim(w) != 0:
+                return h @ self.gather(w)
+            n = w.shape[0] // self.axis_size(m)
             h = self.psum_grad(h, m).narrow(-1, self.coord(m) * n, n)
-        return self.psum(h @ wb, m)
+        return self.psum(h @ self.model_block(w, 0), m)
 
     def embed(self, table, ids):
         """``table[ids]`` for a table (V, d) whose rows may be split over

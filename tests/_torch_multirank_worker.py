@@ -72,10 +72,18 @@ def moe_checks(mesh, inp) -> dict:
     return out
 
 
-def _stripes(model, params, prompts, capacity):
+def _batch(case, prompts):
+    """The prompts as a prefill batch, with the case's audio frames."""
+    batch = {"tokens": torch.from_numpy(prompts)}
+    if "frames" in case:
+        batch["frames"] = torch.from_numpy(case["frames"])
+    return batch
+
+
+def _stripes(model, params, batch, capacity):
     """A stripe cache holding each row's prompt, from a plan-free prefill."""
-    B, P = prompts.shape
-    _, pref = model.prefill(params, {"tokens": torch.from_numpy(prompts)})
+    B = batch["tokens"].shape[0]
+    _, pref = model.prefill(params, batch)
     cache = model.init_cache(B, capacity)
     for key, leaf in cache.items():
         row = pref[key]
@@ -93,7 +101,8 @@ def decode_checks(mesh, inp) -> dict:
         params = params_from_numpy(case["params"], cfg, "cpu")
         plan = ParallelPlan.make(mesh, cfg, "decode")
         prompts, steps = case["prompts"], case["tokens"]
-        cache = _stripes(model, params, prompts, case["capacity"])
+        cache = _stripes(model, params, _batch(case, prompts),
+                         case["capacity"])
         placed = plan.input_shardings({"cache": cache})["cache"]
         out[f"{key}/placements"] = {k: str(v.placements)
                                     for k, v in placed.items()}
@@ -106,6 +115,41 @@ def decode_checks(mesh, inp) -> dict:
                                           placed, n, plan=plan)
                 logits.append(_np(lg))
         out[f"{key}/logits"] = np.stack(logits)
+    return out
+
+
+def prefill_checks(mesh, inp) -> dict:
+    """Prefills under a prefill plan (DTensor params, the batch placed by
+    batch_spec): the logits and every fresh cache leaf whole; for rwkv6
+    then decode steps under a decode plan on the cache the prefill
+    returned (its state's heads over model, as cache_spec places it)."""
+    out = {}
+    for key, case in inp["prefill"].items():
+        cfg = _cfg(case["cfg"])
+        model = build_model(cfg, device="cpu")
+        plan = ParallelPlan.make(mesh, cfg, "prefill")
+        params = plan.param_shardings(params_from_numpy(case["params"], cfg,
+                                                        "cpu"))
+        prompts = case["prompts"]
+        batch = plan.input_shardings(_batch(case, prompts))
+        with torch.no_grad():
+            logits, cache = model.prefill(params, batch, plan=plan)
+            out[f"prefill/{key}/logits"] = _np(logits)
+            for name, leaf in cache.items():
+                out[f"prefill/{key}/cache/{name}"] = _np(leaf)
+                out[f"prefill/{key}/placements/{name}"] = str(
+                    leaf.placements) if isinstance(leaf, DTensor) else None
+            if "tokens" not in case:
+                continue
+            dplan = ParallelPlan.make(mesh, cfg, "decode")
+            steps = []
+            for j, tok in enumerate(case["tokens"]):
+                n = torch.full((prompts.shape[0],), prompts.shape[1] + j,
+                               dtype=torch.int32)
+                lg, _ = model.decode_step(params, torch.from_numpy(tok),
+                                          cache, n, plan=dplan)
+                steps.append(_np(lg))
+            out[f"prefill/{key}/decode"] = np.stack(steps)
     return out
 
 
@@ -131,7 +175,7 @@ def train_checks(mesh, inp) -> dict:
             step = make_train_step(model, oc, plan)
             losses = []
             for b in case["batches"]:
-                batch = {"tokens": torch.from_numpy(b)}
+                batch = _batch(case, b)
                 if run == "plan":
                     batch = plan.input_shardings(batch)
                 params, state, m = step(params, state, batch)
@@ -156,25 +200,30 @@ def train_checks(mesh, inp) -> dict:
 
 def service_checks(mesh, inp) -> dict:
     """make_lm_service under a decode plan against one without: the same
-    payloads, served in the same order on every rank."""
-    case = inp["service"]
-    cfg = _cfg(case["cfg"])
-    model = build_model(cfg, device="cpu")
-    params = params_from_numpy(case["params"], cfg, "cpu")
+    payloads, served in the same order on every rank; qwen3-4b paged and
+    on stripes, rwkv6-1.6b on stripes (its prefill's state comes back
+    as the ranks' heads, its decode gathers the whole cache's)."""
     out = {}
-    for name, plan in (("plain", None),
-                       ("plan", ParallelPlan.make(mesh, cfg, "decode"))):
-        for paged in (True, False):
-            svc = make_lm_service(f"lm-{name}-{paged}", model, params,
-                                  batch_size=2, max_seq=48, paged=paged,
-                                  plan=plan, device="cpu")
-            out[f"{name}/{paged}"] = [
-                svc.replicas[0].handler(dict(p))["tokens"]
-                for p in case["payloads"]]
+    for key, layouts in (("service", (True, False)),
+                         ("service_rwkv", (False,))):
+        case = inp[key]
+        cfg = _cfg(case["cfg"])
+        model = build_model(cfg, device="cpu")
+        params = params_from_numpy(case["params"], cfg, "cpu")
+        for name, plan in (("plain", None),
+                           ("plan", ParallelPlan.make(mesh, cfg, "decode"))):
+            for paged in layouts:
+                svc = make_lm_service(f"lm-{key}-{name}-{paged}", model,
+                                      params, batch_size=2, max_seq=48,
+                                      paged=paged, plan=plan, device="cpu")
+                tag = f"{name}/{paged}" if key == "service" \
+                    else f"rwkv/{name}/{paged}"
+                out[tag] = [svc.replicas[0].handler(dict(p))["tokens"]
+                            for p in case["payloads"]]
     return out
 
 
-SUITES = {"2x4": ((2, 4), (moe_checks, decode_checks)),
+SUITES = {"2x4": ((2, 4), (moe_checks, decode_checks, prefill_checks)),
           "2x2": ((2, 2), (train_checks, service_checks))}
 
 

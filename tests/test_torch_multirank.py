@@ -17,14 +17,22 @@ single-device JAX functions on the same seeded numpy inputs and weights:
 * decode with the cache placed by ``cache_spec``: reduced qwen3-4b at B
   2 (T over model) and B 1 (T over every axis), reduced hymba-1.5b with
   its window cut to 8 across shard edges (SSM state over model),
-  reduced rwkv6-1.6b (state heads over model), logits within 1e-4 of
-  JAX ``decode_step``;
+  reduced rwkv6-1.6b (state heads over model), reduced whisper-tiny
+  (cross K / V whole over model), logits within 1e-4 of JAX
+  ``decode_step``;
+* prefill under a (2, 4) prefill plan of reduced rwkv6-1.6b, hymba-1.5b
+  and whisper-tiny (one head and d_inner / 4 channels a model rank):
+  logits within 1e-4 of JAX ``prefill``, every cache leaf within 1e-4
+  of its largest, the recurrent state returned as the ranks' heads /
+  channels; rwkv6's decode steps on that cache against the reference's;
 * two AdamW steps under a (2, 2) train plan against ``plan=None``
-  (reduced qwen3-4b with remat, and reduced kimi-k2 at capacity 8):
+  (reduced qwen3-4b, rwkv6-1.6b, hymba-1.5b and whisper-tiny with remat,
+  and reduced kimi-k2 at capacity 8):
   loss within 1e-5 relative, params within 1e-4 of the largest, the
   first moments within 1e-5 of the largest; with the batch placed by
   ``batch_spec`` and with it whole on every rank;
-* ``make_lm_service`` under a decode plan: streams identical to none.
+* ``make_lm_service`` under a decode plan (reduced qwen3-4b paged and on
+  stripes, reduced rwkv6-1.6b on stripes): streams identical to none.
 
 The slow twin holds the (2, 4) MoE outputs against the reference's own
 8-device ``shard_map`` run, in a subprocess as ``tests/test_multidevice``
@@ -120,19 +128,37 @@ MOE = {"kimi-ep": ("kimi-k2-1t-a32b", {}),
 DECODE = {"qwen-b2": (("qwen3-4b", {}), 2, 12, 64, 6),
           "qwen-b1": (("qwen3-4b", {}), 1, 12, 64, 6),
           "hymba-w8": (("hymba-1.5b", {"sliding_window": 8}), 2, 10, 64, 8),
-          "rwkv": (("rwkv6-1.6b", {}), 2, 6, 64, 4)}
+          "rwkv": (("rwkv6-1.6b", {}), 2, 6, 64, 4),
+          "whisper": (("whisper-tiny", {}), 2, 7, 64, 4)}
+# planned prefills: (config, B, prompt length, decode steps on the
+# returned cache: rwkv6's prefill cache is its decode cache)
+PREFILL = {"rwkv": (("rwkv6-1.6b", {}), 2, 9, 3),
+           "hymba": (("hymba-1.5b", {}), 2, 11, 0),
+           "whisper": (("whisper-tiny", {}), 2, 8, 0)}
 # kimi: no capacity drops, and no load-balance term: the sharded body's
 # aux is the mean of each rank's product of means (the reference's
 # pmean), which is not the whole batch's product; the z-loss is a mean
 # over tokens and stays
 TRAIN = {"qwen-remat": ("qwen3-4b", {"remat": True}),
          "kimi-cf8": ("kimi-k2-1t-a32b", {"capacity_factor": 8.0,
-                                          "router_aux_weight": 0.0})}
+                                          "router_aux_weight": 0.0}),
+         "rwkv-remat": ("rwkv6-1.6b", {"remat": True}),
+         "hymba-remat": ("hymba-1.5b", {"remat": True}),
+         "whisper-remat": ("whisper-tiny", {"remat": True})}
 
 
 @pytest.fixture(scope="module")
 def tmp(tmp_path_factory):
     return tmp_path_factory.mktemp("multirank")
+
+
+def _frames(rng, spec, B):
+    """{"frames": (B, n_frames, d)} for an audio config, else {}."""
+    cfg = _jcfg(spec)
+    if cfg.frontend != "audio":
+        return {}
+    return {"frames": rng.standard_normal(
+        (B, cfg.n_frames, cfg.d_model)).astype(np.float32)}
 
 
 @pytest.fixture(scope="module")
@@ -152,8 +178,19 @@ def inputs_2x4():
                         jax.random.PRNGKey(10 + i))),
                     "prompts": rng.integers(2, 500, (B, P)).astype(np.int32),
                     "tokens": rng.integers(2, 500, (n, B, 1)).astype(
-                        np.int32)}
-    return {"moe": moe_in, "decode": dec,
+                        np.int32), **_frames(rng, spec, B)}
+    pre = {}
+    for i, (key, (spec, B, P, n)) in enumerate(PREFILL.items()):
+        m = jax_build(_jcfg(spec))
+        pre[key] = {"cfg": spec,
+                    "params": _tree_np(jax.jit(m.init)(
+                        jax.random.PRNGKey(40 + i))),
+                    "prompts": rng.integers(2, 500, (B, P)).astype(np.int32),
+                    **_frames(rng, spec, B)}
+        if n:
+            pre[key]["tokens"] = rng.integers(2, 500, (n, B, 1)).astype(
+                np.int32)
+    return {"moe": moe_in, "decode": dec, "prefill": pre,
             "x_train": rng.standard_normal((4, 16, d)).astype(np.float32),
             "x_decode": rng.standard_normal((4, 1, d)).astype(np.float32)}
 
@@ -168,7 +205,8 @@ def inputs_2x2():
                       "params": _tree_np(jax.jit(m.init)(
                           jax.random.PRNGKey(20 + i))),
                       "batches": [rng.integers(2, 500, (4, 17)).astype(
-                          np.int32) for _ in range(2)]}
+                          np.int32) for _ in range(2)],
+                      **_frames(rng, spec, 4)}
     m = jax_build(_jcfg(("qwen3-4b", {})))
     service = {"cfg": ("qwen3-4b", {}),
                "params": _tree_np(jax.jit(m.init)(jax.random.PRNGKey(30))),
@@ -176,7 +214,12 @@ def inputs_2x2():
                             {"prompt": list(range(3, 20)),
                              "max_new_tokens": 5},
                             {"prompt": [11, 12], "max_new_tokens": 7}]}
-    return {"train": train, "service": service}
+    m = jax_build(_jcfg(("rwkv6-1.6b", {})))
+    service_rwkv = {**service, "cfg": ("rwkv6-1.6b", {}),
+                    "params": _tree_np(jax.jit(m.init)(
+                        jax.random.PRNGKey(31)))}
+    return {"train": train, "service": service,
+            "service_rwkv": service_rwkv}
 
 
 @pytest.fixture(scope="module")
@@ -235,16 +278,26 @@ def _jax_rank_moe(x_rows, p, cfg, mode: str, n_model: int = 4):
     return total.reshape(x_rows.shape)
 
 
-def _jax_decode_chain(case, spec):
+def _jax_batch(case):
+    batch = {"tokens": jnp.asarray(case["prompts"])}
+    if "frames" in case:
+        batch["frames"] = jnp.asarray(case["frames"])
+    return batch
+
+
+def _jax_decode_chain(case, spec, cache=None):
+    """The reference's prefill of the case's prompts, its cache copied
+    into stripes of the case's capacity (or ``cache`` as the prefill
+    returned it, for rwkv6), then its decode steps' logits."""
     cfg = _jcfg(spec)
     m = jax_build(cfg)
     params = jax.tree.map(jnp.asarray, case["params"])
-    prompts = jnp.asarray(case["prompts"])
-    B, P = prompts.shape
-    _, pref = jax.jit(m.prefill)(params, {"tokens": prompts})
-    cache = m.init_cache(B, case["capacity"])
-    cache = {k: v.at[tuple(slice(0, n) for n in pref[k].shape)].set(pref[k])
-             for k, v in cache.items()}
+    B, P = case["prompts"].shape
+    if cache is None:
+        _, pref = jax.jit(m.prefill)(params, _jax_batch(case))
+        cache = m.init_cache(B, case["capacity"])
+        cache = {k: v.at[tuple(slice(0, n) for n in pref[k].shape)].set(
+            pref[k]) for k, v in cache.items()}
     step = jax.jit(m.decode_step)
     out = []
     for j, tok in enumerate(case["tokens"]):
@@ -275,6 +328,16 @@ def jax_refs(launched, inputs_2x4):
     for key, (spec, *_) in DECODE.items():
         refs[f"{key}/logits"] = _jax_decode_chain(inputs_2x4["decode"][key],
                                                   spec)
+    for key, (spec, *_) in PREFILL.items():
+        case = inputs_2x4["prefill"][key]
+        m = jax_build(_jcfg(spec))
+        logits, cache = jax.jit(m.prefill)(
+            jax.tree.map(jnp.asarray, case["params"]), _jax_batch(case))
+        refs[f"prefill/{key}"] = np.asarray(logits, np.float32), \
+            _tree_np(cache)
+        if "tokens" in case:
+            refs[f"prefill/{key}/decode"] = _jax_decode_chain(case, spec,
+                                                                 cache)
     return refs
 
 
@@ -315,6 +378,34 @@ def test_planned_decode_equals_the_reference(key, jax_refs, suite_2x4):
         assert err < 1e-4, (key, res["rank"], err)
 
 
+@pytest.mark.parametrize("key", list(PREFILL))
+def test_planned_prefill_equals_the_reference(key, jax_refs, suite_2x4):
+    """The logits and every fresh cache leaf, whole, within 1e-4 of the
+    largest |value|; the recurrent state comes back as this rank's heads
+    / channels, rows over data and heads / channels over model (as
+    cache_spec places it); rwkv6's decode steps on that cache within
+    1e-4 of the reference's chain."""
+    logits, cache = jax_refs[f"prefill/{key}"]
+    for res in suite_2x4:
+        err = np.abs(res[f"prefill/{key}/logits"] - logits).max()
+        assert err < 1e-4, (key, res["rank"], err)
+        assert {k.split("/")[-1] for k in res
+                if k.startswith(f"prefill/{key}/cache/")} == set(cache)
+        for name, want in cache.items():
+            got = res[f"prefill/{key}/cache/{name}"]
+            assert got.shape == want.shape, (key, name)
+            err = np.abs(got - want).max()
+            assert err <= 1e-4 * np.abs(want).max(), (key, name, err)
+        for name in ("state", "ssm_state"):
+            if name in cache:
+                assert res[f"prefill/{key}/placements/{name}"] == \
+                    "(Shard(dim=1), Shard(dim=2))"
+        if f"prefill/{key}/decode" in jax_refs:
+            err = np.abs(res[f"prefill/{key}/decode"]
+                         - jax_refs[f"prefill/{key}/decode"]).max()
+            assert err < 1e-4, (key, res["rank"], err)
+
+
 def test_caches_are_placed_by_cache_spec(suite_2x4):
     pl = suite_2x4[0]
     # B 2: rows over data, T over model; B 1: T over every axis
@@ -345,9 +436,11 @@ def test_planned_train_steps_equal_plan_none(key, suite_2x2):
 
 def test_planned_service_streams_equal_no_plan(suite_2x2):
     for res in suite_2x2:
-        for paged in (True, False):
-            assert res[f"plan/{paged}"] == res[f"plain/{paged}"]
-            assert all(len(s) > 0 for s in res[f"plan/{paged}"])
+        for plan, plain in (("plan/True", "plain/True"),
+                            ("plan/False", "plain/False"),
+                            ("rwkv/plan/False", "rwkv/plain/False")):
+            assert res[plan] == res[plain], plan
+            assert all(len(s) > 0 for s in res[plan])
 
 
 def test_train_launcher_on_a_2x2_mesh(launched, tmp):
