@@ -332,6 +332,39 @@ object kept its tensors in a reference cycle (``free_card``).
    10); printed with the model-FLOPs share. Their launches join the serves' sums. Phase 15
    runs right after phase 2, on a card no other phase has used (its
    largest models need nearly all of it).
+16. The entry points (``repro_torch.examples``), after phase 14. 16d
+   starts first, in a subprocess (``chip_smoke.py --fresh-build DIR``):
+   the kernel build pointed at an empty directory, then the first calls
+   of the five forward kernels from 3 threads released together (each
+   starts on flash, then goes round the other four from its own place),
+   at the reduced configs' head dim 32, f32: one ``nvcc`` a source, 3
+   launches a kernel, each within 1e-4 of its plain version, the
+   threads' outputs bitwise equal, no temporary file left. 16a runs
+   meanwhile: every module at its defaults in its own subprocess, all
+   started together (``chip_smoke.py --entry-point NAME ARGS`` runs it
+   as ``python -m`` does, then prints the kernels' launch counts):
+   ``smoke_all`` (the 10 reduced architectures: attention at hd 32,
+   reduced MoE, qwen2-vl and whisper), ``serve_parallel_pipeline`` (40
+   CVs, 3 replicas, fail rate 0.08, 4 clients, the kill at request 13,
+   then the LM PaaS), ``multiarch_serving``, ``train_small`` for
+   qwen3-4b, rwkv6-1.6b and hymba-1.5b (150 steps, the 20 % loss-drop
+   gate, then 5 steps resumed from the mid-run checkpoint), ``quickstart``
+   and ``ahp_select``: each exits 0, ends on the reference's closing
+   line and launched the kernels of its path (the backward kernels under
+   ``train_small``). 16b, in this process at full width, bf16:
+   ``run_lm_paas`` with qwen3-4b (2 replicas, paged, the paged-window
+   kernel), launches owed by the replicas' metrics exactly, pools
+   drained, every reply's tokens equal to one engine serving the prompt
+   alone; then ``multiarch_serving``'s ``LMPaaS`` for qwen3-4b, rwkv6-1.6b
+   and hymba-1.5b on one card, each first serving the 4 prompts alone
+   (launches exact), then all behind ``deploy_router``'s thread fan-out:
+   tokens equal to the runs alone, launches their sum, pools drained.
+   16c: ``serve_parallel_pipeline``'s deployment on the card, f32, with
+   faults: zero lost requests, failovers above 0, flash 4 a parse and
+   nothing else, the fields of every request equal to a fault-free
+   sequential run of the same weights; the stage p50 / p95 beside the
+   paper's 700 ms. Each kernel row adds its launches under 16a-16c
+   (``entry_launches``); every one of the eight must have launched.
 
 Then every kernel's times (CUDA events, L2 flushed between launches,
 the card kept busy while the host enqueues, median of 30) at the shape
@@ -3911,6 +3944,504 @@ def phase15(get_config, build_model, ServingEngine, Request, fns):
     return launches, checks
 
 
+# --------------------------------------------- phase 16: the entry points
+# (module, arguments, the reference's closing line, kernels it launches)
+ENTRY_POINTS = (
+    ("smoke_all", (), "OK hymba-1.5b ",
+     ("flash_attention", "decode_attention", "wkv_scan", "ssm_scan")),
+    ("serve_parallel_pipeline", (), "  supervisor: RUNNING healthy=2 ",
+     ("flash_attention", "paged_window_attention")),
+    ("multiarch_serving", (), "OK",
+     ("paged_window_attention", "flash_attention", "decode_attention",
+      "wkv_scan", "ssm_scan")),
+    ("train_small", (), "OK", ("flash_attention", "flash_attention_bwd")),
+    ("train_small", ("--arch", "rwkv6-1.6b"), "OK", ("wkv_scan", "wkv_bwd")),
+    ("train_small", ("--arch", "hymba-1.5b"), "OK",
+     ("flash_attention", "flash_attention_bwd", "ssm_scan", "ssm_scan_bwd")),
+    ("quickstart", (), "OK — see ", ("flash_attention",)),
+    ("ahp_select", (), "consistency ratios: ", ()),
+)
+ENTRY_TIMEOUT = 600             # s, one entry point's subprocess
+ENTRY_DOCS, ENTRY_REPLICAS, ENTRY_FAIL, ENTRY_CLIENTS = 40, 3, 0.08, 4
+FRESH_THREADS = 3
+
+
+def kernel_wrappers():
+    """The eight kernel wrappers, whose ``launches`` count their launches:
+    the five forward kernels, then the three backward ones."""
+    from repro_torch.kernels.decode_attention import kernel as dec
+    from repro_torch.kernels.flash_attention import backward as fb
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pw
+    from repro_torch.kernels.rwkv_scan import backward as wb
+    from repro_torch.kernels.rwkv_scan import kernel as wk
+    from repro_torch.kernels.ssm_scan import backward as sb
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    return (pw.paged_window_attention, fk.flash_attention,
+            dec.decode_attention, wk.wkv_scan, sk.ssm_scan,
+            fb.flash_attention_bwd, wb.wkv_bwd, sb.ssm_scan_bwd)
+
+
+def entry_point(name, args) -> int:
+    """``chip_smoke.py --entry-point NAME ARGS``: run
+    ``repro_torch.examples.NAME`` with ARGS as ``python -m`` runs a
+    module (``runpy.run_module(..., alter_sys=True)``), then print the
+    kernels' launch counts over the run on stderr, as one line
+    ``LAUNCHES {json}``."""
+    import runpy
+    fns = kernel_wrappers()
+    module = f"repro_torch.examples.{name}"
+    sys.argv = [module, *args]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    sys.stdout.flush()
+    print("LAUNCHES", json.dumps({fn.__name__: fn.launches for fn in fns}),
+          file=sys.stderr)
+    return 0
+
+
+def start_entry_points():
+    """16a: every entry point in its own subprocess at its defaults, all
+    started together. Returns the running processes."""
+    import tempfile
+    procs = []
+    for name, args, last, kernels in ENTRY_POINTS:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        p = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--entry-point", name, *args], cwd=ROOT,
+                             stdout=out, stderr=err, text=True)
+        procs.append((name, args, last, kernels, p, out, err))
+    return procs
+
+
+def check_entry_points(procs, t0):
+    """16a: each subprocess exits 0, ends on the reference's closing line
+    and launched the kernels of its path. Prints each one's output.
+    Returns {kernel: launches summed over the runs}."""
+    total, failed = {}, []
+    for name, args, last, kernels, p, out, err in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, ENTRY_TIMEOUT
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        out.seek(0)
+        err.seek(0)
+        lines, errs = out.read().rstrip().splitlines(), err.read()
+        label = " ".join((name, *args))
+        print(f"--- python -m repro_torch.examples.{label}: exit {rc}")
+        for line in lines:
+            print("   ", line[:200])
+        counts = {}
+        for line in errs.splitlines():
+            if line.startswith("LAUNCHES "):
+                counts = json.loads(line[len("LAUNCHES "):])
+        problems = []
+        if rc != 0:
+            problems.append(f"exit {rc}: {errs[-2000:]}")
+        elif not lines or not lines[-1].startswith(last):
+            problems.append(f"last line {lines[-1:]} is not {last!r}...")
+        if name == "serve_parallel_pipeline" and \
+                "OK — zero lost requests through the outage." not in lines:
+            problems.append("no 'zero lost requests' line")
+        idle = [k for k in kernels if not counts.get(k)]
+        if rc == 0 and idle:
+            problems.append(f"kernels of its path never launched: {idle}")
+        print(f"    launches: {json.dumps(counts)}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        if problems:
+            failed.append(f"{label}: {'; '.join(problems)}")
+    if failed:
+        raise AssertionError("entry points failed:\n" + "\n".join(failed))
+    print(f"16a: {len(procs)} entry points ran on the card in "
+          f"{time.perf_counter() - t0:.1f} s (all at once)")
+    return total
+
+
+def fresh_build_cases():
+    """The five forward kernels at the reduced configs' head dim 32, f32:
+    [(kernel name, kernel call, plain call)]."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_window_attention)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_window_attention_ref)
+    from repro_torch.kernels.rwkv_scan.ops import wkv
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(16)
+    q = torch.randn((2, 4, 33, 32), generator=g).cuda()
+    k, v = (torch.randn((2, 2, 33, 32), generator=g).cuda()
+            for _ in range(2))
+    window = window_case(1, f32, [0, 5, 16, 40], seed=16, max_blocks=4,
+                         heads=(4, 2, 32))
+    dq, dk, dv = stripe_case(2, 4, 2, 32, f32, seed=16, T=64)
+    dk, dv = dk.transpose(1, 2), dv.transpose(1, 2)
+    lens = torch.tensor([33, 64], dtype=torch.int32, device="cuda")
+    wargs, sargs = wkv_case(2, 17, 4, 32, seed=16), ssm_case(2, 17, 64, 16,
+                                                               seed=16)
+    return [
+        ("flash_attention", lambda: flash_attention(q, k, v),
+         lambda: flash_attention(q, k, v, force_ref=True)),
+        ("paged_window_attention", lambda: paged_window_attention(*window),
+         lambda: paged_window_attention_ref(*window)),
+        ("decode_attention", lambda: decode_attention(dq, dk, dv, lens),
+         lambda: decode_attention(dq, dk, dv, lens, force_ref=True)),
+        ("wkv_scan", lambda: wkv(*wargs),
+         lambda: wkv(*wargs, force_ref=True)),
+        ("ssm_scan", lambda: selective_scan(*sargs),
+         lambda: selective_scan(*sargs, force_ref=True)),
+    ]
+
+
+def fresh_build(build_dir) -> int:
+    """``chip_smoke.py --fresh-build DIR``: in a fresh process, point the
+    kernel build at the empty DIR and make the first calls of the five
+    forward kernels from FRESH_THREADS threads released together, each
+    starting on flash and then going round the others from its own
+    place. Prints one JSON line: nvcc runs per source, launches per
+    kernel, each kernel's largest difference from its plain version and
+    whether the threads' outputs are bitwise equal."""
+    import threading
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.BUILD_DIR = Path(build_dir)
+    fns = kernel_wrappers()
+    cases = fresh_build_cases()
+    _zero(fns)
+    gate = threading.Barrier(FRESH_THREADS)
+    outs = [dict() for _ in range(FRESH_THREADS)]
+    errors = []
+
+    def run(i):
+        rest = cases[1:]
+        order = [cases[0], *rest[i:], *rest[:i]]
+        gate.wait()
+        try:
+            for name, kernel, _ in order:
+                outs[i][name] = kernel()
+            torch.cuda.synchronize()
+        except Exception as e:      # noqa: BLE001 — reported, then fails
+            errors.append(f"thread {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(FRESH_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    err, equal = {}, {}
+    if not errors:
+        for name, _, plain in cases:
+            want = plain()
+            got = [o[name] for o in outs]
+            flat = [x if isinstance(x, tuple) else (x,) for x in got]
+            ref = want if isinstance(want, tuple) else (want,)
+            err[name] = max((a - b).abs().max().item()
+                            for a, b in zip(flat[0], ref))
+            equal[name] = all(torch.equal(a, b) for f in flat[1:]
+                              for a, b in zip(flat[0], f))
+    print(json.dumps({"nvcc_runs": _build.nvcc_runs,
+                      "launches": {fn.__name__: fn.launches for fn in fns},
+                      "max_abs_err": err, "threads_equal": equal,
+                      "errors": errors, "seconds": wall}))
+    return 0
+
+
+def start_fresh_build(build_dir):
+    """16d in a subprocess (it builds while 16a runs)."""
+    import tempfile
+    out = tempfile.TemporaryFile("w+")
+    p = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--fresh-build", str(build_dir)], cwd=ROOT,
+                         stdout=out, stderr=subprocess.STDOUT, text=True)
+    return p, out
+
+
+def check_fresh_build(p, out, build_dir):
+    """16d: one nvcc a source, each kernel launched once a thread and
+    within 1e-4 of its plain version (the scans at T 17: 1e-4), the
+    threads' outputs bitwise equal."""
+    rc = p.wait(timeout=ENTRY_TIMEOUT)
+    out.seek(0)
+    text = out.read()
+    if rc:
+        raise AssertionError(f"--fresh-build exit {rc}: {text[-3000:]}")
+    rec = json.loads(text.strip().splitlines()[-1])
+    print(f"16d: first kernel calls from {FRESH_THREADS} threads on an "
+          f"empty build directory, {rec['seconds']:.1f} s: nvcc runs "
+          f"{json.dumps(rec['nvcc_runs'])}")
+    print(f"    launches {json.dumps(rec['launches'])}; max |kernel - "
+          f"plain| at hd 32, f32: "
+          + json.dumps({k: float(f"{v:.3e}")
+                        for k, v in rec["max_abs_err"].items()}))
+    stems = {"flash_attention": "flash", "paged_window_attention":
+             "paged_window", "decode_attention": "decode",
+             "wkv_scan": "wkv", "ssm_scan": "ssm_scan"}
+    want_runs = {stem: 1 for stem in stems.values()}
+    bad = list(rec["errors"])
+    if rec["nvcc_runs"] != want_runs:
+        bad.append(f"nvcc runs {rec['nvcc_runs']} != {want_runs}")
+    for name in stems:
+        if rec["launches"].get(name) != FRESH_THREADS:
+            bad.append(f"{name} launches {rec['launches'].get(name)} != "
+                       f"{FRESH_THREADS}")
+        if not rec["max_abs_err"].get(name, math.inf) <= 1e-4:
+            bad.append(f"{name} differs from its plain version by "
+                       f"{rec['max_abs_err'].get(name)}")
+        if not rec["threads_equal"].get(name):
+            bad.append(f"{name}: the threads' outputs differ")
+    libs = sorted(f.name for f in Path(build_dir).glob("*.so"))
+    if len(libs) != len(stems) or any(".tmp." in n for n in libs):
+        bad.append(f"libraries in the build directory: {libs}")
+    if bad:
+        raise AssertionError("fresh build from threads: " + "; ".join(bad))
+
+
+def check_drained(eng, what):
+    stats = eng.pool_stats()
+    if stats["paged"]:
+        bad = stats["used"] or stats["logical_blocks"] \
+            or stats["available"] != stats["total"]
+    else:
+        bad = stats["active"]
+    if bad:
+        raise AssertionError(f"{what}: the engine did not drain: {stats}")
+
+
+# kernels each architecture's serve launches (its layout on the card)
+SERVE_KERNELS = {"qwen3-4b": ("paged_window_attention", "flash_attention"),
+                 "rwkv6-1.6b": ("wkv_scan",),
+                 "hymba-1.5b": ("flash_attention", "decode_attention",
+                                "ssm_scan")}
+METRIC_KEYS = ("decode_steps", "prefill_batches", "chunk_steps")
+
+
+def serve_launches_owed(engines, arch_cfg):
+    """{kernel: launches} the engines' metrics owe (``expected_launches``
+    over each engine's metrics deltas), zero for kernels off their path.
+    ``engines``: [(engine, metrics before, architecture)]."""
+    owed = {fn.__name__: 0 for fn in kernel_wrappers()}
+    for eng, before, arch in engines:
+        m = {k: eng.metrics[k] - before.get(k, 0) for k in METRIC_KEYS}
+        for name in SERVE_KERNELS[arch]:
+            owed[name] += expected_launches(name, arch_cfg[arch].n_layers, m)
+    return owed
+
+
+def entry_lm_paas(cfg, params, build_model, ServingEngine, Request, fns):
+    """16b, first half: ``run_lm_paas`` with full-width qwen3-4b: every
+    request served, launches owed by the replicas' metrics exactly, the
+    pools drained, tokens equal to one engine serving each prompt
+    alone. Returns {kernel: launches}."""
+    from repro_torch.core.supervisor import Supervisor
+    from repro_torch.examples import serve_parallel_pipeline as spp
+    sup = Supervisor()
+    _zero(fns)
+    t0 = time.perf_counter()
+    svc, outs = spp.run_lm_paas(sup, cfg=cfg, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {fn.__name__: fn.launches for fn in fns}
+    engines = [(rep.handler.scheduler.engine, {}, "qwen3-4b")
+               for rep in svc.replicas]
+    owed = serve_launches_owed(engines, {"qwen3-4b": cfg})
+    print(f"LM PaaS, 2 replicas of full-width qwen3-4b, bf16, paged, "
+          f"use_kernel: 6 prompts in {wall:.3f} s; launches "
+          f"{json.dumps(got)}")
+    if got != owed:
+        raise AssertionError(f"LM PaaS launches {got} != {owed}")
+    for eng, _, _ in engines:
+        check_drained(eng, "LM PaaS replica")
+    model = build_model(cfg, device="cuda")
+    eng = ServingEngine(model, params, batch_size=2, max_seq=64,
+                        use_kernel=True)
+    for i, (prompt, out) in enumerate(zip(spp.lm_prompts(cfg.vocab_size),
+                                          outs)):
+        req = Request(rid=i, prompt=prompt, max_new_tokens=4)
+        eng.run([req])
+        if req.out_tokens != out["tokens"]:
+            raise AssertionError(f"LM PaaS prompt {i}: {out['tokens']} != "
+                                 f"the engine alone: {req.out_tokens}")
+    check_drained(eng, "the engine alone")
+    print("LM PaaS: every reply's tokens equal one engine serving the "
+          "prompt alone; pools drained")
+    sup.stop_all()
+    return got
+
+
+def entry_multiarch(cfgs, params, fns):
+    """16b, second half: ``multiarch_serving`` with full-width qwen3-4b,
+    rwkv6-1.6b and hymba-1.5b on the card, each ``LMPaaS`` first serving
+    the prompts alone (launches owed by its engine's metrics exactly),
+    then all behind the router's thread fan-out: tokens equal, launches
+    the sum of the runs alone, pools drained. Returns {kernel:
+    launches} of the fan-out."""
+    from repro_torch.examples import multiarch_serving as ma
+    archs = list(cfgs)
+    t0 = time.perf_counter()
+    paases = [ma.LMPaaS(a, i, cfg=cfgs[a], params=params.get(a))
+              for i, a in enumerate(archs)]
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for p in paases
+             for t in _leaves(p.scheduler.engine.params)) / 1e9
+    print(f"multiarch: {', '.join(archs)} at full width, bf16, {gb:.2f} GB "
+          f"of weights, built in {time.perf_counter() - t0:.3f} s")
+    prompts = ma.prompts(4, "cuda")
+    alone, solo = {}, {fn.__name__: 0 for fn in fns}
+    for paas in paases:
+        eng = paas.scheduler.engine
+        before = dict(eng.metrics)
+        _zero(fns)
+        t0 = time.perf_counter()
+        alone[paas.arch] = [paas((p, 4))["tokens"] for p in prompts]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {fn.__name__: fn.launches for fn in fns}
+        owed = serve_launches_owed([(eng, before, paas.arch)], cfgs)
+        print(f"  {paas.arch} alone: 4 requests in {wall:.3f} s, launches "
+              f"{json.dumps({k: n for k, n in got.items() if n})}")
+        if got != owed:
+            raise AssertionError(f"{paas.arch} alone: launches {got} != "
+                                 f"{owed}")
+        for k, n in got.items():
+            solo[k] += n
+    sup, router, dispatcher, order = ma.deploy_router(paases)
+    _zero(fns)
+    lat, res = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        res.append(router((p, 4)))
+        lat.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    dispatcher.shutdown()
+    got = {fn.__name__: fn.launches for fn in fns}
+    print(f"  router ({' -> '.join(order)}), thread fan-out: launches "
+          f"{json.dumps(got)}; median join latency "
+          f"{statistics.median(lat) * 1e3:.1f} ms")
+    for a in archs:
+        print(f"    {a:12s} first request -> {res[0].outputs[a]['tokens']} "
+              f"({res[0].per_call_s[a] * 1e3:.1f} ms)")
+    if got != solo:
+        raise AssertionError(f"fan-out launches {got} != the runs alone "
+                             f"{solo}")
+    for a in archs:
+        toks = [r.outputs[a]["tokens"] for r in res]
+        if toks != alone[a]:
+            raise AssertionError(f"{a}: fan-out tokens {toks} != alone "
+                                 f"{alone[a]}")
+    for paas in paases:
+        check_drained(paas.scheduler.engine, paas.arch)
+    print("multiarch: tokens under the fan-out equal each engine alone; "
+          "launches the sum of the runs alone; pools drained")
+    sup.stop_all()
+    return got
+
+
+def entry_deployment_with_faults(fns, card):
+    """16c: ``serve_parallel_pipeline``'s deployment on the card, f32: 40
+    documents, 3 replicas a NER service (the last a backup), fail rate
+    0.08, 4 clients, work_experience/0 set down at request 13. No request
+    lost, failovers above 0, flash launched 4 a parse and nothing else,
+    fields equal to a fault-free sequential run of the same weights.
+    Returns {kernel: launches}."""
+    import random
+    from repro_torch.core import cvdata
+    from repro_torch.examples import serve_parallel_pipeline as spp
+    sup, parser, services = spp.build_deployment(ENTRY_REPLICAS, ENTRY_FAIL)
+    print("startup order:", " -> ".join(sup.start_all()))
+    rng = random.Random(3)
+    docs = [cvdata.make_document(rng) for _ in range(ENTRY_DOCS)]
+    parser.parse(docs[0])
+    torch.cuda.synchronize()
+    _zero(fns)
+    results, stages, wall = spp.serve_corpus(sup, services, docs,
+                                             ENTRY_CLIENTS, ENTRY_DOCS // 3)
+    torch.cuda.synchronize()
+    got = {fn.__name__: fn.launches for fn in fns}
+    spp.report(results, stages, wall, ENTRY_CLIENTS, services, ENTRY_DOCS)
+    want = {fn.__name__: 0 for fn in fns}
+    want["flash_attention"] = parser.encoder_cfg.n_layers * ENTRY_DOCS
+    print(f"launches over the {ENTRY_DOCS} parses: {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"launches {got} != {want}: flash once per "
+                             f"encoder layer per parse, nothing else")
+    lost = {n: s.balancer.stats["served"] for n, s in services.items()
+            if s.balancer.stats["served"] != ENTRY_DOCS + 1}
+    if lost:
+        raise AssertionError(f"requests lost: served {lost}")
+    fails = sum(s.balancer.stats["failovers"] for s in services.values())
+    backup = sum(s.balancer.stats["backup_served"]
+                 for s in services.values())
+    if services["work_experience"].balancer.stats["failovers"] <= 0:
+        raise AssertionError("the killed replica caused no failover")
+    print(f"zero lost requests; failovers {fails}, backup_served {backup} "
+          f"over the five services")
+    print(f"stage timings over {ENTRY_DOCS} parses, {ENTRY_CLIENTS} clients, "
+          f"faults injected (ms, p50 / p95), {card}:")
+    for key in ("tika", "bert", "sectioning", "parallel_services", "total"):
+        vals = [v * 1e3 for v in stages[key]]
+        print(f"  {key:18s} {pct(vals, 0.5):9.3f} / {pct(vals, 0.95):9.3f}")
+    total = [v * 1e3 for v in stages["total"]]
+    print(f"  total p50 {pct(total, 0.5):.3f} ms, p95 {pct(total, 0.95):.3f}"
+          f" ms beside the paper's < {PAPER_PARSE_MS} ms a CV (a recorded "
+          f"comparison, not a gate)")
+    clean = cv_parser_on(parser, "cuda", "sequential")
+    check_cv_fields([clean.parse(d)["fields"] for d in docs],
+                    [r["fields"] for r in results], docs, parser, clean,
+                    "faults and 4 clients vs a fault-free sequential run")
+    parser.dispatcher.shutdown()
+    sup.stop_all()
+    return got
+
+
+def phase16(get_config, build_model, ServingEngine, Request, card):
+    """Phase 16, the entry points: 16d's fresh build and 16a's entry
+    points start together as subprocesses; then 16b and 16c in this
+    process, on a card those have left. Returns {kernel: launches} over
+    16a, 16b and 16c."""
+    import tempfile
+    fns = kernel_wrappers()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as fresh:
+        t0 = time.perf_counter()
+        build = start_fresh_build(fresh)
+        procs = start_entry_points()
+        phase("16a. python -m repro_torch.examples.<name> at its defaults, "
+              "each in a subprocess, all at once (16d builds meanwhile)")
+        launches = check_entry_points(procs, t0)
+        phase(f"16d. a fresh build from {FRESH_THREADS} threads (started "
+              f"with 16a)")
+        check_fresh_build(*build, fresh)
+    phase("16b. full width in-process: run_lm_paas (qwen3-4b, 2 replicas) "
+          "and multiarch_serving (qwen3-4b, rwkv6-1.6b, hymba-1.5b)")
+    cfgs = {a: get_config(a) for a in SERVE_KERNELS}
+    qwen = build_model(cfgs["qwen3-4b"], device="cuda")
+    params = {"qwen3-4b": qwen.init(SEED)}
+    for got in (entry_lm_paas(cfgs["qwen3-4b"], params["qwen3-4b"],
+                              build_model, ServingEngine, Request, fns),
+                entry_multiarch(cfgs, params, fns)):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    del qwen, params
+    phase(f"16c. the paper's deployment with faults: {ENTRY_DOCS} documents, "
+          f"{ENTRY_REPLICAS} replicas, fail rate {ENTRY_FAIL}, "
+          f"{ENTRY_CLIENTS} clients, work_experience/0 killed at request "
+          f"{ENTRY_DOCS // 3}")
+    for k, n in entry_deployment_with_faults(fns, card).items():
+        launches[k] = launches.get(k, 0) + n
+    idle = [fn.__name__ for fn in fns if not launches.get(fn.__name__)]
+    if idle:
+        raise AssertionError(f"kernels no entry point launched: {idle}")
+    print("launches under the entry points (16a + 16b + 16c):",
+          json.dumps(launches))
+    return launches
+
+
 def main() -> int:
     phase("1. environment")
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -4486,6 +5017,9 @@ def main() -> int:
         serve_launches[name] = serve_launches.get(name, 0) + n
     print("launches summed over the serves:", json.dumps(serve_launches))
 
+    entry_launches = phase16(get_config, build_model, ServingEngine, Request,
+                             card)
+
     phase("timing at the shape of each serve")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device="cuda")
@@ -4738,6 +5272,7 @@ def main() -> int:
                                  "fwd_lse_plain_ms"), vals)})
     for row in rows:
         row["plan_launches"] = plan_launches.get(row["name"], 0)
+        row["entry_launches"] = entry_launches.get(row["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4757,4 +5292,8 @@ def _leaves(tree):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--first-parse"]:
         sys.exit(first_parse(sys.argv[2] == "lower_all"))
+    if sys.argv[1:2] == ["--entry-point"]:
+        sys.exit(entry_point(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--fresh-build"]:
+        sys.exit(fresh_build(sys.argv[2]))
     sys.exit(main())

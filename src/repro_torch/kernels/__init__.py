@@ -12,6 +12,8 @@ shapes.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
@@ -20,6 +22,18 @@ def kernel_route(t) -> bool:
     """Whether a call on ``t`` takes the hand-written kernel: on CUDA and
     meta tensors it does; on the CPU the plain PyTorch version runs."""
     return t.device.type in ("cuda", "meta")
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``, the launch count of a kernel wrapper,
+    under a lock: exact when several threads launch at once (a bare
+    ``+=`` on an attribute can lose a count between its read and its
+    write)."""
+    with _LAUNCH_LOCK:
+        fn.launches += 1
 
 
 # the op's overload packet -> its cost function over the op's arguments

@@ -26,8 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import (_build, check_device, costs, kernel_op,
-                                 refuse_grad, stream_scratch)
+from repro_torch.kernels import (_build, check_device, costs, count_launch,
+                                 kernel_op, refuse_grad, stream_scratch)
 from repro_torch.kernels.flash_attention.kernel import (check_strided,
                                                        rows_aligned)
 
@@ -188,7 +188,7 @@ def _launch(q, k, v, n_valid, sliding_window):
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError_t "
                            f"{err}")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out, lse
 
 

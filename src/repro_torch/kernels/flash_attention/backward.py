@@ -30,7 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, costs, kernel_op, stream_scratch
+from repro_torch.kernels import (_build, costs, count_launch, kernel_op,
+                                 stream_scratch)
 from repro_torch.kernels.flash_attention import kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu"
@@ -229,7 +230,7 @@ def _launch(q, k, v, out, lse, dout, causal, sliding_window):
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t "
                            f"{err}")
-    flash_attention_bwd.launches += 1
+    count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

@@ -20,8 +20,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import (_build, check_device, costs, kernel_op,
-                                 refuse_grad)
+from repro_torch.kernels import (_build, check_device, costs, count_launch,
+                                 kernel_op, refuse_grad)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
 MAX_HEAD_DIM = 256
@@ -137,7 +137,7 @@ def _launch(q, k, v, causal, sliding_window, with_lse):
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError_t "
                            f"{err}")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out, lse
 
 

@@ -24,8 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import (_build, check_device, costs, kernel_op,
-                                 refuse_grad)
+from repro_torch.kernels import (_build, check_device, costs, count_launch,
+                                 kernel_op, refuse_grad)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_window.cu"
 # the head dims the kernels are instantiated on: a head dim hd (a
@@ -222,7 +222,7 @@ def _launch(q, pool_k, pool_v, block_table, base_lens, sliding_window):
     if err:
         raise RuntimeError(f"paged_window_attention launch failed: "
                            f"cudaError_t {err}")
-    paged_window_attention.launches += 1
+    count_launch(paged_window_attention)
     return out, lse
 
 

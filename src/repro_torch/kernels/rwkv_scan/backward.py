@@ -26,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, costs, kernel_op, stream_scratch
+from repro_torch.kernels import (_build, costs, count_launch, kernel_op,
+                                 stream_scratch)
 from repro_torch.kernels.flash_attention.kernel import rows_aligned
 from repro_torch.kernels.rwkv_scan import kernel
 
@@ -141,7 +142,7 @@ def _launch(r, k, v, w, u, state, ck, dout, dstate_out):
         B, T, H, hd, int(vec), stream.cuda_stream)
     if err:
         raise RuntimeError(f"wkv_bwd launch failed: cudaError_t {err}")
-    wkv_bwd.launches += 1
+    count_launch(wkv_bwd)
     return dr, dk, dv, dw, du, dstate
 
 

@@ -30,8 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import (_build, check_device, costs, kernel_op,
-                                 refuse_grad)
+from repro_torch.kernels import (_build, check_device, costs, count_launch,
+                                 kernel_op, refuse_grad)
 from repro_torch.kernels.flash_attention.kernel import rows_aligned
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
@@ -163,7 +163,7 @@ def _launch(r, k, v, w, u, state, checkpoints):
                       stream)
     if err:
         raise RuntimeError(f"wkv_scan launch failed: cudaError_t {err}")
-    wkv_scan.launches += 1
+    count_launch(wkv_scan)
     return out, state_out, ck
 
 

@@ -29,7 +29,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, costs, kernel_op, stream_scratch
+from repro_torch.kernels import (_build, costs, count_launch, kernel_op,
+                                 stream_scratch)
 from repro_torch.kernels.flash_attention.kernel import rows_aligned
 from repro_torch.kernels.ssm_scan import kernel
 
@@ -151,7 +152,7 @@ def _launch(u, dt, Bm, Cm, A, D, state, ck, dy, dstate_out):
         B, T, di, N, int(vec), stream.cuda_stream)
     if err:
         raise RuntimeError(f"ssm_scan_bwd launch failed: cudaError_t {err}")
-    ssm_scan_bwd.launches += 1
+    count_launch(ssm_scan_bwd)
     return (*grads, dstate)
 
 

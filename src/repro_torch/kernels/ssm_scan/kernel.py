@@ -25,8 +25,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import (_build, check_device, costs, kernel_op,
-                                 refuse_grad)
+from repro_torch.kernels import (_build, check_device, costs, count_launch,
+                                 kernel_op, refuse_grad)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 MAX_STATE = 64                 # h of a channel lives in 32 lanes' registers
@@ -112,7 +112,7 @@ def _launch(u, dt, Bm, Cm, A, D, state, checkpoints):
                       B, T, di, N, stream)
     if err:
         raise RuntimeError(f"ssm_scan launch failed: cudaError_t {err}")
-    ssm_scan.launches += 1
+    count_launch(ssm_scan)
     return y, state_out, ck
 
 
