@@ -24,10 +24,25 @@ plan takes :func:`moe_decode_ffn`, the weight-stationary body.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+
+
+class _SpanHook(threading.local):
+    """``hook``: a context manager that a traced serving engine sets on
+    its own thread while it enqueues a call, wrapped around each MoE FFN
+    so that the FFN's device work is timed as one span
+    (``serve.telemetry.LayerSpans``). None otherwise, and on every other
+    thread: an untraced layer pays one thread-local read and a branch."""
+
+    hook = None
+
+
+span_hook = _SpanHook()
 
 
 def init_moe(gen, cfg, device, lead: tuple = ()):

@@ -172,7 +172,13 @@ def apply_block(x, p, cfg, *, kind, mode, cache=None, extras=None,
                                                 p["xattn"], cfg, plan)
     h = layers.rmsnorm(x, p["ln2"], eps)
     if kind == "moe":
-        ffn_out, aux = moe.moe_ffn(h, p["moe"], cfg, plan)
+        hook = moe.span_hook.hook
+        if hook is None:
+            ffn_out, aux = moe.moe_ffn(h, p["moe"], cfg, plan)
+        else:
+            # a traced engine step: the FFN's device work as one span
+            with hook:
+                ffn_out, aux = moe.moe_ffn(h, p["moe"], cfg, plan)
         x = x + ffn_out
     else:
         x = x + layers.mlp(h, p["ffn"], cfg.act, plan)

@@ -81,11 +81,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.moe import span_hook
 from repro_torch.serve import sampling
 from repro_torch.serve.blocks import BlockPool
 from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.serve.spec import DraftRunner
-from repro_torch.serve.telemetry import NOOP, PID_LOOP, PID_POOL, PID_REQUESTS
+from repro_torch.serve.telemetry import (NOOP, PID_ENGINE, PID_LOOP, PID_POOL,
+                                         PID_REQUESTS, LayerSpans)
 from repro_torch.sharding.rules import DTensor
 
 _MIN_BUCKET = 8
@@ -137,19 +139,25 @@ class _Tick:
     ``dispatch_step()`` and ``commit()`` the engine's host state must be
     treated as read-only. Commit is one-shot."""
 
-    __slots__ = ("_commit",)
+    __slots__ = ("_commit", "_spans")
 
-    def __init__(self, commit_fn):
+    def __init__(self, commit_fn, spans):
         self._commit = commit_fn
+        self._spans = spans
 
     @torch.no_grad()
     def commit(self) -> list:
         """Synchronize on the device results, run the per-slot
-        bookkeeping, and return the finished requests."""
+        bookkeeping, and return the finished requests. Traced, the
+        engine's device spans then take the tick's anchor (see
+        :class:`~repro_torch.serve.telemetry.DeviceSpans`)."""
         fn, self._commit = self._commit, None
         if fn is None:
             raise RuntimeError("tick already committed")
-        return fn()
+        out = fn()
+        if self._spans is not None:
+            self._spans.commit()
+        return out
 
 
 def _host(t) -> np.ndarray:
@@ -188,6 +196,20 @@ class ServingEngine:
         self.clock = clock
         # span/event recorder; every emission site guards on .enabled
         self.tracer = NOOP if tracer is None else tracer
+        # traced: this engine's device spans (its own, whoever else
+        # shares the tracer) and the MoE FFN's hook over them
+        self._spans = self.tracer.device_spans(self.device.type == "cuda") \
+            if self.tracer.enabled else None
+        self._moe_spans = LayerSpans(self._spans, "moe-ffn") \
+            if self.tracer.enabled else None
+        # dispatch_step() calls so far: the number of the tick that a
+        # fill's admissions and the next dispatch belong to
+        self.ticks = 0
+        # the port's own counters, beside the reference's ``metrics``:
+        # positions the prefill calls computed (rows x width) and the
+        # padding among them
+        self.counters = {"prefill_calls": 0, "prefill_call_tokens": 0,
+                         "prefill_pad_tokens": 0}
         leaves = sorted(model.init_cache(1, _MIN_BUCKET))
         pure_attn = set(leaves) <= {"k", "v"}
         # MoE routing shares one per-expert capacity over a call's (rows x
@@ -337,6 +359,68 @@ class ServingEngine:
                 cache[:, slot][tuple(slice(0, n) for n in row.shape)] = row
         return sampling.sample_rows(logits[:, -1, :], samp)
 
+    def _prefill(self, members: list, width: int) -> tuple:
+        """One prefill call: row j holds the first ``n0`` tokens of
+        ``members[j]``'s prompt ((req, slot, n0)), right-padded to
+        ``width``; each row's KV goes to its slot (pool blocks or
+        stripe). Returns each row's first token and its logprob, on the
+        device. The call's positions and padding are counted; traced, its
+        host work lands on the engine track (``prefill-launch``,
+        ``kv-insert``), its device work from the first copy to the last
+        insertion on the device track (``prefill-call``), and each MoE
+        FFN it runs as a ``moe-ffn`` span."""
+        tr = self.tracer
+        if tr.enabled:
+            t = tr.clock()
+        toks = np.zeros((len(members), width), np.int32)
+        last = np.zeros(len(members), np.int32)
+        for j, (req, _, n0) in enumerate(members):
+            toks[j, :n0] = self._eff_prompt(req)[:n0]
+            last[j] = n0 - 1
+        self._count_prefill(toks.size, int(last.sum()) + len(members))
+        if tr.enabled:
+            tick = self.ticks
+            mark = self._spans.mark()
+            span_hook.hook = self._moe_spans.arm(tick, "prefill-call")
+        try:
+            samp = self._sampling_rows([req for req, _, _ in members])
+            if self.paged:
+                nxt, logp, pref = self._prefill_paged(toks, last, samp)
+            else:
+                nxt, logp = self._admit(toks, last,
+                                        [slot for _, slot, _ in members],
+                                        samp)
+        finally:
+            if tr.enabled:
+                span_hook.hook = None
+        if tr.enabled:
+            t = self._sub("prefill-launch", t, tick, "fill")
+        if self.paged:
+            for j, (req, slot, n0) in enumerate(members):
+                eff = self._eff_prompt(req)
+                self._insert_paged(pref, j, slot, eff[:n0],
+                                   more=n0 < len(eff))
+            if tr.enabled:
+                self._sub("kv-insert", t, tick, "fill")
+        if tr.enabled:
+            self._spans.span("prefill-call", mark, self._spans.mark(),
+                             {"tick": tick, "rows": len(members),
+                              "width": width,
+                              "rids": [r.rid for r, _, _ in members]})
+        return nxt, logp
+
+    def _count_prefill(self, computed: int, real: int) -> None:
+        """Count a prefill call's positions: ``computed`` (rows x width),
+        of which ``real`` are prompt tokens and the rest padding."""
+        c = self.counters
+        c["prefill_calls"] += 1
+        c["prefill_call_tokens"] += computed
+        c["prefill_pad_tokens"] += computed - real
+        if self.tracer.enabled:
+            self.tracer.counter("prefill-pad", {"tokens": computed,
+                                                "pad": computed - real},
+                                pid=PID_ENGINE)
+
     def _write_block(self, pref, row: int, start: int, phys: int) -> None:
         """Copy one logical block of row ``row`` of the prefill KV (token
         window [start, start+block_size)) into physical pool block
@@ -351,6 +435,17 @@ class ServingEngine:
             pool[:, dst] = pool[:, src]
 
     # ---------------------------------------------------------- telemetry
+    def _sub(self, name: str, t0: float, tick: int, phase: str,
+             **args) -> float:
+        """A host sub-span of loop phase ``phase`` (``fill`` or
+        ``dispatch``) on the engine track, from ``t0`` to now; returns
+        now. Callers guard on ``tracer.enabled``."""
+        tr = self.tracer
+        now = tr.clock()
+        tr.complete(name, t0, now - t0, pid=PID_ENGINE, tid=self._spans.tid,
+                    args={"tick": tick, "phase": phase, **args})
+        return now
+
     def _trace_admit(self, req: Request, slot: int, *,
                      shared: bool = False, chunked: bool = False) -> None:
         """Stamp the admission (first one only) and mark it on the
@@ -629,6 +724,8 @@ class ServingEngine:
         resident (or is being prefilled by an earlier member of this
         batch) acquires those blocks and owes only its un-shared suffix.
         Returns how many of the *caller's* requests were admitted."""
+        tr = self.tracer
+        t = tr.clock() if tr.enabled else 0.0
         for r in reqs:
             if len(r.prompt) > self.max_seq:
                 raise ValueError(f"request {r.rid}: prompt length "
@@ -711,8 +808,6 @@ class ServingEngine:
             if self._waiting and self._waiting[0] is r:
                 self._waiting.popleft()
                 n_from_waiting += 1
-        if not take:
-            return 0
         # ---- plain admissions first: batched prefill per shape group
         # (a power-of-two bucket for paddable caches, the exact length for
         # recurrent state). A chunked admission contributes only its FIRST
@@ -730,25 +825,16 @@ class ServingEngine:
             else:
                 key = n0                         # exact-length co-batching
             groups.setdefault(key, []).append((req, slot, n0))
+        if tr.enabled:
+            self._sub("admit-plan", t, self.ticks, "fill")
         for key, members in groups.items():
             width = key if isinstance(key, int) else members[0][2]
-            toks = np.zeros((len(members), width), np.int32)
-            last = np.zeros(len(members), np.int32)
-            for j, (req, slot, n0) in enumerate(members):
-                toks[j, :n0] = self._eff_prompt(req)[:n0]
-                last[j] = n0 - 1
-            samp = self._sampling_rows([req for req, _, _ in members])
-            if self.paged:
-                nxt, logp, pref = self._prefill_paged(toks, last, samp)
-                for j, (req, slot, n0) in enumerate(members):
-                    eff = self._eff_prompt(req)
-                    self._insert_paged(pref, j, slot, eff[:n0],
-                                       more=n0 < len(eff))
-            else:
-                nxt, logp = self._admit(toks, last,
-                                        [slot for _, slot, _ in members],
-                                        samp)
+            nxt, logp = self._prefill(members, width)
+            if tr.enabled:
+                t = tr.clock()
             nxt, logp = _host(nxt), _host(logp)
+            if tr.enabled:
+                self._sub("prefill-wait", t, self.ticks, "fill")
             for j, (req, slot, n0) in enumerate(members):
                 eff = self._eff_prompt(req)
                 P = len(eff)
@@ -847,10 +933,7 @@ class ServingEngine:
             # in-batch promise broken (the source retired inside this very
             # batch): a solo plain prefill, chunked like any other
             n0 = min(P, C) if C else P
-            nxt, logp, pref = self._prefill_paged(
-                np.asarray([eff[:n0]], np.int32),
-                np.asarray([n0 - 1], np.int32), self._sampling_rows([req]))
-            self._insert_paged(pref, 0, slot, eff[:n0], more=n0 < P)
+            nxt, logp = self._prefill([(req, slot, n0)], n0)
             self.slot_req[slot] = req
             self.slot_len[slot] = n0
             self.slot_pending[slot] = list(eff[n0:])
@@ -1133,7 +1216,8 @@ class ServingEngine:
             self.block_table[i, keep:] = 0
             self.metrics["spec_blocks_rolled_back"] += len(extra)
 
-    def _spec_step(self, active: list, n_spec, finished: list) -> _Tick:
+    def _spec_step(self, active: list, n_spec, finished: list,
+                   tick: int) -> _Tick:
         """Dispatch one draft-and-verify step. ``n_spec[i]`` proposals for
         each speculating slot (0 for riders: pending catch-up, opted-out
         or watermark-degraded slots, which feed one real token through
@@ -1143,6 +1227,10 @@ class ServingEngine:
         back before the tick's commit, which commits each row's accepted
         prefix + bonus token, rolls the pool back to the committed
         watermark, and advances the draft."""
+        tr = self.tracer
+        if tr.enabled:
+            t = tr.clock()
+            mark = self._spans.mark()
         k = self.spec_k
         temps, top_ks, seeds, ctrs = self._sampling_arrays(self.slot_req)
         rows = [i for i in active if n_spec[i] > 0]
@@ -1155,9 +1243,6 @@ class ServingEngine:
             tails[i] = (r.prompt[dl:] + r.out_tokens) if dl < P \
                 else r.out_tokens[dl - P:]
             totals[i] = P + len(r.out_tokens)
-        proposed, dprobs = self.draft.propose(tails, rows, k, temps, top_ks,
-                                              seeds, ctrs)
-        self.metrics["draft_steps"] = self.draft.steps_run
         first = np.zeros((self.B, 1), np.int32)
         n_write = np.zeros(self.B, np.int32)
         for i in active:
@@ -1165,23 +1250,33 @@ class ServingEngine:
             first[i, 0] = self.slot_pending[i][0] if self.slot_pending[i] \
                 else r.out_tokens[-1]
             n_write[i] = n_spec[i] + 1
-        toks = torch.cat([self._dev(first), proposed], dim=1)
         if self.paged and self.use_kernel:
             self.metrics["kernel_windows"] += 1
             self.metrics["kernel_positions"] += int(
                 sum(n_write[i] for i in active))
+        first_d = self._dev(first)
         table = self._dev(self.block_table) if self.paged else None
+        lens = self._dev(self.slot_len)
+        n_write = self._dev(n_write) if self.paged else None
+        if tr.enabled:
+            t = self._sub("stage", t, tick, "dispatch", step="spec")
+        proposed, dprobs = self.draft.propose(tails, rows, k, temps, top_ks,
+                                              seeds, ctrs)
+        self.metrics["draft_steps"] = self.draft.steps_run
+        toks = torch.cat([first_d, proposed], dim=1)
         logits, _ = self.model.verify_step(
-            self.params, toks, self.caches, self._dev(self.slot_len),
-            block_table=table, paged_kernel=self.use_kernel,
-            n_write=self._dev(n_write) if self.paged else None,
-            plan=self.plan)
+            self.params, toks, self.caches, lens, block_table=table,
+            paged_kernel=self.use_kernel, n_write=n_write, plan=self.plan)
         a, out_toks, lps = sampling.speculative_accept(
             logits, dprobs, proposed, n_spec, temps, top_ks, seeds, ctrs)
         self.metrics["decode_steps"] += 1
         self.metrics["verify_steps"] += 1
+        if tr.enabled:
+            self._sub("launch", t, tick, "dispatch", step="spec")
+            self._spans.span("spec-step", mark, self._spans.mark(),
+                             {"tick": tick, "rows": len(active)})
         return _Tick(lambda: self._commit_spec(active, n_spec, finished,
-                                               totals, a, out_toks, lps))
+                                               totals, a, out_toks, lps), self._spans)
 
     def _commit_spec(self, active, n_spec, finished, totals, a, out_toks,
                      lps) -> list:
@@ -1238,13 +1333,17 @@ class ServingEngine:
         return finished
 
     def _chunk_step(self, active: list, chunk_want: dict,
-                    finished: list) -> _Tick:
+                    finished: list, tick: int) -> _Tick:
         """Dispatch one **chunk window** step: every slot with pending
         prompt tokens feeds up to its chunk of them while decode slots
         ride with their single next token. A row that exhausts its prompt
         inside the window samples at its last real position; every other
         draw is discarded. Parked slots ride with ``n_write`` 0 (all their
         writes divert to scratch)."""
+        tr = self.tracer
+        if tr.enabled:
+            t = tr.clock()
+            mark = self._spans.mark()
         W = _bucket(max(chunk_want.get(i, 1) for i in active), self.max_seq)
         toks = np.zeros((self.B, W), np.int32)
         n_write = np.zeros(self.B, np.int32)
@@ -1269,16 +1368,23 @@ class ServingEngine:
         # land in its own stripe (never attended, overwritten later) or
         # drop past max_seq
         table = self._dev(self.block_table) if self.paged else None
+        toks, lens = self._dev(toks), self._dev(self.slot_len)
+        n_write, last = self._dev(n_write), self._dev(last)
+        if tr.enabled:
+            t = self._sub("stage", t, tick, "dispatch", step="chunk")
         logits, _ = self.model.prefill(
-            self.params, {"tokens": self._dev(toks)}, cache=self.caches,
-            cache_len=self._dev(self.slot_len), block_table=table,
-            paged_kernel=self.use_kernel, n_write=self._dev(n_write),
-            last_idx=self._dev(last), plan=self.plan)
+            self.params, {"tokens": toks}, cache=self.caches,
+            cache_len=lens, block_table=table, paged_kernel=self.use_kernel,
+            n_write=n_write, last_idx=last, plan=self.plan)
         nxt, logp = sampling.sample_rows(logits[:, 0, :], samp)
         self.metrics["decode_steps"] += 1
         self.metrics["chunk_steps"] += 1
+        if tr.enabled:
+            self._sub("launch", t, tick, "dispatch", step="chunk")
+            self._spans.span("chunk-step", mark, self._spans.mark(),
+                             {"tick": tick, "rows": len(active)})
         return _Tick(lambda: self._commit_chunk(active, n_fed, finished,
-                                                nxt, logp))
+                                                nxt, logp), self._spans)
 
     def _commit_chunk(self, active, n_fed, finished, nxt, logp) -> list:
         nxt, logp = _host(nxt), _host(logp)
@@ -1318,7 +1424,32 @@ class ServingEngine:
         the device work is *launched*;
         the returned :class:`_Tick`'s ``commit()`` syncs on the result and
         applies the per-slot bookkeeping. Between dispatch and commit the
-        engine's slot state must not be mutated."""
+        engine's slot state must not be mutated.
+
+        Traced, the host work lands on the engine track as ``plan``,
+        ``stage`` (host arrays and their copies) and ``launch`` (the
+        model and the sampler), and the device's from the first copy to
+        the sampler's end on the device track (``decode-step``,
+        ``chunk-step`` or ``spec-step``)."""
+        tr = self.tracer
+        tick = self.ticks
+        self.ticks += 1
+        t = tr.clock() if tr.enabled else 0.0
+        finished, active, chunk_want, n_spec, chunking = self._plan_step()
+        if tr.enabled:
+            self._sub("plan", t, tick, "dispatch")
+        if not active:
+            return _Tick(lambda: finished, self._spans)
+        if self.spec_k and any(n_spec[i] > 0 for i in active):
+            return self._spec_step(active, n_spec, finished, tick)
+        if chunking:
+            return self._chunk_step(active, chunk_want, finished, tick)
+        return self._decode_step(active, finished, tick)
+
+    def _plan_step(self) -> tuple:
+        """The host planning of a step: capacity retires, the chunk
+        budget, speculative windows and block growth. Returns (finished,
+        active, chunk_want, n_spec, chunking)."""
         finished, self._finished_at_admit = self._finished_at_admit, []
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         # any slot past capacity would write out of bounds — finish it now
@@ -1328,7 +1459,7 @@ class ServingEngine:
                 self._retire(i)
                 active.remove(i)
         if not active:
-            return _Tick(lambda: finished)
+            return finished, active, {}, None, False
         # chunk plan: pending prompt tokens each slot feeds this step,
         # budgeted per tick across slots in admission order (every slot
         # still makes >= 1 token of progress on a dry budget)
@@ -1378,12 +1509,14 @@ class ServingEngine:
             chunking = any(chunk_want.get(i, 0) > 1 for i in active)
             finished.extend(self._finished_at_admit)
             self._finished_at_admit = []
-        if not active:
-            return _Tick(lambda: finished)
-        if self.spec_k and any(n_spec[i] > 0 for i in active):
-            return self._spec_step(active, n_spec, finished)
-        if chunking:
-            return self._chunk_step(active, chunk_want, finished)
+        return finished, active, chunk_want, n_spec, chunking
+
+    def _decode_step(self, active: list, finished: list, tick: int) -> _Tick:
+        """Dispatch one plain decode step: one token a slot."""
+        tr = self.tracer
+        if tr.enabled:
+            t = tr.clock()
+            mark = self._spans.mark()
         tok = np.zeros((self.B, 1), np.int32)
         for i, r in enumerate(self.slot_req):
             if r is None:
@@ -1396,14 +1529,25 @@ class ServingEngine:
         if self.paged and self.use_kernel:
             self.metrics["kernel_positions"] += len(active)
         table = self._dev(self.block_table) if self.paged else None
-        logits, _ = self.model.decode_step(
-            self.params, self._dev(tok), self.caches,
-            self._dev(self.slot_len), block_table=table,
-            paged_kernel=self.use_kernel, plan=self.plan)
-        nxt, logp = sampling.sample_rows(logits[:, -1, :], samp)
+        tok, lens = self._dev(tok), self._dev(self.slot_len)
+        if tr.enabled:
+            t = self._sub("stage", t, tick, "dispatch", step="decode")
+            span_hook.hook = self._moe_spans.arm(tick, "decode-step")
+        try:
+            logits, _ = self.model.decode_step(
+                self.params, tok, self.caches, lens, block_table=table,
+                paged_kernel=self.use_kernel, plan=self.plan)
+            nxt, logp = sampling.sample_rows(logits[:, -1, :], samp)
+        finally:
+            if tr.enabled:
+                span_hook.hook = None
         self.metrics["decode_steps"] += 1
+        if tr.enabled:
+            self._sub("launch", t, tick, "dispatch", step="decode")
+            self._spans.span("decode-step", mark, self._spans.mark(),
+                             {"tick": tick, "rows": len(active)})
         return _Tick(lambda: self._commit_decode(active, finished, nxt,
-                                                 logp))
+                                                 logp), self._spans)
 
     def _commit_decode(self, active, finished, nxt, logp) -> list:
         nxt, logp = _host(nxt), _host(logp)

@@ -80,6 +80,7 @@ class LMReplica:
         eng, loop, sched = self.scheduler.engine, self.loop, self.scheduler
         self.registry = MetricsRegistry(labels={"replica": self.name})
         self.registry.source("engine", lambda: eng.metrics)
+        self.registry.source("engine", lambda: eng.counters)
         self.registry.source("pool", eng.pool_stats)
         self.registry.source("loop", lambda: loop.metrics)
         self.registry.source("scheduler", lambda: _scheduler_metrics(sched))

@@ -1,27 +1,36 @@
 """Serve-loop telemetry: span tracing + a unified metrics registry (own
-copy of the reference's ``serve/telemetry.py``; host-only Python).
+copy of the reference's ``serve/telemetry.py``, extended with the
+engine's host sub-spans and device spans).
 
 * :class:`Tracer` — a clock-injectable event recorder. Components emit
   **spans** (named intervals: a request's queued/prefill/decode phases,
-  a tick's fill/dispatch/plan/commit/emit phases) and **instants**
-  (admit, park, preempt, copy-on-write, shed, cancel) into a bounded
-  ring buffer; :meth:`Tracer.chrome_trace` renders the buffer as Chrome
-  trace-event JSON that Perfetto loads directly — requests as one named
-  track each, the serve loop's tick phases as another, pool occupancy
-  as a counter track. Traces recorded under a
+  a tick's fill/dispatch/plan/commit/emit phases, the engine's work
+  inside them) and **instants** (admit, park, preempt, copy-on-write,
+  shed, cancel) into a bounded ring buffer; :meth:`Tracer.chrome_trace`
+  renders the buffer as Chrome trace-event JSON that Perfetto loads
+  directly — requests as one named track each, the serve loop's tick
+  phases as another, pool occupancy as a counter track, the engine's
+  host work and the device's spans as two more. Traces recorded under a
   :class:`~repro_torch.serve.clock.VirtualClock` are deterministic: the
   same scripted workload emits byte-identical JSON.
+* **Device spans** (:class:`DeviceSpans`, one an engine, from
+  :meth:`Tracer.device_spans`) time device work without a sync of their
+  own: on a CUDA device a mark is a timing event recorded on the current
+  stream, placed on the tracer's clock through an anchor event that each
+  tick's commit records on an idle stream beside one clock read.
+  Elsewhere a mark is the clock's reading, since CPU work is
+  synchronous.
 * :class:`NoopTracer` — the default everywhere. Every emitter is an
   empty method and every call site is also guarded on ``.enabled``, so
   an untraced engine allocates nothing for tracing.
-* :class:`MetricsRegistry` — one namespace of counters / gauges /
-  histograms with Prometheus text exposition
-  (:meth:`MetricsRegistry.prometheus_text`). Existing stats dicts
-  (``engine.metrics``, ``pool.stats()``, scheduler/loop/balancer
-  counters) plug in as **sources** — callables polled at collection
-  time — so the registry unifies them without forking their storage;
-  :func:`prometheus_text` merges many registries (one per replica,
-  labelled) into one exposition, which is how ``service.py`` and
+* :class:`MetricsRegistry` — one namespace of polled sources with
+  Prometheus text exposition (:meth:`MetricsRegistry.prometheus_text`).
+  Existing stats dicts (``engine.metrics``, ``engine.counters``,
+  ``pool.stats()``, scheduler/loop/balancer counters) plug in as
+  **sources** — callables polled at collection time — so the registry
+  unifies them without forking their storage; :func:`prometheus_text`
+  merges many registries (one per replica, labelled) into one
+  exposition, which is how ``service.py`` and
   ``Supervisor.prometheus_text`` aggregate across replicas.
 
 Tracing is opt-in, the ring buffer bounds memory (oldest events drop
@@ -31,16 +40,31 @@ I/O, and exporters only walk the buffer when asked.
 from __future__ import annotations
 
 import json
+import threading
 import time
 from collections import deque
 from contextlib import contextmanager
 
 # Trace "process" ids: Perfetto groups tracks by pid, so the serve
-# loop's tick phases, the per-request lifecycles, and the pool's
-# occupancy counters land in three separately-collapsible groups.
+# loop's tick phases, the per-request lifecycles, the pool's occupancy
+# counters, the engine's host work and the device's spans land in five
+# separately-collapsible groups.
 PID_LOOP = 0        # serve-loop tick phases (one thread track)
 PID_REQUESTS = 1    # one thread track per request (tid = rid)
 PID_POOL = 2        # block-pool counters + events
+PID_ENGINE = 3      # the engine's host sub-spans inside a loop phase
+PID_DEVICE = 4      # device spans, placed on the tracer's clock
+
+
+
+def _cuda_event():
+    import torch
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _cuda_stream():
+    import torch
+    return torch.cuda.Stream()
 
 
 class NoopTracer:
@@ -65,6 +89,9 @@ class NoopTracer:
     def span(self, name, *, pid=0, tid=0, args=None):
         yield
 
+    def device_spans(self, cuda: bool):
+        pass
+
     def chrome_trace(self) -> dict:
         return {"traceEvents": [], "displayTimeUnit": "ms"}
 
@@ -85,27 +112,38 @@ class Tracer(NoopTracer):
     the serving stack's latency stats live on one time base when both
     share a clock. ``capacity`` bounds the ring buffer — the hot path
     never grows without bound; the oldest events are evicted first and
-    counted in ``dropped``.
+    counted in ``dropped``. ``event`` and ``stream`` make the timing
+    events of device spans on a CUDA device and the idle stream their
+    anchors are recorded on (``torch.cuda.Event(enable_timing=True)``
+    and ``torch.cuda.Stream()`` by default; tests pass stand-ins).
     """
 
     enabled = True
 
-    def __init__(self, clock=time.perf_counter, capacity: int = 65536):
+    def __init__(self, clock=time.perf_counter, capacity: int = 65536,
+                 event=_cuda_event, stream=_cuda_stream):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.clock = clock
         self.capacity = capacity
         self._events: deque = deque(maxlen=capacity)
         self.dropped = 0
+        self._new_event = event
+        self._new_stream = stream
+        self._recorders: list = []
+        # several engines (one a replica, each on its own thread) may
+        # share one tracer: the ring and ``dropped`` change together
+        self._lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._events)
 
     # ------------------------------------------------------------- emit
     def _emit(self, ev: dict) -> None:
-        if len(self._events) == self.capacity:
-            self.dropped += 1
-        self._events.append(ev)
+        with self._lock:
+            if len(self._events) == self.capacity:
+                self.dropped += 1
+            self._events.append(ev)
 
     def instant(self, name, *, pid=0, tid=0, args=None, ts=None):
         """A point event (``ph: "i"``): admit / park / preempt / shed /
@@ -143,6 +181,17 @@ class Tracer(NoopTracer):
             self.complete(name, t0, self.clock() - t0, pid=pid, tid=tid,
                           args=args)
 
+    # ------------------------------------------------------ device spans
+    def device_spans(self, cuda: bool) -> "DeviceSpans":
+        """A recorder of device spans for one engine (see
+        :class:`DeviceSpans`), numbered in order of creation (its
+        ``tid``); :meth:`chrome_trace` places what its recorders still
+        hold."""
+        with self._lock:
+            rec = DeviceSpans(self, cuda, len(self._recorders))
+            self._recorders.append(rec)
+        return rec
+
     @staticmethod
     def _us(t: float) -> float:
         # Chrome trace timestamps are microseconds; rounding to 0.1 us
@@ -157,12 +206,19 @@ class Tracer(NoopTracer):
         tracks; request tracks are labelled by rid. Deterministic for a
         deterministic clock: events render in emission order with
         sorted keys, so two identical scripted runs serialize to
-        byte-identical JSON."""
+        byte-identical JSON. Device spans still held by a recorder are
+        placed first (waiting for the device to finish them)."""
+        with self._lock:
+            recorders = list(self._recorders)
+        for rec in recorders:
+            rec.flush()
         events = [{"name": "process_name", "ph": "M", "pid": pid,
                    "tid": 0, "args": {"name": label}}
                   for pid, label in ((PID_LOOP, "serve-loop"),
                                      (PID_REQUESTS, "requests"),
-                                     (PID_POOL, "kv-block-pool"))]
+                                     (PID_POOL, "kv-block-pool"),
+                                     (PID_ENGINE, "engine"),
+                                     (PID_DEVICE, "device"))]
         rids = sorted({e["tid"] for e in self._events
                        if e["pid"] == PID_REQUESTS})
         events.extend({"name": "thread_name", "ph": "M",
@@ -183,6 +239,140 @@ class Tracer(NoopTracer):
         return len(trace["traceEvents"])
 
 
+class DeviceSpans:
+    """One engine's device spans, placed on its tracer's clock.
+
+    On a CUDA device a mark is a timing event recorded on the current
+    stream, and a span waits here until the device has run it. At each
+    tick's commit, after its sync, :meth:`commit` takes the tick's anchor
+    without waiting: one clock read, then an event recorded on a stream
+    that nothing else uses, so the device reaches it as it is recorded.
+    The tick's spans are placed at a later commit, once that anchor has
+    been reached: each mark lies its elapsed time before the anchor.
+    Taken afresh every tick, so the device's and the host's clocks cannot
+    drift apart across spans, and no call waits for the device. Off a
+    CUDA device a mark is the clock's reading (CPU work runs as it is
+    issued) and a span is emitted at once.
+
+    Each engine keeps its own recorder, so engines that share a tracer
+    (one a replica, each pumped on its own thread) place only their own
+    spans, each engine's on a thread track of its own (``tid``, which
+    its host sub-spans share); the lock guards against :meth:`Tracer.chrome_trace` on another
+    thread, which places what is left. Spent events are recorded again,
+    so a steady serve allocates none."""
+
+    __slots__ = ("tracer", "cuda", "tid", "_pending", "_placing",
+                 "_spare", "_side", "_lock")
+
+    def __init__(self, tracer: Tracer, cuda: bool, tid: int = 0):
+        self.tracer = tracer
+        self.cuda = cuda
+        self.tid = tid
+        self._pending: list = []        # spans of the tick in flight
+        self._placing: deque = deque()  # (clock, anchor, spans) a tick
+        self._spare: list = []
+        self._side = None               # the anchors' stream
+        self._lock = threading.Lock()
+
+    def mark(self):
+        """A point on the device's timeline, for :meth:`span`."""
+        if not self.cuda:
+            return self.tracer.clock()
+        with self._lock:
+            ev = self._spare.pop() if self._spare \
+                else self.tracer._new_event()
+        ev.record()
+        return ev
+
+    def span(self, name: str, start, end, args=None) -> None:
+        """The device work between two marks, as a span ``name`` on the
+        device track."""
+        if not self.cuda:
+            self.tracer.complete(name, start, end - start, pid=PID_DEVICE,
+                                 tid=self.tid, args=args)
+            return
+        with self._lock:
+            self._pending.append((name, start, end, args))
+
+    def commit(self) -> None:
+        """Called once the tick's commit has synced: places the spans of
+        earlier ticks whose anchors the device has reached, and takes
+        this tick's anchor for its own."""
+        if not self.cuda:
+            return
+        with self._lock:
+            while self._placing and self._placing[0][1].query():
+                self._place(*self._placing.popleft())
+            if self._pending:
+                self._anchor()
+
+    def flush(self) -> None:
+        """Places every span held, waiting for the device to finish
+        them (an export, off the serve's path)."""
+        if not self.cuda:
+            return
+        with self._lock:
+            if self._pending:
+                for _, _, end, _ in self._pending:
+                    end.synchronize()
+                self._anchor()
+            while self._placing:
+                now, anchor, spans = self._placing.popleft()
+                anchor.synchronize()
+                self._place(now, anchor, spans)
+
+    def _anchor(self) -> None:
+        if self._side is None:
+            self._side = self.tracer._new_stream()
+        anchor = self._spare.pop() if self._spare \
+            else self.tracer._new_event()
+        # the clock read before the record, as the slice's markers are
+        # placed: a read after it would add the call's own time
+        now = self.tracer.clock()
+        anchor.record(self._side)
+        self._placing.append((now, anchor, self._pending))
+        self._pending = []
+
+    def _place(self, now: float, anchor, spans: list) -> None:
+        tr = self.tracer
+        for name, a, b, args in spans:
+            t0 = now - a.elapsed_time(anchor) / 1e3
+            t1 = now - b.elapsed_time(anchor) / 1e3
+            tr.complete(name, t0, t1 - t0, pid=PID_DEVICE, tid=self.tid,
+                        args=args)
+            self._spare += (a, b)
+        self._spare.append(anchor)
+
+
+class LayerSpans:
+    """What a traced engine sets as ``models.moe.span_hook.hook`` on its
+    own thread while it enqueues a call: a context manager that times
+    each call it wraps as a device span ``name`` of ``spans`` (a
+    :class:`DeviceSpans`), numbered in call order (``layer``) beside the
+    call's tick and step. One an engine, re-armed by :meth:`arm` for
+    every call."""
+
+    __slots__ = ("spans", "name", "tick", "step", "layer", "_start")
+
+    def __init__(self, spans: DeviceSpans, name: str):
+        self.spans = spans
+        self.name = name
+        self.arm(0, "")
+
+    def arm(self, tick: int, step: str) -> LayerSpans:
+        self.tick, self.step, self.layer = tick, step, 0
+        return self
+
+    def __enter__(self):
+        self._start = self.spans.mark()
+
+    def __exit__(self, *exc):
+        sp = self.spans
+        sp.span(self.name, self._start, sp.mark(),
+                {"tick": self.tick, "step": self.step, "layer": self.layer})
+        self.layer += 1
+
+
 # =========================================================== metrics
 def _sanitize(name: str) -> str:
     """Prometheus metric names allow [a-zA-Z0-9_:]; everything else
@@ -191,157 +381,40 @@ def _sanitize(name: str) -> str:
     return "".join(c if c.isalnum() or c in "_:" else "_" for c in name)
 
 
-class Counter:
-    """Monotonic count (``inc`` only; resets are a new process)."""
-
-    __slots__ = ("name", "help", "value")
-    kind = "counter"
-
-    def __init__(self, name: str, help: str = ""):
-        self.name = name
-        self.help = help
-        self.value = 0.0
-
-    def inc(self, n: float = 1.0) -> None:
-        if n < 0:
-            raise ValueError(f"{self.name}: counters only go up ({n})")
-        self.value += n
-
-    def samples(self):
-        return [("", self.value)]
-
-
-class Gauge:
-    """Point-in-time value (queue depth, pool occupancy)."""
-
-    __slots__ = ("name", "help", "value")
-    kind = "gauge"
-
-    def __init__(self, name: str, help: str = ""):
-        self.name = name
-        self.help = help
-        self.value = 0.0
-
-    def set(self, v: float) -> None:
-        self.value = float(v)
-
-    def inc(self, n: float = 1.0) -> None:
-        self.value += n
-
-    def dec(self, n: float = 1.0) -> None:
-        self.value -= n
-
-    def samples(self):
-        return [("", self.value)]
-
-
-# Latency-shaped default buckets (seconds): sub-ms host work through
-# multi-second drains, plus the paper's 700 ms budget as an edge.
-DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
-                   0.7, 1.0, 2.5, 5.0, 10.0)
-
-
-class Histogram:
-    """Cumulative-bucket histogram, Prometheus exposition semantics:
-    ``_bucket{le=...}`` counts observations <= bound, plus ``_sum`` and
-    ``_count``."""
-
-    __slots__ = ("name", "help", "buckets", "counts", "sum", "count")
-    kind = "histogram"
-
-    def __init__(self, name: str, help: str = "",
-                 buckets=DEFAULT_BUCKETS):
-        self.name = name
-        self.help = help
-        self.buckets = tuple(sorted(buckets))
-        if not self.buckets:
-            raise ValueError(f"{name}: need >= 1 bucket")
-        self.counts = [0] * len(self.buckets)
-        self.sum = 0.0
-        self.count = 0
-
-    def observe(self, v: float) -> None:
-        self.sum += v
-        self.count += 1
-        for i, b in enumerate(self.buckets):
-            if v <= b:
-                self.counts[i] += 1
-
-    def samples(self):
-        out = []
-        cum = 0
-        for b, c in zip(self.buckets, self.counts):
-            cum = c  # counts are already cumulative per observe()
-            out.append((f'_bucket{{le="{b}"}}', cum))
-        out.append(('_bucket{le="+Inf"}', self.count))
-        out.append(("_sum", self.sum))
-        out.append(("_count", self.count))
-        return out
-
-
 class MetricsRegistry:
-    """One namespace of instruments + polled sources, with Prometheus
-    text exposition.
+    """One namespace of polled sources, with Prometheus text exposition.
 
     ``labels`` stamp every sample (e.g. ``{"replica": "lm/0"}``) so
     per-replica registries merge into one exposition without name
     collisions. ``source(prefix, fn)`` registers a zero-arg callable
     returning a flat dict of numbers — the bridge that puts
-    ``engine.metrics`` / ``pool.stats()`` / scheduler / loop / balancer
-    counters behind this one registry instead of five ad-hoc dicts:
-    sources are polled at :meth:`collect` time and rendered as gauges
-    (their dict semantics: current value, resettable by the owner).
-    Non-numeric source values are skipped."""
+    ``engine.metrics`` / ``engine.counters`` / ``pool.stats()`` /
+    scheduler / loop / balancer counters behind this one registry
+    instead of ad-hoc dicts: sources are polled at :meth:`collect` time
+    and rendered as gauges (their dict semantics: current value,
+    resettable by the owner). Non-numeric source values are skipped."""
 
     def __init__(self, labels: dict | None = None):
         self.labels = dict(labels or {})
-        self._instruments: dict[str, object] = {}
         self._sources: list[tuple[str, object]] = []
-
-    # ------------------------------------------------------ instruments
-    def _get(self, cls, name: str, help: str, **kw):
-        name = _sanitize(name)
-        inst = self._instruments.get(name)
-        if inst is None:
-            inst = self._instruments[name] = cls(name, help, **kw)
-        elif not isinstance(inst, cls):
-            raise ValueError(f"{name}: already registered as "
-                             f"{type(inst).__name__}")
-        return inst
-
-    def counter(self, name: str, help: str = "") -> Counter:
-        return self._get(Counter, name, help)
-
-    def gauge(self, name: str, help: str = "") -> Gauge:
-        return self._get(Gauge, name, help)
-
-    def histogram(self, name: str, help: str = "",
-                  buckets=DEFAULT_BUCKETS) -> Histogram:
-        return self._get(Histogram, name, help, buckets=buckets)
 
     def source(self, prefix: str, fn) -> None:
         """Poll ``fn()`` (a flat ``{name: number}`` dict) at collect
         time, exposing each key as gauge ``{prefix}_{key}``."""
         self._sources.append((prefix, fn))
 
-    # ------------------------------------------------------- collection
     def collect(self) -> list:
-        """``(name, kind, help, labels, samples)`` tuples for every
-        instrument plus every source key — ``samples`` is a list of
-        ``(suffix, value)``."""
+        """``(name, labels, value)`` for every numeric key of every
+        source."""
         out = []
-        for name in sorted(self._instruments):
-            inst = self._instruments[name]
-            out.append((inst.name, inst.kind, inst.help, self.labels,
-                        inst.samples()))
         for prefix, fn in self._sources:
             vals = fn()
             for key in sorted(vals):
                 v = vals[key]
                 if isinstance(v, bool) or not isinstance(v, (int, float)):
                     continue
-                out.append((_sanitize(f"{prefix}_{key}"), "gauge", "",
-                            self.labels, [("", float(v))]))
+                out.append((_sanitize(f"{prefix}_{key}"), self.labels,
+                            float(v)))
         return out
 
     def prometheus_text(self) -> str:
@@ -358,34 +431,17 @@ def _render_labels(labels: dict) -> str:
 
 def prometheus_text(registries) -> str:
     """Merge many registries (one per replica, each with distinguishing
-    labels) into one Prometheus text exposition: ``# HELP``/``# TYPE``
-    emitted once per metric name, samples from every registry under
-    it."""
+    labels) into one Prometheus text exposition: ``# TYPE`` emitted once
+    per metric name, samples from every registry under it."""
     by_name: dict[str, list] = {}
-    meta: dict[str, tuple] = {}
     for reg in registries:
-        for name, kind, help, labels, samples in reg.collect():
-            by_name.setdefault(name, []).append((labels, samples))
-            if name not in meta or (help and not meta[name][1]):
-                meta[name] = (kind, help)
+        for name, labels, value in reg.collect():
+            by_name.setdefault(name, []).append((labels, value))
     lines = []
     for name in sorted(by_name):
-        kind, help = meta[name]
-        if help:
-            lines.append(f"# HELP {name} {help}")
-        lines.append(f"# TYPE {name} {kind}")
-        for labels, samples in by_name[name]:
-            for suffix, value in samples:
-                if "{" in suffix and labels:
-                    # fold the registry labels in with the sample's own
-                    # (histogram buckets carry le="...")
-                    base, inner = suffix.split("{", 1)
-                    lab = _render_labels(labels)
-                    lines.append(f"{name}{base}{lab[:-1]},{inner}"
-                                 f" {_fmt(value)}")
-                else:
-                    lines.append(f"{name}{suffix}{_render_labels(labels)}"
-                                 f" {_fmt(value)}")
+        lines.append(f"# TYPE {name} gauge")
+        for labels, value in by_name[name]:
+            lines.append(f"{name}{_render_labels(labels)} {_fmt(value)}")
     return "\n".join(lines) + "\n"
 
 

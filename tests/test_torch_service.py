@@ -245,7 +245,15 @@ def test_prometheus_series_match_reference():
         assert a["tokens"] == b["tokens"] and a["replica"] == b["replica"]
         np.testing.assert_allclose(b["logprobs"], a["logprobs"], atol=2e-5,
                                    rtol=2e-5)
+    # the port's own engine counters (``engine.counters``) are exposed
+    # beside the reference's series, which are compared whole
+    port_only = {f"engine_{k}" for k in ("prefill_calls",
+                                         "prefill_call_tokens",
+                                         "prefill_pad_tokens")}
     for got, want in ((text, jtext), (fleet, jfleet)):
+        ours = {k for k in got if k.split("{")[0] in port_only}
+        assert {k.split("{")[0] for k in ours} == port_only
+        got = {k: v for k, v in got.items() if k not in ours}
         assert sorted(got) == sorted(want)
         for key, value in want.items():
             if not key.split("{")[0].endswith("_s"):

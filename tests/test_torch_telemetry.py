@@ -1,8 +1,10 @@
 """The port's telemetry: each case of ``tests/test_telemetry.py`` on the
 port's CPU engine — tracer determinism, trace / stats reconstruction,
-the metrics registry and Prometheus exposition, and streams unchanged
-with tracing on (the grid without speculative decode, a later slice,
-plus the stripe layout).
+the metrics registry's sources and Prometheus exposition, and streams
+unchanged with tracing on (the grid without speculative decode, a later
+slice, plus the stripe layout) — and the port's device spans: placed on
+the tracer's clock through the tick's anchor event (a fake event class
+stands for CUDA's), held out of the ring until placed.
 
 The load-bearing claims: (1) a scripted workload under a VirtualClock
 emits **byte-identical** trace JSON run to run, (2) the trace's queued
@@ -21,9 +23,9 @@ from repro_torch.serve.async_loop import AsyncServeLoop
 from repro_torch.serve.clock import VirtualClock
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.scheduler import Scheduler
-from repro_torch.serve.telemetry import (NOOP, PID_LOOP, PID_POOL,
-                                         PID_REQUESTS, Counter, Gauge,
-                                         Histogram, MetricsRegistry, Tracer,
+from repro_torch.serve.telemetry import (NOOP, PID_DEVICE, PID_LOOP,
+                                         PID_POOL, PID_REQUESTS, LayerSpans,
+                                         MetricsRegistry, Tracer,
                                          prometheus_text)
 
 MAX_SEQ = 64
@@ -80,44 +82,233 @@ def test_negative_duration_clamped():
     assert ev["dur"] == 0.0
 
 
+class FakeDevice:
+    """A device clock of its own (seconds, far from the host's), and the
+    events recorded on it: ``record`` stamps the device's time,
+    ``elapsed_time`` is in ms as CUDA's and, as CUDA's, refuses an event
+    the device has not reached. While ``behind`` is set, what is recorded
+    is not reached until ``synchronize`` (or ``catch_up``)."""
+
+    def __init__(self, t=5000.0):
+        self.t = t
+        self.made = 0
+        self.streams = 0
+        self.behind = False
+        self.recorded = []
+
+    def event(self):
+        self.made += 1
+        return FakeEvent(self)
+
+    def stream(self):
+        self.streams += 1
+        return object()
+
+    def catch_up(self):
+        for ev in self.recorded:
+            ev.done = True
+
+
+class FakeEvent:
+    def __init__(self, device):
+        self.device = device
+        self.t = None
+        self.done = False
+        self.stream = None
+
+    def record(self, stream=None):
+        self.t, self.stream = self.device.t, stream
+        self.done = not self.device.behind
+        self.device.recorded.append(self)
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, end):
+        if not (self.done and end.done):
+            raise RuntimeError("CUDA error: device not ready")
+        return (end.t - self.t) * 1e3
+
+
+def _fake_tracer(dev, **kw):
+    return Tracer(event=dev.event, stream=dev.stream, **kw)
+
+
+def test_device_spans_are_placed_through_the_anchor():
+    """A tick's device spans wait for its commit, which takes the anchor
+    without waiting: an event on a stream of its own, beside the clock's
+    reading; they are placed at a later commit (or an export), each mark
+    its elapsed device time before the anchor. Spent events are recorded
+    again."""
+    vc, dev = VirtualClock(10.0), FakeDevice()
+    tr = _fake_tracer(dev, clock=vc)
+    rec = tr.device_spans(True)
+    a = rec.mark()
+    dev.t += 0.002
+    b = rec.mark()
+    dev.t += 0.001
+    c = rec.mark()
+    dev.t += 0.004
+    d = rec.mark()
+    rec.span("decode-step", a, d, {"tick": 3})
+    rec.span("moe-ffn", b, c)
+    dev.t += 0.010                      # the commit's sync: device idle
+    vc.advance(0.5)
+    rec.commit()
+    assert len(tr) == 0                 # the anchor is taken, not waited on
+    assert dev.made == 5 and dev.streams == 1
+    assert dev.recorded[-1].stream is not None     # on the anchors' stream
+    # the next tick (the device clock ran 1 s fast against the host's
+    # meanwhile): its commit places the first tick's spans
+    e0 = rec.mark()
+    dev.t += 2.0
+    e1 = rec.mark()
+    rec.span("prefill-call", e0, e1)
+    vc.advance(1.0)
+    rec.commit()
+    spans = [e for e in tr.chrome_trace()["traceEvents"] if e["ph"] == "X"]
+    assert [(e["name"], e["pid"]) for e in spans] == \
+        [("decode-step", PID_DEVICE), ("moe-ffn", PID_DEVICE),
+         ("prefill-call", PID_DEVICE)]
+    # the anchor at 10.5 s on the clock is 17 ms of device time after a
+    assert spans[0]["ts"] == pytest.approx(10.483e6)
+    assert spans[0]["dur"] == pytest.approx(7000.0)
+    assert spans[0]["args"] == {"tick": 3}
+    assert spans[1]["ts"] == pytest.approx(10.485e6)
+    assert spans[1]["dur"] == pytest.approx(1000.0)
+    # placed by the export through its own tick's anchor, at 11.5 s
+    assert spans[2]["ts"] == pytest.approx(9.5e6)
+    assert spans[2]["dur"] == pytest.approx(2.0e6)
+    assert dev.made == 7 and dev.streams == 1
+    # a tick's marks and anchor come from the spare events now
+    rec.span("x", rec.mark(), rec.mark())
+    rec.commit()
+    rec.commit()                        # nothing pending: no anchor
+    assert dev.made == 7
+    tr.chrome_trace()
+    assert dev.made == 7
+
+
+def test_device_spans_wait_for_their_anchor():
+    """A commit places only the ticks whose anchor the device has
+    reached; the rest wait for a later commit."""
+    vc, dev = VirtualClock(1.0), FakeDevice()
+    tr = _fake_tracer(dev, clock=vc)
+    rec = tr.device_spans(True)
+    dev.behind = True
+    rec.span("decode-step", rec.mark(), rec.mark(), {"tick": 0})
+    rec.commit()
+    rec.span("decode-step", rec.mark(), rec.mark(), {"tick": 1})
+    rec.commit()                        # tick 0's anchor not reached yet
+    assert len(tr) == 0
+    dev.catch_up()
+    dev.behind = False
+    rec.commit()
+    assert [e["args"]["tick"] for e in tr._events] == [0, 1]
+
+
+def test_engines_sharing_a_tracer_place_only_their_own_spans():
+    """Two engines' recorders on one tracer: one's commit neither reads
+    nor drops the other's spans, though the other's events are not yet
+    reached (CUDA would refuse their elapsed time)."""
+    vc, dev = VirtualClock(1.0), FakeDevice()
+    tr = _fake_tracer(dev, clock=vc)
+    rec_a, rec_b = tr.device_spans(True), tr.device_spans(True)
+    rec_a.span("decode-step", rec_a.mark(), rec_a.mark(), {"tick": 0})
+    dev.behind = True                   # B's step is still on the device
+    rec_b.span("decode-step", rec_b.mark(), rec_b.mark(), {"tick": 7})
+    dev.behind = False
+    rec_a.commit()
+    rec_a.span("decode-step", rec_a.mark(), rec_a.mark(), {"tick": 1})
+    rec_a.commit()
+    assert [e["args"]["tick"] for e in tr._events] == [0]
+    dev.catch_up()
+    rec_b.commit()
+    rec_b.commit()
+    assert sorted(e["args"]["tick"] for e in tr._events) == [0, 7]
+    ticks = sorted(e["args"]["tick"] for e in tr.chrome_trace()
+                   ["traceEvents"] if e["ph"] == "X")
+    assert ticks == [0, 1, 7] and tr.dropped == 0
+
+
+def test_device_spans_on_threads_are_all_placed():
+    """Four recorders on one tracer, each committed on its own thread
+    while an export may run: every span is placed once, none dropped."""
+    import threading
+
+    dev = FakeDevice()
+    tr = _fake_tracer(dev)
+    recs = [tr.device_spans(True) for _ in range(4)]
+
+    def serve(k):
+        rec = recs[k]
+        for tick in range(300):
+            rec.span("decode-step", rec.mark(), rec.mark(),
+                     {"tick": tick, "engine": k})
+            rec.commit()
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    tr.chrome_trace()
+    for t in threads:
+        t.join()
+    got = sorted((e["args"]["engine"], e["args"]["tick"])
+                 for e in tr.chrome_trace()["traceEvents"] if e["ph"] == "X")
+    assert got == [(k, t) for k in range(4) for t in range(300)]
+    assert tr.dropped == 0
+
+
+def test_host_device_spans_are_stamped_by_the_clock():
+    """Off a CUDA device a mark is the clock's reading: the span is
+    emitted at once, and no event or stream is made."""
+    vc, dev = VirtualClock(2.0), FakeDevice()
+    tr = _fake_tracer(dev, clock=vc)
+    rec = tr.device_spans(False)
+    a = rec.mark()
+    vc.advance(0.25)
+    with LayerSpans(rec, "moe-ffn").arm(7, "decode-step"):
+        vc.advance(0.5)
+    rec.span("decode-step", a, rec.mark())
+    rec.commit()
+    spans = [e for e in tr.chrome_trace()["traceEvents"] if e["ph"] == "X"]
+    assert [(e["name"], e["ts"], e["dur"], e.get("args")) for e in spans] \
+        == [("moe-ffn", 2.25e6, 0.5e6,
+             {"tick": 7, "step": "decode-step", "layer": 0}),
+            ("decode-step", 2.0e6, 0.75e6, None)]
+    assert dev.made == 0 and dev.streams == 0
+
+
+def test_device_spans_count_in_the_ring_when_placed():
+    """Device spans not yet placed hold no slot of the ring; once placed
+    they are events like any other: the oldest drop first and ``dropped``
+    counts them."""
+    vc, dev = VirtualClock(), FakeDevice()
+    tr = _fake_tracer(dev, clock=vc, capacity=4)
+    rec = tr.device_spans(True)
+    for i in range(3):
+        tr.instant(f"e{i}")
+    marks = [rec.mark() for _ in range(6)]
+    for i in range(3):
+        rec.span(f"d{i}", marks[2 * i], marks[2 * i + 1])
+    rec.commit()
+    assert len(tr) == 3 and tr.dropped == 0
+    names = [e["name"] for e in tr.chrome_trace()["traceEvents"]
+             if e["ph"] in "iX"]
+    assert len(tr) == 4 and tr.dropped == 2
+    assert names == ["e2", "d0", "d1", "d2"]
+    assert tr.chrome_trace()["otherData"]["dropped_events"] == 2
+
+
+def test_noop_device_spans_are_inert():
+    assert NOOP.device_spans(True) is None
+    assert NOOP.chrome_trace()["traceEvents"] == []
+
+
 # =================================================== registry unit tests
-def test_counter_monotonic():
-    c = Counter("hits")
-    c.inc()
-    c.inc(2)
-    assert c.value == 3
-    with pytest.raises(ValueError, match="only go up"):
-        c.inc(-1)
-
-
-def test_gauge_moves_both_ways():
-    g = Gauge("depth")
-    g.set(5)
-    g.inc()
-    g.dec(2)
-    assert g.value == 4
-
-
-def test_histogram_cumulative_buckets():
-    h = Histogram("lat", buckets=(0.1, 1.0))
-    for v in (0.05, 0.5, 0.5, 5.0):
-        h.observe(v)
-    samples = dict(h.samples())
-    assert samples['_bucket{le="0.1"}'] == 1
-    assert samples['_bucket{le="1.0"}'] == 3
-    assert samples['_bucket{le="+Inf"}'] == 4
-    assert samples["_count"] == 4
-    assert samples["_sum"] == pytest.approx(6.05)
-
-
-def test_registry_kind_mismatch_raises():
-    reg = MetricsRegistry()
-    reg.counter("ticks")
-    assert reg.counter("ticks") is reg.counter("ticks")   # create-or-get
-    with pytest.raises(ValueError, match="already registered"):
-        reg.gauge("ticks")
-
-
 def test_registry_source_polls_and_skips_non_numeric():
     state = {"completed": 1, "label": "text", "flag": True, "ratio": 0.5}
     reg = MetricsRegistry(labels={"replica": "lm/0"})
@@ -135,19 +326,19 @@ def test_prometheus_merge_across_registries():
     regs = []
     for i in range(2):
         reg = MetricsRegistry(labels={"replica": f"lm/{i}"})
-        reg.counter("served", help="requests served").inc(i + 1)
-        h = reg.histogram("wait", buckets=(1.0,))
-        h.observe(0.5)
+        reg.source("engine", lambda i=i: {"served": i + 1,
+                                          "wait_s": 0.5 * i})
+        reg.source("engine", lambda: {"prefill_calls": 3})
         regs.append(reg)
     text = prometheus_text(regs)
-    # HELP/TYPE once per name, samples from both registries under it
-    assert text.count("# TYPE served counter") == 1
-    assert text.count("# HELP served requests served") == 1
-    assert 'served{replica="lm/0"} 1' in text
-    assert 'served{replica="lm/1"} 2' in text
-    # registry labels fold into the histogram's own le label
-    assert 'wait_bucket{replica="lm/0",le="1.0"} 1' in text
-    assert 'wait_count{replica="lm/1"} 1' in text
+    # TYPE once per name, samples from both registries under it, two
+    # sources of one prefix side by side
+    assert text.count("# TYPE engine_served gauge") == 1
+    assert 'engine_served{replica="lm/0"} 1' in text
+    assert 'engine_served{replica="lm/1"} 2' in text
+    assert 'engine_wait_s{replica="lm/1"} 0.5' in text
+    assert text.count("# TYPE engine_prefill_calls gauge") == 1
+    assert 'engine_prefill_calls{replica="lm/1"} 3' in text
 
 
 def test_metric_names_sanitized():
@@ -413,6 +604,10 @@ def test_service_and_supervisor_prometheus_exposition(stack):
     assert len(out["tokens"]) == 3
     text = service_prometheus_text(svc)
     assert 'engine_completed{replica="lm/0"} 1' in text
+    # the port's own counters beside the reference's: one prefill call of
+    # 5 prompt tokens in a bucket of 8
+    assert 'engine_prefill_calls{replica="lm/0"} 1' in text
+    assert 'engine_prefill_pad_tokens{replica="lm/0"} 3' in text
     assert 'scheduler_completed{replica="lm/0"} 1' in text
     assert 'balancer_served{service="lm"} 1' in text
     assert "# TYPE engine_completed gauge" in text
